@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path once on one CUDA card.
+"""Drive the PyTorch port's main paths once on one CUDA card.
 
 Run from the repository root with no arguments:
 
@@ -7,15 +7,25 @@ Run from the repository root with no arguments:
 
 Phases (any failure raises and the script exits nonzero):
   1. card, power limit and library versions;
-  2. build the hand-written CUDA kernels from regcm_tpu_torch/csrc;
+  2. build the four hand-written CUDA kernels from regcm_tpu_torch/csrc,
+     one nvcc per source, all started together;
   3. each kernel against its plain PyTorch version on the card, f64 and
-     f32, at the main path's shape and at a many-block shape, with the
-     kernel and plain times at the main-path shape;
-  4. Model(RegCMConfig()) at test_001 size (34x48x18, dt 150 s, f32) for
-     24 steps through the kernels (launch counters checked), then the
-     ms/step of 24 further steps;
+     f32, at a small ragged shape and at the MOLOCH 192x192x41 shape,
+     with the kernel and plain times (CUDA events) beside each kernel's
+     bound at the MOLOCH shape (and at the test_001 shape for K1, K2);
+  4. the hydrostatic path: Model(RegCMConfig()) at test_001 size
+     (34x48x18, dt 150 s, f32) for 24 steps through K1 and K2 (launch
+     counters checked), then the ms/step of 24 further steps;
   5. the same Model for 10 steps in f64 on the card and on the CPU;
-  6. a JSON line of the kernels, then the result line.
+  6. the MOLOCH path: Model with idynamic=3 at 192x192x41 (ds 3 km,
+     dt 30 s, f32) for 24 steps through K1, K2, K3 and K4 (launch
+     counters checked), then the ms/step of 24 further steps without
+     radiation, a torch.profiler view of 4 more, the time of the
+     radiation step 60 and the step at which the state goes non-finite
+     (reported, as the reference's does); then the same settings on a
+     48x48x41 domain for 24 steps, held to the JAX package's numbers;
+  7. MOLOCH on the card against the CPU in f64 at 16x20x14 over a hill;
+  8. a JSON line of the kernels, then the result line.
 """
 import json
 import os
@@ -27,10 +37,33 @@ import numpy as np
 
 STEPS = 24
 CHECK_STEPS = 10
+RAD_STEP = 60          # the first radiation alarm after step 0
+# the JAX package (float32, CPU) at MOLOCH 3 km settings on a 48x48x41
+# domain from the 0.3 K perturbed rest state: step -> (ps min hPa, ps max
+# hPa, max |w| m/s); the same numbers as tests/test_torch_moloch_3km.py
+REFERENCE = {6: (1011.3323, 1013.6910, 0.22048),
+             12: (1010.3247, 1014.5790, 0.20938),
+             18: (1002.8120, 1022.8336, 0.65207),
+             24: (979.3270, 1055.1946, 3.13658)}
 # kernel vs plain tolerances, relative to the scale of each output:
 # f64 recurrences and sums agree to roundoff; f32 sums reordered
-TOL = {("K1", "float64"): 1e-12, ("K2", "float64"): 1e-10,
-       ("K1", "float32"): 1e-5, ("K2", "float32"): 1e-5}
+TOL = {"float64": {"K1": 1e-12, "K2": 1e-10, "K3": 1e-12, "K4": 1e-12},
+       "float32": {"K1": 1e-5, "K2": 1e-5, "K3": 1e-5, "K4": 1e-5}}
+# published H100 SXM peaks: HBM bytes/s and
+# float32 FLOP/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
+NAMES = {"K1": "pbl_tridiag", "K2": "emanuel_mixing", "K3": "tridiag_w",
+         "K4": "waf_advect"}
+REPLACES = {"K1": "regcm_tpu/dynamics/pallas_kernels.py:520",
+            "K2": "regcm_tpu/dynamics/pallas_kernels.py:426",
+            "K3": "regcm_tpu/dynamics/pallas_kernels.py:68",
+            "K4": "regcm_tpu/dynamics/pallas_kernels.py:321"}
+# shapes: (small ragged or test_001 shape, MOLOCH 192x192x41 shape)
+SHAPES = {"K1": [(5, 18, 34, 48), (5, 41, 192, 192)],
+          "K2": [(34 * 48, 18), (192 * 192, 41)],
+          "K3": [(13, 34, 48), (40, 192, 192)],
+          "K4": [(7, 14, 34, 48), (7, 41, 192, 192)]}
 
 
 def nvidia_smi_line():
@@ -61,10 +94,65 @@ def time_ms(fn, reps=20):
     return t0.elapsed_time(t1) / reps
 
 
+# -- work of each kernel at a shape: (bytes each input read once and each
+# output written once, arithmetic operations the function needs) --------
+
+# K2's operations, counted line by line from csrc/emanuel_mixing.cu: each
+# add, subtract, multiply, divide, min, max, abs and comparison counts
+# one; selects, index tests and bit operations none; a term of i alone or
+# of j alone is counted once per level, not per pair. Keys: pairs that
+# take each branch (emanuel_mixing_plain's counts); "pair" is every pair,
+# "level" every (column, level).
+K2_OPS = {
+    # pass 1 (:118-140): anum 4, denom 2, fix01 and the divide 3, altem 6,
+    # redo test 3, validity 2, clip 2; amp1_e and ad from one row-suffix
+    # and two prefix sums of ment, 2 (not the kernel's L^3 loops)
+    "pair": 24,
+    "redo": 15,       # :125-129: anum2 4, denom2 4, divide 1, altem 6
+    # pass 2 (:162, :179-183) clip 2, weight 6, asij 1; pass 3a (:192-199)
+    # 7; pass 3b (:212-233) entrained q, u, v 12, elij 1, summands 6;
+    # column sums of the q, u, v summands 3
+    "valid": 38,
+    "valid_gt": 7,    # j > i: smid, c_cond 2; awat 2, its product and
+                      # subtraction 2; wdtrain's column sum 1
+    "valid_le": 3,    # j <= i: smid, sjmax, sjmin (:175-177)
+    "c_cond": 2,      # use_min test, running min (:169, :173)
+    "use_min": 4,     # sjmax, sjmin (:171-172)
+    # bf2 7, cwat 2, the level terms of anum and redo 4, the row terms
+    # of denom 3, scrit 12, asij and fallback 3, g * wd 1
+    "level": 32,
+}
+
+
+def work(k, shape, b, counts=None):
+    if k == "K1":                  # c1, c2, c3, rhs in; x out
+        n = int(np.prod(shape))    # fwd: 2 mul, 2 sub/add, 2 div; back: 2
+        return 5 * n * b, 8 * n
+    if k == "K2":                  # 13 profiles + cloud mask in, 8 out;
+        ncol, L = shape            # unk, vnk; icb, ict as int64
+        byt = (21 * b + 1) * ncol * L + ncol * (2 * b + 16)
+        n = dict(counts, pair=ncol * L * L, level=ncol * L,
+                 valid_le=counts["valid"] - counts["valid_gt"])
+        return byt, sum(K2_OPS[key] * n[key] for key in K2_OPS)
+    if k == "K3":                  # wexpl, zm, zp in, w out; w_bot
+        n, iy, jx = shape          # up 9 ops a level, down 2
+        return (4 * n + 1) * iy * jx * b, 11 * n * iy * jx
+    nf, kz, iy, jx = shape         # K4: pp in, out; um, vm, fmz; s, fmzf;
+    plane = iy * jx                # mx2, m_ci; ~97 ops a point: one
+    byt = (2 * nf * kz + 3 * kz + 2 * (kz + 1) + 2) * plane * b  # flux
+    return byt, 97 * nf * kz * plane            # and update per sweep
+
+
+def bound(k, shape, b, counts=None):
+    byt, ops = work(k, shape, b, counts)
+    t_b, t_o = byt / HBM_BYTES_PER_S, ops / F32_FLOPS
+    return (1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations",
+            byt, ops)
+
+
 def k1_inputs(shape, dtype, dev, seed=0):
     import torch
     rng = np.random.default_rng(seed)
-    ns, kz, iy, jx = shape
     al = rng.uniform(0.1, 1.0, shape)
     be = rng.uniform(0.1, 1.0, shape)
     bkp = np.concatenate([be[:, 1:], np.zeros_like(be[:, :1])], axis=1)
@@ -77,8 +165,9 @@ def k1_inputs(shape, dtype, dev, seed=0):
             for a in (c1, c2, c3, rhs)]
 
 
-def k2_inputs(ncol, L, dtype, dev, seed=0):
+def k2_inputs(shape, dtype, dev, seed=0):
     import torch
+    ncol, L = shape
     rng = np.random.default_rng(seed)
     f = lambda lo, hi: rng.uniform(lo, hi, (ncol, L))
     levels = [f(2.8e5, 3.5e5), f(2.8e5, 3.5e5), f(1e-4, 2e-2),
@@ -96,67 +185,154 @@ def k2_inputs(ncol, L, dtype, dev, seed=0):
             + [torch.as_tensor(a, device=dev) for a in (icb, ict, cloud)])
 
 
-def compare_kernels(dev):
-    """Phase 3: kernel against plain version; returns per-kernel stats
-    at the main-path shape in f32 (the dtype of the main path)."""
+def k3_inputs(shape, dtype, dev, seed=7):
     import torch
-    from regcm_tpu_torch.kernels import emanuel_mixing as k2
-    from regcm_tpu_torch.kernels import pbl_tridiag as k1
+    rng = np.random.default_rng(seed)
+    n, iy, jx = shape
+    arrs = (rng.normal(size=shape), rng.uniform(0.01, 0.5, shape),
+            rng.uniform(0.01, 0.5, shape), rng.normal(size=(iy, jx)))
+    return [torch.as_tensor(a, dtype=dtype, device=dev) for a in arrs]
 
-    cases = {
-        "K1": [(5, 18, 34, 48), (5, 41, 192, 192)],
-        "K2": [(34 * 48, 18), (192 * 192, 41)],
-    }
+
+def k4_inputs(shape, dtype, dev, seed=11):
+    """WAF operands of the MOLOCH step's kind: smooth fields with noise,
+    face winds of both signs, s of both signs, metric factors near 1 with
+    fmzf = 0 at the model top; dtrdx, dtrdz of dt 30 s at ds 3 km."""
+    import torch
+    rng = np.random.default_rng(seed)
+    nf, kz, iy, jx = shape
+    sm = lambda sh: rng.normal(size=sh) + 10.0 * np.sin(
+        np.linspace(0, 3, int(np.prod(sh))).reshape(sh))
+    pp = sm(shape)
+    pp[0] += 300.0
+    um = 8.0 + 0.5 * sm((kz, iy, jx))
+    vm = -5.0 + 0.5 * sm((kz, iy, jx))
+    s = 0.1 * sm((kz + 1, iy, jx))
+    fmz = 1.0 + 0.05 * rng.random((kz, iy, jx))
+    fmzf = 1.0 + 0.05 * rng.random((kz + 1, iy, jx))
+    fmzf[0] = 0.0
+    mx2 = 1.0 + 0.01 * rng.random((iy, jx))
+    m_ci = np.zeros((iy, jx))
+    m_ci[1:iy - 2, 1:jx - 2] = 1.0
+    T = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)
+    return [T(a) for a in (pp, um, vm, s, fmz, fmzf, mx2, m_ci)] \
+        + [30.0 / 3000.0, 30.0 / 199.4]
+
+
+def compare_kernels(dev, mods):
+    """Phase 3: kernel against plain version on the same inputs; returns
+    per-kernel stats in f32 at the MOLOCH shape and the test_001 shape."""
+    import torch
+    make = {"K1": k1_inputs, "K2": k2_inputs, "K3": k3_inputs,
+            "K4": k4_inputs}
     stats = {}
     for dtype in (torch.float64, torch.float32):
         dname = str(dtype).split(".")[-1]
-        for n, shape in enumerate(cases["K1"]):
-            args = k1_inputs(shape, dtype, dev)
-            got = k1.pbl_tridiag(*args)
-            want = k1.pbl_tridiag_plain(*args)
-            torch.cuda.synchronize()
-            rel, ab = rel_err(got, want)
-            print(f"K1 pbl_tridiag {dname} {shape}: max rel err {rel:.3e} "
-                  f"(max abs {ab:.3e}, tol {TOL[('K1', dname)]:g})")
-            if not rel <= TOL[("K1", dname)]:
-                raise AssertionError(f"K1 {dname} {shape} disagrees: {rel}")
-            if n == 0 and dname == "float32":
-                stats["K1"] = dict(
-                    max_abs_err=ab,
-                    ms=time_ms(lambda: k1.pbl_tridiag(*args)),
-                    plain_ms=time_ms(lambda: k1.pbl_tridiag_plain(*args)))
-            del args, got, want
-        for n, (ncol, L) in enumerate(cases["K2"]):
-            args = k2_inputs(ncol, L, dtype, dev)
-            got = k2.emanuel_mixing(*args)
-            want = k2.emanuel_mixing_plain(*args)
-            torch.cuda.synchronize()
-            worst = (0.0, 0.0)
-            for key in k2.KEYS:
-                rel, ab = rel_err(got[key], want[key])
-                worst = max(worst, (rel, ab))
-                if not rel <= TOL[("K2", dname)]:
-                    raise AssertionError(
-                        f"K2 {dname} ({ncol}, {L}) {key} disagrees: {rel}")
-            print(f"K2 emanuel_mixing {dname} ({ncol}, {L}): max rel err "
-                  f"{worst[0]:.3e} (max abs {worst[1]:.3e}, tol "
-                  f"{TOL[('K2', dname)]:g})")
-            if n == 0 and dname == "float32":
-                stats["K2"] = dict(
-                    max_abs_err=worst[1],
-                    ms=time_ms(lambda: k2.emanuel_mixing(*args)),
-                    plain_ms=time_ms(lambda: k2.emanuel_mixing_plain(*args)))
-            del args, got, want
-            torch.cuda.empty_cache()
-    for k in ("K1", "K2"):
-        print(f"{k} main-path shape f32: kernel {stats[k]['ms']:.4f} ms, "
-              f"plain {stats[k]['plain_ms']:.4f} ms")
+        for k, mod in mods.items():
+            name = NAMES[k]
+            kern = getattr(mod, name)
+            plain = getattr(mod, name + "_plain")
+            for n, shape in enumerate(SHAPES[k]):
+                args = make[k](shape, dtype, dev)
+                got = kern(*args)
+                counts = {}        # K2's branch counts on these inputs
+                want = plain(*args, counts=counts) if k == "K2" \
+                    else plain(*args)
+                torch.cuda.synchronize()
+                if k == "K2":
+                    rel, ab = max(rel_err(got[key], want[key])
+                                  for key in mod.KEYS)
+                else:
+                    rel, ab = rel_err(got, want)
+                print(f"{k} {name} {dname} {shape}: max rel err {rel:.3e} "
+                      f"(max abs {ab:.3e}, tol {TOL[dname][k]:g})")
+                if not rel <= TOL[dname][k]:
+                    raise AssertionError(f"{k} {dname} {shape} disagrees: "
+                                         f"{rel}")
+                if dname == "float32":
+                    b_ms, b_by, byt, ops = bound(k, shape, 4, counts)
+                    st = dict(max_abs_err=ab,
+                              ms=time_ms(lambda: kern(*args)),
+                              plain_ms=time_ms(lambda: plain(*args)),
+                              bound_ms=b_ms, bound_by=b_by, bytes=byt,
+                              ops=ops, shape=list(shape))
+                    stats.setdefault(k, {})["moloch" if n == 1
+                                            else "small"] = st
+                    print(f"{k} f32 {shape}: kernel {st['ms']:.4f} ms, "
+                          f"plain {st['plain_ms']:.4f} ms, bound "
+                          f"{b_ms:.4f} ms ({b_by}: {byt / 1e6:.1f} MB, "
+                          f"{ops / 1e9:.3f} GFLOP)")
+                del args, got, want
+                torch.cuda.empty_cache()
     return stats
 
 
 def rel_rms(a, b):
     return float(np.sqrt(np.mean((a - b) ** 2))
                  / (np.sqrt(np.mean(b ** 2)) + 1e-30))
+
+
+def reset(mods):
+    for mod in mods.values():
+        mod.launches = 0
+
+
+def read(mods):
+    return {k: mod.launches for k, mod in mods.items()}
+
+
+def hill(iy, jx, seed=5):
+    """Seeded Gaussian hill, ~800 m, on the (iy-1, jx-1) cross grid."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.meshgrid(np.arange(iy - 1), np.arange(jx - 1),
+                         indexing="ij")
+    return 800.0 * np.exp(-(((yy - 7.0) / 3.5) ** 2
+                            + ((xx - 9.0) / 4.0) ** 2)) \
+        + 20.0 * rng.random((iy - 1, jx - 1))
+
+
+def card_vs_cpu(runs, fields, what):
+    """Card against CPU in f64: rel-RMS below max(1e-7, 4 x the CPU
+    run's own spread under a 1e-15 relative change of T), and below 1e-7
+    without the saturation adjustment (subexparam conf=0)."""
+    for f in fields:
+        err = rel_rms(runs["gpu"][f], runs["cpu"][f])
+        spread = rel_rms(runs["cpu_perturbed"][f], runs["cpu"][f])
+        lim = max(1e-7, 4.0 * spread)
+        dry_err = rel_rms(runs["gpu_dry"][f], runs["cpu_dry"][f])
+        print(f"{what} f64 card vs CPU {f}: rel-RMS {err:.3e} (roundoff "
+              f"spread {spread:.3e}, bound {lim:.3e}); without the "
+              f"saturation adjustment {dry_err:.3e} (bound 1e-07)")
+        if not err < lim:
+            raise AssertionError(f"{what}: card and CPU disagree on {f}: "
+                                 f"{err}")
+        if not dry_err < 1e-7:
+            raise AssertionError(f"{what}: card and CPU disagree on {f} "
+                                 f"without condensation: {dry_err}")
+
+
+def profile_steps(model, nsteps):
+    """Device busy share and the costliest device kernels over nsteps
+    steps (torch.profiler; its own overhead inflates the wall time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, wall = model.run(nsteps)
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+    by_name = {}
+    for e in kern:
+        by_name[e.name] = by_name.get(e.name, 0.0) \
+            + e.time_range.elapsed_us() / 1e3
+    print(f"profile, {nsteps} MOLOCH steps: wall {1e3 * wall:.1f} ms, "
+          f"{len(kern)} device kernels ({len(kern) / nsteps:.0f} a step), "
+          f"device busy {busy_ms:.2f} ms = "
+          f"{100.0 * busy_ms / (1e3 * wall):.2f}% of wall")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"  {ms:9.3f} ms  {name[:100]}")
 
 
 def main():
@@ -166,16 +342,20 @@ def main():
                          "this check runs only on a CUDA card")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
-        from regcm_tpu.config.params import RegCMConfig
-        from regcm_tpu.core.grid import build_grid
+        from regcm_tpu_torch.config.params import RegCMConfig
+        from regcm_tpu_torch.core.grid import build_grid
         from regcm_tpu_torch.driver import Model, standard_atmosphere_state
+        from regcm_tpu_torch.dynamics.moloch import MolochCore
         from regcm_tpu_torch.kernels import emanuel_mixing as k2
         from regcm_tpu_torch.kernels import pbl_tridiag as k1
+        from regcm_tpu_torch.kernels import tridiag_w as k3
+        from regcm_tpu_torch.kernels import waf_advect as k4
     except ImportError as e:
         raise SystemExit(f"chip_smoke: the repository is not here ({e})")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    mods = {"K1": k1, "K2": k2, "K3": k3, "K4": k4}
 
     # -- 1. card and versions
     smi = nvidia_smi_line()
@@ -184,50 +364,54 @@ def main():
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}, device {kind}")
 
-    # -- 2. build
+    # -- 2. build: one nvcc per source, all at once (nvcc runs in a
+    # subprocess, so the threads overlap)
+    from concurrent.futures import ThreadPoolExecutor
     t0 = time.time()
-    k1.build()
-    k2.build()
+    with ThreadPoolExecutor(len(mods)) as ex:
+        for fut in [ex.submit(m.build) for m in mods.values()]:
+            fut.result()
     print(f"kernels built in {time.time() - t0:.1f} s")
 
     # -- 3. kernels against their plain versions
-    stats = compare_kernels(dev)
+    stats = compare_kernels(dev, mods)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
 
-    # -- 4. main path: test_001 full physics, f32, 24 steps
+    # -- 4. hydrostatic path: test_001 full physics, f32, 24 steps
     cfg = RegCMConfig()
     grid = build_grid(cfg)
-    print(f"model: {grid.jx}x{grid.iy}x{grid.kz}, dt {cfg.dtsec} s, "
-          f"ds {cfg.geo.ds} km")
+    print(f"hydrostatic model: {grid.jx}x{grid.iy}x{grid.kz}, dt "
+          f"{cfg.dtsec} s, ds {cfg.geo.ds} km")
     s0 = standard_atmosphere_state(grid, cfg, dev, torch.float32,
                                    perturb=0.3, seed=1)
     model = Model(cfg, grid=grid, device=dev, dtype=torch.float32,
                   initial_state=s0)
-    k1.launches = 0
-    k2.launches = 0
+    reset(mods)
     _, wall = model.run(STEPS)
-    launches = {"K1": k1.launches, "K2": k2.launches}
-    print(f"main path: {STEPS} steps in {wall:.3f} s; launches "
-          f"pbl_tridiag {launches['K1']}, emanuel_mixing {launches['K2']}")
+    hydro_launches = read(mods)
+    print(f"hydrostatic path: {STEPS} steps in {wall:.3f} s; launches "
+          f"{hydro_launches}")
     if not model.check_finite():
         raise AssertionError("non-finite state after the f32 run")
-    if launches["K1"] <= 0 or launches["K2"] <= 0:
-        raise AssertionError(f"main path bypassed a kernel: {launches}")
+    if hydro_launches["K1"] <= 0 or hydro_launches["K2"] <= 0:
+        raise AssertionError(f"hydrostatic path bypassed a kernel: "
+                             f"{hydro_launches}")
     d = model.decoupled()
     print(f"ps {d['ps'].min():.3f}..{d['ps'].max():.3f} hPa, "
           f"T {d['t'].min():.3f}..{d['t'].max():.3f} K")
     _, wall = model.run(STEPS)
-    print(f"ms/step (f32, steps {STEPS}..{2 * STEPS - 1}, "
+    print(f"hydrostatic ms/step (f32, steps {STEPS}..{2 * STEPS - 1}, "
           f"synchronised): {1000.0 * wall / STEPS:.3f} on {smi}")
+    del model, s0
 
-    # -- 5. card against CPU, f64, 10 steps. From the rest state the
-    # saturation adjustment amplifies roundoff (a 1e-15 change of T
-    # moves u, v by ~5e-7), so the default run is held to four times
+    # -- 5. hydrostatic card against CPU, f64, 10 steps. From the rest
+    # state the saturation adjustment amplifies roundoff (a 1e-15 change
+    # of T moves u, v by ~5e-7), so the default run is held to four times
     # that measured spread; with the adjustment off (subexparam conf=0)
     # the trajectory is well conditioned and held to 1e-7.
-    s0 = standard_atmosphere_state(grid, cfg, dtype=torch.float64,
-                                   perturb=0.3, seed=1)
+    s0 = standard_atmosphere_state(grid, cfg, device="cpu",
+                                   dtype=torch.float64, perturb=0.3, seed=1)
     rng = np.random.default_rng(0)
     s1 = s0._replace(t_a=s0.t_a * (1.0 + 1e-15 * torch.as_tensor(
         rng.standard_normal(tuple(s0.t_a.shape)))))
@@ -242,34 +426,160 @@ def main():
                   initial_state=init)
         m.run(CHECK_STEPS)
         runs[name] = m.decoupled()
-    for f in ("ps", "t", "qv", "u", "v"):
-        err = rel_rms(runs["gpu"][f], runs["cpu"][f])
-        spread = rel_rms(runs["cpu_perturbed"][f], runs["cpu"][f])
-        bound = max(1e-7, 4.0 * spread)
-        dry_err = rel_rms(runs["gpu_dry"][f], runs["cpu_dry"][f])
-        print(f"f64 card vs CPU {f}: rel-RMS {err:.3e} (roundoff spread "
-              f"{spread:.3e}, bound {bound:.3e}); without the saturation "
-              f"adjustment {dry_err:.3e} (bound 1e-07)")
-        if not err < bound:
-            raise AssertionError(f"card and CPU disagree on {f}: {err}")
-        if not dry_err < 1e-7:
-            raise AssertionError(
-                f"card and CPU disagree on {f} without condensation: "
-                f"{dry_err}")
+    card_vs_cpu(runs, ("ps", "t", "qv", "u", "v"), "hydrostatic")
 
-    if "jax" in sys.modules:
-        raise AssertionError("the port imported jax")
+    # -- 6. MOLOCH path: the flagship 3 km domain, f32, 24 steps
+    mcfg = RegCMConfig()
+    mcfg.core.idynamic = 3
+    mcfg.dim.iy = mcfg.dim.jx = 192
+    mcfg.dim.kz = 41
+    mcfg.geo.ds = 3.0
+    mcfg.time.dt = 30.0
+    mgrid = build_grid(mcfg)
+    print(f"MOLOCH model: {mgrid.jx}x{mgrid.iy}x{mgrid.kz}, dt "
+          f"{mcfg.dtsec} s, ds {mcfg.geo.ds} km")
+    t0 = time.time()
+    ms0 = MolochCore(mgrid, mcfg, device=dev, dtype=torch.float32
+                     ).initial_state(perturb=0.3, seed=1)
+    model = Model(mcfg, grid=mgrid, device=dev, dtype=torch.float32,
+                  initial_state=ms0)
+    torch.cuda.synchronize()
+    print(f"MOLOCH set-up {time.time() - t0:.1f} s")
+    del ms0
+    reset(mods)
+    _, wall = model.run(STEPS)
+    moloch_launches = read(mods)
+    print(f"MOLOCH path: {STEPS} steps in {wall:.3f} s; launches "
+          f"{moloch_launches}")
+    if not model.check_finite():
+        raise AssertionError("non-finite MOLOCH state after the f32 run")
+    if min(moloch_launches.values()) <= 0:
+        raise AssertionError(f"MOLOCH path bypassed a kernel: "
+                             f"{moloch_launches}")
+    d = model.decoupled()
+    wmax = float(np.abs(d["w"]).max())
+    print(f"MOLOCH ps {d['ps'].min():.3f}..{d['ps'].max():.3f} hPa, "
+          f"wmax {wmax:.4f} m/s, T {d['t'].min():.3f}..{d['t'].max():.3f} K")
+    # the band of the JAX package at step 24 on a 48x48 cut of this
+    # domain (979.3-1055.2 hPa, wmax 3.14 m/s; REFERENCE below), widened
+    # for the larger domain's extremes
+    if not (960.0 < d["ps"].min() and d["ps"].max() < 1075.0
+            and wmax < 6.0):
+        raise AssertionError("MOLOCH f32 run left the reference's band")
+    _, wall = model.run(STEPS)
+    print(f"MOLOCH ms/step (f32, 192x192x41, steps {STEPS}..{2 * STEPS - 1}:"
+          f" cumulus at 30 and 40, surface at 40, no radiation; "
+          f"synchronised): {1000.0 * wall / STEPS:.3f} on {smi}; peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f}"
+          f" GiB")
+    if not model.check_finite():
+        raise AssertionError("non-finite MOLOCH state after 48 steps")
+    profile_steps(model, 4)
+    # the radiation step: dtrad 30 min = 60 steps. A whole 60-step cycle
+    # is not timed: from this state the reference itself goes non-finite
+    # before step 120 (tests/test_torch_moloch_3km_long.py)
+    model.run(RAD_STEP - model.nstep)
+    if not model._flags().do_rad:
+        raise AssertionError(f"no radiation alarm at step {RAD_STEP}")
+    _, wall = model.run(1)
+    print(f"MOLOCH radiation step (step {RAD_STEP}: radiation, surface, "
+          f"cumulus; synchronised): {1000.0 * wall:.3f} ms on {smi}")
+    if not model.check_finite():
+        raise AssertionError(f"non-finite MOLOCH state after "
+                             f"{model.nstep} steps")
+    d = model.decoupled()
+    print(f"MOLOCH step {model.nstep}: ps {d['ps'].min():.3f}.."
+          f"{d['ps'].max():.3f} hPa, wmax {np.abs(d['w']).max():.4f} m/s, "
+          f"T {d['t'].min():.3f}..{d['t'].max():.3f} K")
+    # report only: where this state goes non-finite, as the reference's
+    # does (tests/test_torch_moloch_3km_long.py), within two cycles
+    while model.nstep < 2 * RAD_STEP and model.check_finite():
+        model.run(1)
+    print(f"MOLOCH 192x192x41 f32 from this state: "
+          + (f"non-finite after step {model.nstep}"
+             if not model.check_finite()
+             else f"finite through step {model.nstep}"))
+    del model, d
+    torch.cuda.empty_cache()
 
-    # -- 6. results
-    replaces = {"K1": "regcm_tpu/dynamics/pallas_kernels.py:520",
-                "K2": "regcm_tpu/dynamics/pallas_kernels.py:426"}
-    names = {"K1": "pbl_tridiag", "K2": "emanuel_mixing"}
-    kernels = [dict(name=names[k], route="cuda",
-                    source=f"regcm_tpu_torch/csrc/{names[k]}.cu",
-                    replaces=replaces[k], launches=launches[k],
-                    max_abs_err=stats[k]["max_abs_err"],
-                    ms=stats[k]["ms"], plain_ms=stats[k]["plain_ms"])
-               for k in ("K1", "K2")]
+    # -- 6b. the same settings on a 48x48 cut, held to the JAX package's
+    # numbers in this regime (tests/test_torch_moloch_3km.py)
+    rcfg = RegCMConfig()
+    rcfg.core.idynamic = 3
+    rcfg.dim.iy = rcfg.dim.jx = 48
+    rcfg.dim.kz = 41
+    rcfg.geo.ds = 3.0
+    rcfg.time.dt = 30.0
+    rgrid = build_grid(rcfg)
+    model = Model(rcfg, grid=rgrid, device=dev, dtype=torch.float32,
+                  initial_state=MolochCore(rgrid, rcfg, device=dev,
+                                           dtype=torch.float32
+                                           ).initial_state(perturb=0.3,
+                                                           seed=1))
+    for n in range(1, max(REFERENCE) + 1):
+        model.run(1)
+        if n in REFERENCE:
+            d = model.decoupled()
+            got = (float(d["ps"].min()), float(d["ps"].max()),
+                   float(np.abs(d["w"]).max()))
+            lo, hi, w = REFERENCE[n]
+            print(f"MOLOCH 48x48x41 f32 step {n}: ps {got[0]:.4f}.."
+                  f"{got[1]:.4f} hPa, wmax {got[2]:.5f} m/s; JAX package "
+                  f"{lo:.4f}..{hi:.4f} hPa, {w:.5f} m/s")
+            if not (abs(got[0] - lo) < 0.1 and abs(got[1] - hi) < 0.1
+                    and abs(got[2] - w) < 0.01 * w):
+                raise AssertionError(f"MOLOCH step {n} on the card leaves "
+                                     f"the reference: {got}")
+    del model
+
+    # -- 7. MOLOCH card against CPU, f64, 16x20x14 over an ~800 m hill,
+    # 10 steps, held as the hydrostatic path is
+    scfg, sdry = RegCMConfig(), RegCMConfig()
+    for c_ in (scfg, sdry):
+        c_.core.idynamic = 3
+        c_.dim.iy, c_.dim.jx, c_.dim.kz = 16, 20, 14
+        c_.geo.ds = 10.0
+        c_.time.dt = 60.0
+    sdry.subex.conf = 0.0
+    sgrid = build_grid(scfg, ht=hill(16, 20))
+    ss0 = MolochCore(sgrid, scfg, device="cpu",
+                     dtype=torch.float64).initial_state(perturb=0.3, seed=1)
+    rng = np.random.default_rng(0)
+    ss1 = ss0._replace(t=ss0.t * (1.0 + 1e-15 * torch.as_tensor(
+        rng.standard_normal(tuple(ss0.t.shape)))))
+    runs = {}
+    for name, conf, device, init in (
+            ("gpu", scfg, dev, ss0), ("cpu", scfg, "cpu", ss0),
+            ("cpu_perturbed", scfg, "cpu", ss1),
+            ("gpu_dry", sdry, dev, ss0), ("cpu_dry", sdry, "cpu", ss0)):
+        m = Model(conf, grid=sgrid, device=device, dtype=torch.float64,
+                  initial_state=init)
+        m.run(CHECK_STEPS)
+        if not m.check_finite():
+            raise AssertionError(f"non-finite MOLOCH state ({name})")
+        runs[name] = m.decoupled()
+    card_vs_cpu(runs, ("ps", "t", "qv", "u", "v", "w"), "MOLOCH")
+
+    if "jax" in sys.modules or any(
+            m == "regcm_tpu" or m.startswith("regcm_tpu.")
+            for m in sys.modules):
+        raise AssertionError("the port imported jax or the JAX package")
+
+    # -- 8. results: timings at the MOLOCH shape (the MOLOCH main
+    # path), launches from the MOLOCH path's run; no single PyTorch call
+    # computes any of the four functions, so library_ms is null
+    kernels = []
+    for k in mods:
+        st = stats[k]["moloch"]
+        kernels.append(dict(
+            name=NAMES[k], route="cuda",
+            source=f"regcm_tpu_torch/csrc/{NAMES[k]}.cu",
+            replaces=REPLACES[k], launches=moloch_launches[k],
+            max_abs_err=st["max_abs_err"], ms=st["ms"],
+            plain_ms=st["plain_ms"], bound_ms=st["bound_ms"],
+            bound_by=st["bound_by"], library_ms=None,
+            shape=st["shape"], launches_hydrostatic=hydro_launches[k],
+            small_shape=stats[k]["small"]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -13,6 +13,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..device import resolve_device
+
 # tracer indices (mod_runparams.F90:38-42, 0-based)
 IQV = 0
 IQC = 1
@@ -98,10 +100,12 @@ class BdyState(NamedTuple):
     qflb0: Optional[torch.Tensor] = None
 
 
-def zeros_hydro(kz: int, iy: int, jx: int, device=None,
+def zeros_hydro(kz: int, iy: int, jx: int, device="cuda",
                 dtype=torch.float64) -> HydroState:
     """Zero state of the default configuration: qv and qc (SUBEX), two
     split modes, one lake layer, no tracers, no subgrid."""
+    device = resolve_device(device)
+
     def full(shape, v=0.0):
         return torch.full(shape, v, dtype=dtype, device=device)
     z2 = full((iy, jx))
@@ -146,22 +150,25 @@ def bdy_from_state(s: HydroState) -> BdyState:
         u0=s.u_a, ut=z3, v0=s.v_a, vt=z3)
 
 
-def _tensors_from(cls, nt, device, dtype):
+def tensors_from(cls, nt, device, dtype):
+    """A ``cls`` NamedTuple of tensors on (device, dtype) from any
+    NamedTuple with the same fields (None fields stay None)."""
+    device = resolve_device(device)
     return cls(**{k: (None if getattr(nt, k) is None else
                       torch.tensor(np.asarray(getattr(nt, k)),
                                       dtype=dtype, device=device))
                   for k in cls._fields})
 
 
-def state_from_numpy(s, device=None, dtype=torch.float64) -> HydroState:
+def state_from_numpy(s, device="cuda", dtype=torch.float64) -> HydroState:
     """HydroState of tensors from any NamedTuple with the same fields
     (e.g. the JAX package's state after ``jax.device_get``)."""
-    return _tensors_from(HydroState, s, device, dtype)
+    return tensors_from(HydroState, s, device, dtype)
 
 
-def bdy_from_numpy(b, device=None, dtype=torch.float64) -> BdyState:
+def bdy_from_numpy(b, device="cuda", dtype=torch.float64) -> BdyState:
     """BdyState of tensors from any NamedTuple with the same fields."""
-    return _tensors_from(BdyState, b, device, dtype)
+    return tensors_from(BdyState, b, device, dtype)
 
 
 def state_to_numpy(s: HydroState) -> dict:

@@ -1,10 +1,12 @@
 """Model driver, torch twin of ``regcm_tpu/driver.py`` for the main path.
 
-``Model(cfg, device=..., dtype=...).run(n)`` initialises the hydrostatic
-core with the default physics suite and steps it with the reference's
-alarms (``Main/mod_regcm_interface.F90``, ``Main/mpplib/mod_timer.F90``):
+``Model(cfg, device=..., dtype=...).run(n)`` initialises the dynamical
+core that ``cfg.core.idynamic`` names (1: hydrostatic, 3: MOLOCH) with
+the default physics suite and steps it with the reference's alarms
+(``Main/mod_regcm_interface.F90``, ``Main/mpplib/mod_timer.F90``):
 cumulus every dtcum, surface every dtsrf, radiation every dtrad and the
-LW absorptivities every dtabem. ICBC input, restart and output are not
+LW absorptivities every dtabem. It runs on the CUDA card unless the
+caller passes ``device="cpu"``. ICBC input, restart and output are not
 ported; the boundary is held at the initial state.
 """
 from __future__ import annotations
@@ -15,28 +17,31 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from regcm_tpu.config.params import RegCMConfig
-from regcm_tpu.core.grid import ModelGrid, build_grid
-from regcm_tpu.utils import constants as c
-from regcm_tpu.utils.calendar import Date
-from regcm_tpu.utils.sun import coszrs as _coszrs, solar_state
-
+from .config.params import RegCMConfig
+from .core.grid import ModelGrid, build_grid
 from .core.state import (HydroState, StepFlags, IQV, IQC,
                          bdy_from_numpy, bdy_from_state, state_from_numpy,
                          zeros_hydro)
+from .device import resolve_device
 from .dynamics.hydrostatic import HydroCore
+from .dynamics.moloch import (MolochBdy, MolochCore, MolochState,
+                              moloch_bdy_from_numpy, moloch_state_from_numpy)
 from .dynamics.stencil import cross2dot
 from .physics.surface.bats import bats_init_state
+from .utils import constants as c
+from .utils.calendar import Date
+from .utils.sun import coszrs as _coszrs, solar_state
 from .utils.thermo import pfwsat
 
 
 def standard_atmosphere_state(grid: ModelGrid, cfg: RegCMConfig,
-                              device=None, dtype=torch.float64,
+                              device="cuda", dtype=torch.float64,
                               perturb: float = 0.0,
                               seed: int = 0) -> HydroState:
     """Cold start from a resting standard atmosphere (synthetic ICBC),
     with an optional white-noise T perturbation drawn from
     ``numpy.random.default_rng(seed)``."""
+    device = resolve_device(device)
     iy, jx, kz = grid.iy, grid.jx, grid.kz
     ptop = grid.ptop
     ps = np.full((iy, jx), 101.325 - ptop)  # p* (cb)
@@ -59,24 +64,31 @@ def standard_atmosphere_state(grid: ModelGrid, cfg: RegCMConfig,
                       tg=f(t[-1]))
 
 
-def _as_state(st, device, dtype) -> HydroState:
-    """A HydroState of tensors on (device, dtype) from either form."""
-    if isinstance(st, HydroState) and isinstance(st.ps_a, torch.Tensor):
-        return HydroState(*(v.to(device=device, dtype=dtype)
-                            for v in st))
-    return state_from_numpy(st, device, dtype)
+def moloch_bdy_from_state(s: MolochState) -> MolochBdy:
+    """Fixed MOLOCH boundary values equal to the current state."""
+    z3 = torch.zeros_like(s.t)
+    return MolochBdy(pai0=s.pai, pait=z3, t0=s.t, tt=z3,
+                     qv0=s.qx[0], qvt=z3, u0=s.u, ut=z3, v0=s.v, vt=z3)
+
+
+def _as_state(st, cls, from_numpy, device, dtype):
+    """A ``cls`` of tensors on (device, dtype) from either form: tensors,
+    or the JAX package's state after ``jax.device_get``."""
+    if isinstance(st, cls) and isinstance(st[0], torch.Tensor):
+        return cls(*(v.to(device=device, dtype=dtype) for v in st))
+    return from_numpy(st, device, dtype)
 
 
 class Model:
     """Top-level model object (RCM_initialize/run equivalent)."""
 
     def __init__(self, cfg: RegCMConfig, grid: Optional[ModelGrid] = None,
-                 device=None, dtype=torch.float64, physics=None,
+                 device="cuda", dtype=torch.float64, physics=None,
                  initial_state=None, bdy=None):
-        if cfg.core.idynamic != 1:
+        if cfg.core.idynamic not in (1, 3):
             raise NotImplementedError(
-                f"coreparam idynamic={cfg.core.idynamic}: only the "
-                "hydrostatic core (idynamic=1) is ported")
+                f"coreparam idynamic={cfg.core.idynamic}: the hydrostatic "
+                "(1) and MOLOCH (3) cores are ported")
         pp = cfg.perturb
         if cfg.globdat.ensemble_run and any(
                 getattr(pp, f"lperturb_{n}") for n in
@@ -85,22 +97,32 @@ class Model:
                                       "ported to regcm_tpu_torch")
         self.cfg = cfg
         self.grid = grid or build_grid(cfg)
-        self.device = torch.device(device) if device is not None \
-            else torch.device("cpu")
+        self.device = resolve_device(device)
         self.dtype = dtype
+        self.idynamic = cfg.core.idynamic
         if physics is False:        # explicit opt-out (dynamics only)
             physics = None
         elif physics is None:
             from .physics.suite import PhysicsSuite
             physics = PhysicsSuite(cfg, self.grid, self.device, dtype)
         self.dtsec = cfg.dtsec
-        self.core = HydroCore(self.grid, cfg, device=self.device,
-                              dtype=dtype, physics=physics)
-        if initial_state is None:
-            initial_state = standard_atmosphere_state(
-                self.grid, cfg, self.device, dtype)
-        self.state = self.core.init_split_storage(
-            _as_state(initial_state, self.device, dtype))
+        if self.idynamic == 3:
+            self.core = MolochCore(self.grid, cfg, device=self.device,
+                                   dtype=dtype, physics=physics)
+            if initial_state is None:
+                initial_state = self.core.initial_state()
+            self.state = _as_state(initial_state, MolochState,
+                                   moloch_state_from_numpy, self.device,
+                                   dtype)
+        else:
+            self.core = HydroCore(self.grid, cfg, device=self.device,
+                                  dtype=dtype, physics=physics)
+            if initial_state is None:
+                initial_state = standard_atmosphere_state(
+                    self.grid, cfg, self.device, dtype)
+            self.state = self.core.init_split_storage(
+                _as_state(initial_state, HydroState, state_from_numpy,
+                          self.device, dtype))
         if getattr(physics, "land_scheme", "") == "bats1e":
             # initbats cold start: slmo soil water, Tg-initialised
             # leaf/subsoil temperatures (mod_bats_common.F90)
@@ -110,9 +132,11 @@ class Model:
             self.state = self.state._replace(bats=torch.as_tensor(
                 b0, dtype=dtype, device=self.device))
         if bdy is None:
-            bdy = bdy_from_state(self.state)
-        elif not isinstance(bdy.ps0, torch.Tensor):
-            bdy = bdy_from_numpy(bdy, self.device, dtype)
+            bdy = moloch_bdy_from_state(self.state) if self.idynamic == 3 \
+                else bdy_from_state(self.state)
+        elif not isinstance(bdy[0], torch.Tensor):
+            bdy = (moloch_bdy_from_numpy if self.idynamic == 3
+                   else bdy_from_numpy)(bdy, self.device, dtype)
         self.bdy = bdy
         self.start_date = Date.from_int(cfg.restart.mdate1,
                                         cfg.globdat.calendar)
@@ -122,8 +146,9 @@ class Model:
 
     def step(self):
         """Advance one step (forward-Euler dt first, then leapfrog 2·dt:
-        mod_tendency.F90:610-616)."""
-        dt = self.dtsec if self.nstep == 0 else 2.0 * self.dtsec
+        mod_tendency.F90:610-616; MOLOCH is forward in time with dt)."""
+        dt = self.dtsec if (self.nstep == 0 or self.idynamic == 3) \
+            else 2.0 * self.dtsec
         flags = self._flags()
         sol = self._solar()
         g = self.grid
@@ -190,6 +215,13 @@ class Model:
     def decoupled(self) -> Dict[str, np.ndarray]:
         """Physical-unit prognostics on the host."""
         s = self.state
+        if self.idynamic == 3:
+            # MOLOCH prognostics are physical already; winds face→cross
+            ux, vx = self.core.uvstag2x(s.u, s.v)
+            atms = self.core.mkslice(s.t, s.pai, s.qx, s.u, s.v, s.w)
+            out = dict(ps=atms["ps2d"] / 100.0,                  # hPa
+                       t=s.t, qv=s.qx[0], qc=s.qx[1], u=ux, v=vx, w=s.w)
+            return {k: v.cpu().numpy() for k, v in out.items()}
         rps = 1.0 / s.ps_a
         rpsd = 1.0 / cross2dot(s.ps_a)
         out = dict(ps=(s.ps_a + self.grid.ptop) * 10.0,          # hPa

@@ -18,16 +18,16 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from regcm_tpu.config.params import RegCMConfig
-from regcm_tpu.core.grid import ModelGrid
-from regcm_tpu.dynamics.vmodes import make_split_coeffs
-from regcm_tpu.utils import constants as c
-
+from ..config.params import RegCMConfig
+from ..core.grid import ModelGrid
 from ..core.state import BdyState, HydroState, StepFlags, IQV, IQC
+from ..device import resolve_device
+from ..utils import constants as c
 from ..utils.thermo import pfwsat, wlh
 from . import stencil
 from .stencil import (shift, shifte, cross2dot, dot2cross,
                       with_topology)
+from .vmodes import make_split_coeffs
 
 
 def fix_cross_pad(a):
@@ -74,9 +74,10 @@ class HydroCore:
     """Holds the grid constants as tensors; ``step`` is one model step."""
 
     def __init__(self, grid: ModelGrid, cfg: RegCMConfig,
-                 device=None, dtype=torch.float64,
+                 device="cuda", dtype=torch.float64,
                  physics: Optional[Callable] = None):
         _refuse_options(cfg)
+        device = resolve_device(device)
         self.grid = grid
         self.cfg = cfg
         self.device = device

@@ -23,7 +23,7 @@ import ctypes
 
 import torch
 
-from regcm_tpu.utils import constants as c
+from ..utils import constants as c
 
 from . import _build
 
@@ -51,10 +51,15 @@ def build():
 
 
 def emanuel_mixing_plain(h, hp, q, qs, t, lv, qti, clw, ep, m, u, v, dph,
-                         unk, vnk, icb, ict, cloud):
+                         unk, vnk, icb, ict, cloud, counts=None):
     """The (i, j) mixing-matrix algebra (cupeman :723-840) reduced to its
     per-level contractions, on materialised (ncol, L, L) tensors; op for
-    op ``_mixing_body`` with ``_LayCF`` (i on axis 1, j on axis 2)."""
+    op ``_mixing_body`` with ``_LayCF`` (i on axis 1, j on axis 2).
+
+    ``counts``, if a dict, receives the number of (i, j) pairs that take
+    each data-dependent branch (``redo``, ``valid``, ``valid_gt`` = valid
+    with j > i, ``c_cond``, ``use_min``), from which the work these
+    inputs need is counted."""
     A = lambda x: x[:, :, None]
     B = lambda x: x[:, None, :]
     S = lambda x: x[:, None, None]
@@ -128,6 +133,11 @@ def emanuel_mixing_plain(h, hp, q, qs, t, lv, qti, clw, ep, m, u, v, dph,
     prefmin = torch.cummin(torch.cat([torch.ones_like(cand[:, :, :1]),
                                       cand[:, :, :-1]], dim=2), dim=2)[0]
     use_min = c_cond & (smid_gt < prefmin)
+    if counts is not None:
+        for key, mask in (("redo", redo), ("valid", valid),
+                          ("valid_gt", valid & jgti), ("c_cond", c_cond),
+                          ("use_min", use_min)):
+            counts[key] = int(mask.sum())
     sjmax_gt = torch.where(use_min,
                            torch.minimum(torch.minimum(sijp1, sij), scrit_a),
                            smid_gt)

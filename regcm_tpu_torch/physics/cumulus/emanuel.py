@@ -16,7 +16,7 @@ from typing import NamedTuple
 
 import torch
 
-from regcm_tpu.utils import constants as c
+from ...utils import constants as c
 
 from ...kernels.emanuel_mixing import emanuel_mixing
 from ...utils.thermo import pfwsat

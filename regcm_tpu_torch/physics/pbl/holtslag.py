@@ -13,7 +13,7 @@ from typing import NamedTuple
 
 import torch
 
-from regcm_tpu.utils import constants as c
+from ...utils import constants as c
 
 from ...kernels.pbl_tridiag import pbl_tridiag
 

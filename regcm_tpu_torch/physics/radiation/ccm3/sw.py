@@ -15,7 +15,7 @@ from typing import NamedTuple
 
 import torch
 
-from regcm_tpu.physics.radiation.ccm3 import tables as tb
+from . import tables as tb
 
 
 def _el(w, g):

@@ -12,7 +12,7 @@ from typing import NamedTuple
 
 import torch
 
-from regcm_tpu.utils import constants as c
+from ...utils import constants as c
 
 # GHG emissivity sensitivities per unit log concentration (the JAX
 # package's calibration: a CO2 doubling gives ΔOLR ≈ −3.7 W/m2)

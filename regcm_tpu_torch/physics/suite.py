@@ -5,9 +5,10 @@
 Emanuel cumulus on the dtcum alarm → SUBEX cloud fraction and
 microphysics → CCM3 radiation on the dtrad alarm (LW absorptivities on
 dtabem) → BATS1e land with Zeng ocean fluxes on the dtsrf alarm →
-Holtslag PBL. Returns coupled physics tendencies for the dynamical core
-plus persistent-state updates. Every other scheme is refused at
-construction by ``validate_physics``.
+Holtslag PBL. Returns the physics tendencies for the dynamical core,
+coupled by ``atms["cpl"]`` (p* for the hydrostatic core, 1 for the
+uncoupled MOLOCH prognostics), plus persistent-state updates. Every
+other scheme is refused at construction by ``validate_physics``.
 """
 from __future__ import annotations
 
@@ -16,16 +17,16 @@ from typing import Dict
 import numpy as np
 import torch
 
-from regcm_tpu.physics.radiation.ccm3.tables import ghg_mmr
-from regcm_tpu.physics.radiation.ghg import ghg_concentrations
-from regcm_tpu.utils import constants as c
-
 from ..core.state import HydroState, BdyState, StepFlags
+from ..device import resolve_device
 from ..dynamics.stencil import cross2dot
+from ..utils import constants as c
 from .cumulus.emanuel import cupeman, ELCRIT_LND, ELCRIT_OCN, EPMAX
 from .micro.subex import subex, subex_cldfrac, combine_clouds
 from .pbl.holtslag import holtbl
 from .radiation.ccm3.driver import ccm3_radiation
+from .radiation.ccm3.tables import ghg_mmr
+from .radiation.ghg import ghg_concentrations
 from .radiation.simple import radiation, surface_albedo
 from .surface.bats import (bats_albedo, fseas_fn, soil_static,
                            soil_static_tensors, vecbats)
@@ -60,6 +61,16 @@ def validate_physics(cfg):
     if cfg.dim.nsg > 1:
         raise NotImplementedError("dimparam nsg>1 (subgrid surface) is "
                                   "not ported to regcm_tpu_torch")
+    if cfg.core.idynamic == 3 and 1 in (abs(p.icup_lnd), abs(p.icup_ocn)):
+        raise ValueError(
+            "icup=1 (Kuo) requires the sigma-p cores' deferred qv "
+            "vertical advection staging and is not available with the "
+            "MOLOCH core (idynamic=3)")
+    if cfg.core.idynamic == 3 and p.ibltyp == 2:
+        raise ValueError(
+            "ibltyp=2 (UW TCM) needs the MOLOCH WAF TKE advection "
+            "path, which is not wired yet; use ibltyp 1/3/4 with "
+            "idynamic=3")
     land = str(p.extras.get("land_scheme", "bats1e"))
     if land != "bats1e":
         raise NotImplementedError(f"land_scheme={land!r} is not ported")
@@ -71,11 +82,13 @@ def validate_physics(cfg):
 class PhysicsSuite:
     """Callable plugged into HydroCore (core.physics)."""
 
-    def __init__(self, cfg, grid, device=None, dtype=torch.float64):
+    def __init__(self, cfg, grid, device="cuda", dtype=torch.float64):
         validate_physics(cfg)
+        device = resolve_device(device)
         self.cfg = cfg
         self.grid = grid
         self.ricr = 0.25      # ricr_lnd/ocn default (mod_params.F90:485)
+        self.idynamic = cfg.core.idynamic
         self.land_scheme = "bats1e"
         # minorig: lowest Emanuel origin level (mod_params.F90:2352-2355)
         hs = grid.hsigma
@@ -145,6 +158,10 @@ class PhysicsSuite:
                  flags: StepFlags, dt, dyn=None):
         kz = core.kz
         psb = atms["psb"]
+        # tendency coupling factor: p* for the hydrostatic core (coupled
+        # prognostics), 1 for MOLOCH (mod_moloch.F90:1546)
+        cpl = atms.get("cpl", psb)
+        mo = self.idynamic == 3     # MOLOCH: cross winds, uncoupled
         tb3 = torch.clamp(atms["tb3"], min=150.0)
         qvb3 = atms["qvb3"]
         qcb3 = atms["qcb3"]
@@ -175,15 +192,15 @@ class PhysicsSuite:
                       utenx=s.cuten[2], vtenx=s.cuten[3],
                       cldfra=s.cuten[4], cldlwc=s.cuten[5],
                       prate=s.cuprate)
-        tphy = cu["tten"] * psb[None] * m_ci
-        qvphy = cu["qvten"] * psb[None] * m_ci
+        tphy = cu["tten"] * cpl[None] * m_ci
+        qvphy = cu["qvten"] * cpl[None] * m_ci
         sfupd["rainc"] = s.rainc + cu["prate"] * m_ci * core.dtsec
 
         # -- cloud fraction + SUBEX (mod_tendency.F90:1715-1740)
         fcc = subex_cldfrac(tb3, pb3, qvb3, qcb3, rh, core.rh0[None])
         cldlwc, cldfra = combine_clouds(fcc, qcb3, rho, tb3,
                                         cu["cldfra"], cu["cldlwc"])
-        out = subex(tb3, pb3, pf3, qvb3, qcb3, rh, rho, fcc, psb, dt,
+        out = subex(tb3, pb3, pf3, qvb3, qcb3, rh, rho, fcc, cpl, dt,
                     core.qck1, core.cgul, core.cevap, core.caccr)
         tphy = tphy + out.tten * m_ci
         qvphy = qvphy + out.qvten * m_ci
@@ -268,16 +285,29 @@ class PhysicsSuite:
                           torch.clamp(first_above - 1, min=0), kz - 2)
         hout = holtbl(
             tp3, tb3, pb3, pf3, qvb3, qcb3,
-            atms["ubx3"], atms["vbx3"], atms["ubd3"], atms["vbd3"],
+            atms["ubx3"], atms["vbx3"],
+            atms["ubx3"] if mo else atms["ubd3"],
+            atms["vbx3"] if mo else atms["vbd3"],
             za, dzq, ps2d / (c.rgas * tb3[kz - 1]), uvdrag, hfx, qfx, tg,
-            core.coriol, psb, cross2dot(psb), kmx, dt, ricr=self.ricr,
-            cross2dot_fn=cross2dot, m_di=core.m_di, m_ci=m_ci)
+            core.coriol, cpl,
+            torch.ones_like(cpl) if mo else cross2dot(psb),
+            kmx, dt, ricr=self.ricr,
+            cross2dot_fn=None if mo else cross2dot,
+            m_di=None if mo else core.m_di, m_ci=m_ci)
         tphy = tphy + hout.tten
         qvphy = qvphy + hout.qvten
         qcphy = qcphy + hout.qcten
+        utenx, vtenx = cu["utenx"], cu["vtenx"]
+        uphy = vphy = 0.0
+        if mo:
+            utenx = utenx + hout.uten
+            vtenx = vtenx + hout.vten
+        else:
+            uphy, vphy = hout.uten, hout.vten
 
-        # couple the cross-grid cumulus wind tendencies onto the
-        # momentum grid (uvcross2dot ×p*_dot)
-        du, dv = core.couple_uvten(cu["utenx"], cu["vtenx"], psb)
-        return (tphy, qvphy, qcphy[None], hout.uten + du, hout.vten + dv,
+        # couple the accumulated cross-grid wind tendencies onto the
+        # momentum grid in one pass (uvcross2dot ×p*_dot for the B grid,
+        # tenxtouvten for MOLOCH's C grid)
+        du, dv = core.couple_uvten(utenx, vtenx, cpl)
+        return (tphy, qvphy, qcphy[None], uphy + du, vphy + dv,
                 cldfra, heatrt, sfupd)

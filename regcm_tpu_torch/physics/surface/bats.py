@@ -18,7 +18,7 @@ from typing import Dict, NamedTuple
 import numpy as np
 import torch
 
-from regcm_tpu.utils import constants as c
+from ...utils import constants as c
 
 from ...utils.thermo import pfesat, pfqsat, pfqsdt
 

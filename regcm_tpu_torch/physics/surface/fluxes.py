@@ -12,7 +12,7 @@ from typing import NamedTuple
 
 import torch
 
-from regcm_tpu.utils import constants as c
+from ...utils import constants as c
 
 from ...utils.thermo import pfqsat
 from .zeng import zengocn

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from regcm_tpu.utils import constants as c
+from ..utils import constants as c
 
 # Flatau et al. (1992) polynomial coefficients — water (0..100 C)
 _AW = (6.11213476, 0.444007856, 0.143064234e-01, 0.264461437e-03,

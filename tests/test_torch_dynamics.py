@@ -11,6 +11,8 @@ import jax.numpy as jnp  # noqa: E402
 
 from regcm_tpu.config.params import RegCMConfig  # noqa: E402
 from regcm_tpu.core.grid import build_grid  # noqa: E402
+from regcm_tpu_torch.config.params import RegCMConfig as TConfig  # noqa
+from regcm_tpu_torch.core.grid import build_grid as tbuild_grid  # noqa
 from regcm_tpu.core.state import HydroState as JState  # noqa: E402
 from regcm_tpu.driver import standard_atmosphere_state as jstate  # noqa
 from regcm_tpu.dynamics import hydrostatic as jh  # noqa: E402
@@ -22,23 +24,30 @@ from regcm_tpu_torch.dynamics import stencil as tst  # noqa: E402
 FIELDS = ("ps", "t", "qv", "u", "v")
 
 
-def golden_cfg():
-    cfg = RegCMConfig()
-    cfg.dim.iy, cfg.dim.jx, cfg.dim.kz = 16, 20, 14
-    cfg.geo.ds = 60.0
-    cfg.time.dt = 150.0
-    return cfg
+def golden_cfgs(conf=None):
+    """(JAX config, port config): RegCMConfig() of each package with the
+    same overrides."""
+    out = []
+    for cls in (RegCMConfig, TConfig):
+        cfg = cls()
+        cfg.dim.iy, cfg.dim.jx, cfg.dim.kz = 16, 20, 14
+        cfg.geo.ds = 60.0
+        cfg.time.dt = 150.0
+        if conf is not None:
+            cfg.subex.conf = conf
+        out.append(cfg)
+    return tuple(out)
 
 
 @pytest.fixture(scope="module")
 def cores():
-    cfg = golden_cfg()
-    grid = build_grid(cfg)
-    jc = jh.HydroCore(grid, cfg, dtype=jnp.float64)
-    tc = th.HydroCore(grid, cfg, dtype=torch.float64)
-    s0 = jax.device_get(jstate(grid, cfg, jnp.float64, perturb=0.3,
+    jcfg, tcfg = golden_cfgs()
+    grid, tgrid = build_grid(jcfg), tbuild_grid(tcfg)
+    jc = jh.HydroCore(grid, jcfg, dtype=jnp.float64)
+    tc = th.HydroCore(tgrid, tcfg, device="cpu", dtype=torch.float64)
+    s0 = jax.device_get(jstate(grid, jcfg, jnp.float64, perturb=0.3,
                                seed=2024))
-    return cfg, grid, jc, tc, s0
+    return (jcfg, tcfg), (grid, tgrid), jc, tc, s0
 
 
 def _inputs(grid, seed=11):
@@ -121,7 +130,7 @@ def _phase(name, jc, tc, grid, s0):
         return jh.cpmf(J(d["q"])), th.cpmf(T(d["q"]))
     if name == "condtq":
         js_ = JState(*(jnp.asarray(v) for v in s0))
-        ts_ = state_from_numpy(s0)
+        ts_ = state_from_numpy(s0, device="cpu")
         # saturate a few cells so the adjustment acts
         qvt = d["ten"] * 3e-2 + 1e-3
         args = (d["ten"], qvt, 1e-2 * d["ten"], ps, 1.0 / ps,
@@ -146,7 +155,7 @@ def _phase(name, jc, tc, grid, s0):
     if name == "init_split_storage":
         js_ = JState(*(jnp.asarray(v) for v in s0))
         a = jc.init_split_storage(js_)
-        b = tc.init_split_storage(state_from_numpy(s0))
+        b = tc.init_split_storage(state_from_numpy(s0, device="cpu"))
         return (jnp.stack([a.dstor, a.hstor]),
                 torch.stack([b.dstor, b.hstor]))
     raise KeyError(name)
@@ -165,7 +174,7 @@ PHASES = ["advection_uv", "hadv_scalar", "hadv_scalar_centred",
 def test_phase_matches_jax(name, cores):
     """Each phase at 1e-12 relative to the result's scale: the same
     elementwise f64 arithmetic, with sums (einsum, cumsum) reordered."""
-    cfg, grid, jc, tc, s0 = cores
+    _, (grid, _), jc, tc, s0 = cores
     with jst.topology(), tst.topology():
         want, got = _phase(name, jc, tc, grid, s0)
     want = np.asarray(want)
@@ -188,16 +197,16 @@ def dyn_runs(cores):
     from regcm_tpu.driver import Model as JModel
     from regcm_tpu_torch.driver import Model as TModel
 
-    cfg, grid, _, _, s0 = cores
+    (jcfg, tcfg), (grid, tgrid), _, _, s0 = cores
     rng = np.random.default_rng(0)
     s1 = s0._replace(t_a=np.asarray(s0.t_a) * (
         1.0 + 1e-15 * rng.standard_normal(np.shape(s0.t_a))))
-    jm = JModel(cfg, grid=grid, dtype=jnp.float64, initial_state=s0,
+    jm = JModel(jcfg, grid=grid, dtype=jnp.float64, initial_state=s0,
                 physics=False)
-    tm = TModel(cfg, grid=grid, dtype=torch.float64, initial_state=s0,
-                physics=False)
-    pm = TModel(cfg, grid=grid, dtype=torch.float64, initial_state=s1,
-                physics=False)
+    tm = TModel(tcfg, grid=tgrid, device="cpu", dtype=torch.float64,
+                initial_state=s0, physics=False)
+    pm = TModel(tcfg, grid=tgrid, device="cpu", dtype=torch.float64,
+                initial_state=s1, physics=False)
     out = {}
     for n in range(10):
         jm.step()
@@ -238,13 +247,12 @@ def dry_dyn_runs(cores):
     from regcm_tpu.driver import Model as JModel
     from regcm_tpu_torch.driver import Model as TModel
 
-    _, grid, _, _, s0 = cores
-    cfg = golden_cfg()
-    cfg.subex.conf = 0.0
-    jm = JModel(cfg, grid=grid, dtype=jnp.float64, initial_state=s0,
+    _, (grid, tgrid), _, _, s0 = cores
+    jcfg, tcfg = golden_cfgs(conf=0.0)
+    jm = JModel(jcfg, grid=grid, dtype=jnp.float64, initial_state=s0,
                 physics=False)
-    tm = TModel(cfg, grid=grid, dtype=torch.float64, initial_state=s0,
-                physics=False)
+    tm = TModel(tcfg, grid=tgrid, device="cpu", dtype=torch.float64,
+                initial_state=s0, physics=False)
     for _ in range(10):
         jm.step()
         tm.step()

@@ -10,19 +10,29 @@ torch = pytest.importorskip("torch")
 
 from regcm_tpu_torch.kernels import emanuel_mixing as k2  # noqa: E402
 from regcm_tpu_torch.kernels import pbl_tridiag as k1  # noqa: E402
+from regcm_tpu_torch.kernels import tridiag_w as k3  # noqa: E402
+from regcm_tpu_torch.kernels import waf_advect as k4  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-@pytest.mark.parametrize("module", ["regcm_tpu_torch.driver",
-                                    "regcm_tpu_torch.physics.suite"])
+@pytest.mark.parametrize("module", [
+    "regcm_tpu_torch.driver", "regcm_tpu_torch.physics.suite",
+    "regcm_tpu_torch.dynamics.moloch", "regcm_tpu_torch.kernels.pbl_tridiag",
+    "regcm_tpu_torch.kernels.emanuel_mixing",
+    "regcm_tpu_torch.kernels.tridiag_w", "regcm_tpu_torch.kernels.waf_advect"])
 def test_port_imports_no_jax(module):
+    """In a fresh interpreter the module pulls in neither jax nor any
+    module of the JAX package (regcm_tpu or regcm_tpu.*)."""
     code = (f"import sys; import {module}; "
-            "sys.exit(1 if 'jax' in sys.modules else 0)")
+            "bad = sorted(m for m in sys.modules if m == 'jax' "
+            "or m.startswith('jax.') or m == 'regcm_tpu' "
+            "or m.startswith('regcm_tpu.')); "
+            "print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
-    assert proc.returncode == 0, proc.stderr or f"{module} imported jax"
+    assert proc.returncode == 0, proc.stderr + proc.stdout
 
 
 def _tridiag(dtype=torch.float64, shape=(2, 5, 3, 4)):
@@ -81,3 +91,61 @@ def test_emanuel_mixing_refuses_too_many_levels():
     lev, col, ints, cloud = _mixing(L=k2.MAX_LEVELS + 1)
     with pytest.raises(ValueError):
         k2.emanuel_mixing(*lev, *col, *ints, cloud)
+
+
+def _w(dtype=torch.float64, shape=(5, 3, 4)):
+    wexpl = torch.rand(shape, dtype=torch.float64)
+    zm = torch.rand(shape, dtype=torch.float64) * 0.3
+    zp = torch.rand(shape, dtype=torch.float64) * 0.3
+    wbot = torch.rand(shape[1:], dtype=torch.float64)
+    return [a.to(dtype) for a in (wexpl, zm, zp, wbot)]
+
+
+def test_tridiag_w_refuses_wrong_dtype():
+    with pytest.raises(TypeError):
+        k3.tridiag_w(*_w(torch.float16))
+    args = _w()
+    args[1] = args[1].to(torch.float32)
+    with pytest.raises(ValueError):
+        k3.tridiag_w(*args)
+
+
+def test_tridiag_w_refuses_non_contiguous_and_bad_shape():
+    args = _w(shape=(5, 4, 4))
+    args[0] = args[0].transpose(1, 2)
+    with pytest.raises(ValueError):
+        k3.tridiag_w(*args)
+    args = _w()
+    with pytest.raises(ValueError):
+        k3.tridiag_w(*args[:3], args[3][:2])
+    with pytest.raises(ValueError):
+        k3.tridiag_w(*(a[0] for a in _w()))
+
+
+def _waf(dtype=torch.float64, nf=3, kz=4, iy=6, jx=7):
+    r = lambda *s: torch.rand(s, dtype=torch.float64).to(dtype)
+    return [r(nf, kz, iy, jx), r(kz, iy, jx), r(kz, iy, jx),
+            r(kz + 1, iy, jx), r(kz, iy, jx) + 1.0, r(kz + 1, iy, jx) + 1.0,
+            r(iy, jx) + 1.0, r(iy, jx)]
+
+
+def test_waf_advect_refuses_wrong_dtype():
+    with pytest.raises(TypeError):
+        k4.waf_advect(*_waf(torch.float16), 0.1, 0.01)
+    args = _waf()
+    args[4] = args[4].to(torch.float32)
+    with pytest.raises(ValueError):
+        k4.waf_advect(*args, 0.1, 0.01)
+
+
+def test_waf_advect_refuses_non_contiguous_and_bad_shape():
+    args = _waf(iy=7)
+    args[1] = args[1].transpose(1, 2)
+    with pytest.raises(ValueError):
+        k4.waf_advect(*args, 0.1, 0.01)
+    args = _waf()
+    args[3] = args[3][1:]                  # s needs kz+1 interfaces
+    with pytest.raises(ValueError):
+        k4.waf_advect(*args, 0.1, 0.01)
+    with pytest.raises(ValueError):
+        k4.waf_advect(*_waf(iy=3), 0.1, 0.01)

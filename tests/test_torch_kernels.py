@@ -1,19 +1,26 @@
-"""Kernels K1 (pbl_tridiag) and K2 (emanuel_mixing) of the PyTorch
-port: their plain PyTorch versions against the JAX package (the Pallas
-kernels in interpret mode and the XLA reference), the wrapper's
-dispatch rules, and, on a CUDA card only, kernel against plain."""
+"""Kernels K1 (pbl_tridiag), K2 (emanuel_mixing), K3 (tridiag_w) and K4
+(waf_advect) of the PyTorch port: their plain PyTorch versions against
+the JAX package (the Pallas kernels in interpret mode and the XLA
+reference), the wrapper's dispatch rules, and, on a CUDA card only,
+kernel against plain."""
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from regcm_tpu.config.params import RegCMConfig  # noqa: E402
+from regcm_tpu.core.grid import build_grid  # noqa: E402
 from regcm_tpu.dynamics import pallas_kernels as pk  # noqa: E402
+from regcm_tpu.dynamics.moloch import MolochCore  # noqa: E402
 from regcm_tpu.physics.cumulus import emanuel as jem  # noqa: E402
 from regcm_tpu.physics.pbl import holtslag as jhb  # noqa: E402
 from regcm_tpu_torch.kernels import emanuel_mixing as k2  # noqa: E402
 from regcm_tpu_torch.kernels import pbl_tridiag as k1  # noqa: E402
+from regcm_tpu_torch.kernels import tridiag_w as k3  # noqa: E402
+from regcm_tpu_torch.kernels import waf_advect as k4  # noqa: E402
 from regcm_tpu_torch.physics.pbl import holtslag as thb  # noqa: E402
 
 T = torch.as_tensor
@@ -122,21 +129,141 @@ def test_emanuel_mixing_plain_matches_jax(ref):
         assert _rel(got[k].numpy(), want[k]) < 1e-10, k
 
 
+def test_emanuel_mixing_plain_branch_counts():
+    """The branch counts that size K2's work leave the result unchanged
+    and nest as the branches do: use_min within c_cond within the valid
+    pairs with j > i, redo only where j > i."""
+    levels, unk, vnk, icb, ict, cloud = _mixing_inputs()
+    ncol, L = levels[0].shape
+    counts = {}
+    plain = k2.emanuel_mixing_plain
+    got = _mixing_torch(levels, unk, vnk, icb, ict, cloud,
+                        fn=lambda *a: plain(*a, counts=counts))
+    want = _mixing_torch(levels, unk, vnk, icb, ict, cloud, fn=plain)
+    for k in k2.KEYS:
+        assert torch.equal(got[k], want[k]), k
+    assert 0 < counts["use_min"] <= counts["c_cond"] <= counts["valid_gt"] \
+        < counts["valid"] < ncol * L * L
+    assert 0 < counts["redo"] <= ncol * L * (L - 1) // 2
+
+
+def _w_inputs(seed=7, shape=(40, 24, 40)):
+    """The operands of tests/test_moloch.py's implicit-w test."""
+    rng = np.random.default_rng(seed)
+    n, iy, jx = shape
+    return (rng.normal(size=(n, iy, jx)),
+            rng.uniform(0.01, 0.5, (n, iy, jx)),
+            rng.uniform(0.01, 0.5, (n, iy, jx)),
+            rng.normal(size=(iy, jx)))
+
+
+def _w_scan(wexpl, zm, zp, wbot):
+    """The lax.scan sweeps of MolochCore._sound (moloch.py:566-588)."""
+    kz = wexpl.shape[0] + 1
+
+    def up_body(carry, K):
+        w_kp1, wwkw_kp1 = carry
+        i = K - 1
+        zrapp = 1.0 / (1.0 + zm[i] + zp[i] - zm[i] * wwkw_kp1)
+        w_k = zrapp * (wexpl[i] + zm[i] * w_kp1)
+        return (w_k, zrapp * zp[i]), (w_k, zrapp * zp[i])
+
+    _, (wpr, wwr) = jax.lax.scan(up_body, (wbot, jnp.zeros_like(wbot)),
+                                 jnp.arange(kz - 1, 0, -1))
+    wprov, wwkw = jnp.flip(wpr, 0), jnp.flip(wwr, 0)
+
+    def dn_body(w_km1, i):
+        w_k = wprov[i] + wwkw[i] * w_km1
+        return w_k, w_k
+
+    return jax.lax.scan(dn_body, jnp.zeros_like(wbot),
+                        jnp.arange(kz - 1))[1]
+
+
+@pytest.mark.parametrize("ref", ["pallas_interpret", "lax_scan"])
+def test_tridiag_w_plain_matches_jax(ref):
+    """Plain K3 against the Pallas kernel (interpret mode) and the
+    lax.scan sweeps at (40, 24, 40): the same recurrence in the same
+    order, so 1e-13 relative covers any rounding difference."""
+    args = _w_inputs()
+    J = [jnp.asarray(a) for a in args]
+    want = pk.tridiag_w(*J, interpret=True) if ref == "pallas_interpret" \
+        else _w_scan(*J)
+    got = k3.tridiag_w(*(T(a) for a in args))
+    assert _rel(got.numpy(), want) <= 1e-13
+
+
+def _waf_core(iy, jx, kz):
+    cfg = RegCMConfig()
+    cfg.core.idynamic = 3
+    cfg.dim.iy, cfg.dim.jx, cfg.dim.kz = iy, jx, kz
+    cfg.geo.ds = 3.0
+    cfg.time.dt = 20.0
+    return MolochCore(build_grid(cfg), cfg, dtype=jnp.float64)
+
+
+def _waf_inputs(core, seed=11):
+    """The operands of tests/test_moloch.py's WAF test: smooth fields
+    with noise, a mean wind and a vertical velocity of both signs."""
+    rng = np.random.default_rng(seed)
+    kz, iy, jx = core.kz, core.iy, core.jx
+    sm = lambda sh: rng.normal(size=sh) + 10.0 * np.sin(
+        np.linspace(0, 3, np.prod(sh)).reshape(sh))
+    fields = sm((3, kz, iy, jx))
+    u = 8.0 + sm((kz, iy, jx)) * 0.5
+    v = -5.0 + sm((kz, iy, jx)) * 0.5
+    s = sm((kz + 1, iy, jx)) * 0.1
+    return fields, u, v, s
+
+
+@pytest.mark.parametrize("size", [(16, 16, 14), (13, 21, 18)])
+@pytest.mark.parametrize("ref", ["pallas_interpret", "xla_wafone"])
+def test_waf_advect_plain_matches_jax(size, ref):
+    """Plain K4 against the fused Pallas kernel (interpret mode) and
+    jax.vmap(MolochCore._wafone), square and non-square: the same f64
+    arithmetic and the same upwind/limiter thresholds, so 1e-12."""
+    core = _waf_core(*size)
+    fields, u, v, s = _waf_inputs(core)
+    dta = core.dtsec / core.nadv
+    ops = [np.array(a) for a in (u * np.asarray(core.rmu)[None],
+                                   v * np.asarray(core.rmv)[None], s,
+                                   core.fmz, core.fmzf, core.mx2,
+                                   core.m_ci)]
+    if ref == "pallas_interpret":
+        want = pk.waf_advect(jnp.asarray(fields),
+                             *(jnp.asarray(a) for a in ops),
+                             dta / core.dx, dta / core.dz, interpret=True)
+    else:
+        J = jnp.asarray
+        want = jax.vmap(lambda f: core._wafone(f, J(u), J(v), J(s),
+                                               dta))(J(fields))
+    got = k4.waf_advect(T(fields), *(T(a) for a in ops), dta / core.dx,
+                        dta / core.dz)
+    assert got.shape == fields.shape
+    assert _rel(got.numpy(), want) <= 1e-12
+
+
 def test_cpu_calls_launch_no_kernel():
-    k1.launches = 0
-    k2.launches = 0
+    k1.launches = k2.launches = k3.launches = k4.launches = 0
     c1, c2, c3, rhs = _coefs(*_tridiag_inputs(shape=(2, 6, 3, 4)),
                              dt=150.0)
     k1.pbl_tridiag(*(T(a) for a in (c1, c2, c3, rhs)))
     _mixing_torch(*_mixing_inputs(ncol=8, L=12))
-    assert k1.launches == 0 and k2.launches == 0
+    k3.tridiag_w(*(T(a) for a in _w_inputs(shape=(5, 6, 7))))
+    core = _waf_core(8, 9, 14)
+    fields, u, v, s = _waf_inputs(core)
+    k4.waf_advect(T(fields), *(T(np.array(a)) for a in (
+        u, v, s, core.fmz, core.fmzf, core.mx2, core.m_ci)), 0.1, 0.01)
+    assert (k1.launches, k2.launches, k3.launches, k4.launches) == \
+        (0, 0, 0, 0)
 
 
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card():
     """On a CUDA card: each hand-written kernel against its plain
-    version at the test_001 main-path shapes (chip_smoke.py runs the
-    full comparison, two shapes and two dtypes)."""
+    version at the test_001 shapes and a ragged MOLOCH shape
+    (chip_smoke.py runs the full comparison, two shapes and two
+    dtypes)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     dev = torch.device("cuda")
@@ -154,3 +281,17 @@ def test_kernels_match_plain_on_card():
     torch.cuda.synchronize()
     for k in k2.KEYS:
         assert _rel(got[k].cpu().numpy(), want[k].cpu().numpy()) < 1e-10
+    wargs = [T(a).to(dev) for a in _w_inputs(shape=(13, 34, 48))]
+    got = k3.tridiag_w(*wargs)
+    torch.cuda.synchronize()
+    assert _rel(got.cpu().numpy(),
+                k3.tridiag_w_plain(*wargs).cpu().numpy()) < 1e-12
+    core = _waf_core(34, 48, 14)
+    fields, u, v, s = _waf_inputs(core)
+    fields = np.concatenate([fields, fields[:2] * 0.5, fields[:2] + 3.0])
+    dargs = [T(np.array(a)).to(dev) for a in (
+        fields, u, v, s, core.fmz, core.fmzf, core.mx2, core.m_ci)]
+    got = k4.waf_advect(*dargs, 0.02, 0.003)
+    torch.cuda.synchronize()
+    assert _rel(got.cpu().numpy(), k4.waf_advect_plain(
+        *dargs, 0.02, 0.003).cpu().numpy()) < 1e-12

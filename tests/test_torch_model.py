@@ -1,4 +1,4 @@
-"""The whole PyTorch slice against the JAX package: ``Model`` at the
+"""The whole PyTorch model against the JAX package: ``Model`` at the
 golden setup (16×20×14, ds 60 km, dt 150 s, f64, 10 steps), built from
 ``RegCMConfig()`` plus overrides, from the same numpy initial state."""
 import numpy as np
@@ -11,17 +11,26 @@ import jax.numpy as jnp  # noqa: E402
 
 from regcm_tpu.config.params import RegCMConfig  # noqa: E402
 from regcm_tpu.core.grid import build_grid  # noqa: E402
+from regcm_tpu_torch.config.params import RegCMConfig as TConfig  # noqa
+from regcm_tpu_torch.core.grid import build_grid as tbuild_grid  # noqa
 
 NSTEPS = 10
 FIELDS = ("ps", "t", "qv", "u", "v")
 
 
-def golden_cfg():
-    cfg = RegCMConfig()
-    cfg.dim.iy, cfg.dim.jx, cfg.dim.kz = 16, 20, 14
-    cfg.geo.ds = 60.0
-    cfg.time.dt = 150.0
-    return cfg
+def golden_cfgs(conf=None):
+    """(JAX config, port config): RegCMConfig() of each package with the
+    same overrides."""
+    out = []
+    for cls in (RegCMConfig, TConfig):
+        cfg = cls()
+        cfg.dim.iy, cfg.dim.jx, cfg.dim.kz = 16, 20, 14
+        cfg.geo.ds = 60.0
+        cfg.time.dt = 150.0
+        if conf is not None:
+            cfg.subex.conf = conf
+        out.append(cfg)
+    return tuple(out)
 
 
 def _rel_rms(got, want):
@@ -39,16 +48,18 @@ def trajectories():
     from regcm_tpu.driver import standard_atmosphere_state as jstate
     from regcm_tpu_torch.driver import Model as TModel
 
-    cfg = golden_cfg()
-    grid = build_grid(cfg)
-    s0 = jax.device_get(jstate(grid, cfg, jnp.float64, perturb=0.3,
+    jcfg, tcfg = golden_cfgs()
+    grid, tgrid = build_grid(jcfg), tbuild_grid(tcfg)
+    s0 = jax.device_get(jstate(grid, jcfg, jnp.float64, perturb=0.3,
                                seed=2024))
     rng = np.random.default_rng(0)
     s1 = s0._replace(t_a=np.asarray(s0.t_a) * (
         1.0 + 1e-15 * rng.standard_normal(np.shape(s0.t_a))))
-    jm = JModel(cfg, grid=grid, dtype=jnp.float64, initial_state=s0)
-    tm = TModel(cfg, grid=grid, dtype=torch.float64, initial_state=s0)
-    pm = TModel(cfg, grid=grid, dtype=torch.float64, initial_state=s1)
+    jm = JModel(jcfg, grid=grid, dtype=jnp.float64, initial_state=s0)
+    tm = TModel(tcfg, grid=tgrid, device="cpu", dtype=torch.float64,
+                initial_state=s0)
+    pm = TModel(tcfg, grid=tgrid, device="cpu", dtype=torch.float64,
+                initial_state=s1)
     flags, out = [], {}
     for n in range(NSTEPS):
         flags.append(tm._flags())
@@ -107,13 +118,13 @@ def dry_trajectories():
     from regcm_tpu.driver import standard_atmosphere_state as jstate
     from regcm_tpu_torch.driver import Model as TModel
 
-    cfg = golden_cfg()
-    cfg.subex.conf = 0.0
-    grid = build_grid(cfg)
-    s0 = jax.device_get(jstate(grid, cfg, jnp.float64, perturb=0.3,
+    jcfg, tcfg = golden_cfgs(conf=0.0)
+    grid, tgrid = build_grid(jcfg), tbuild_grid(tcfg)
+    s0 = jax.device_get(jstate(grid, jcfg, jnp.float64, perturb=0.3,
                                seed=2024))
-    jm = JModel(cfg, grid=grid, dtype=jnp.float64, initial_state=s0)
-    tm = TModel(cfg, grid=grid, dtype=torch.float64, initial_state=s0)
+    jm = JModel(jcfg, grid=grid, dtype=jnp.float64, initial_state=s0)
+    tm = TModel(tcfg, grid=tgrid, device="cpu", dtype=torch.float64,
+                initial_state=s0)
     for _ in range(NSTEPS):
         jm.step()
         tm.step()
@@ -136,11 +147,11 @@ def test_standard_atmosphere_state_matches_jax():
     from regcm_tpu.driver import standard_atmosphere_state as jstate
     from regcm_tpu_torch.driver import standard_atmosphere_state as tstate
 
-    cfg = golden_cfg()
-    grid = build_grid(cfg)
-    js = jax.device_get(jstate(grid, cfg, jnp.float64, perturb=0.3,
-                               seed=7))
-    ts = tstate(grid, cfg, dtype=torch.float64, perturb=0.3, seed=7)
+    jcfg, tcfg = golden_cfgs()
+    js = jax.device_get(jstate(build_grid(jcfg), jcfg, jnp.float64,
+                               perturb=0.3, seed=7))
+    ts = tstate(tbuild_grid(tcfg), tcfg, device="cpu", dtype=torch.float64,
+                perturb=0.3, seed=7)
     for name in js._fields:
         # identical numpy arithmetic, one shared pfwsat polynomial
         np.testing.assert_allclose(getattr(ts, name).numpy(),
@@ -160,22 +171,53 @@ def test_model_refuses_unported_options():
                                ("physics", "isladvec", 1),
                                ("physics", "idiffu", 3),
                                ("dim", "nsg", 2)):
-        cfg = golden_cfg()
+        _, cfg = golden_cfgs()
         setattr(getattr(cfg, section), name, val)
         with pytest.raises((ValueError, NotImplementedError)):
-            Model(cfg)
+            Model(cfg, device="cpu")
 
 
 def test_state_round_trip_through_numpy():
     from regcm_tpu.driver import standard_atmosphere_state as jstate
     from regcm_tpu_torch.core.state import state_from_numpy, state_to_numpy
 
-    cfg = golden_cfg()
-    grid = build_grid(cfg)
-    js = jax.device_get(jstate(grid, cfg, jnp.float64, perturb=0.3,
-                               seed=3))
-    back = state_to_numpy(state_from_numpy(js))
+    jcfg, _ = golden_cfgs()
+    js = jax.device_get(jstate(build_grid(jcfg), jcfg, jnp.float64,
+                               perturb=0.3, seed=3))
+    back = state_to_numpy(state_from_numpy(js, device="cpu"))
     assert set(back) == set(js._fields)
     for name in js._fields:
         np.testing.assert_array_equal(back[name],
                                       np.asarray(getattr(js, name)))
+
+
+def test_entry_points_run_on_the_card_unless_asked():
+    """With no device argument every entry point puts its tensors on the
+    CUDA card; on a host without one it raises and says to pass
+    device="cpu", which runs."""
+    from regcm_tpu_torch.core.state import zeros_hydro
+    from regcm_tpu_torch.driver import Model, standard_atmosphere_state
+    from regcm_tpu_torch.dynamics.hydrostatic import HydroCore
+    from regcm_tpu_torch.dynamics.moloch import MolochCore
+    from regcm_tpu_torch.physics.suite import PhysicsSuite
+
+    _, cfg = golden_cfgs()
+    _, mcfg = golden_cfgs()
+    mcfg.core.idynamic = 3
+    grid, mgrid = tbuild_grid(cfg), tbuild_grid(mcfg)
+    builds = [lambda: Model(cfg).state.t_a,
+              lambda: Model(mcfg).state.t,
+              lambda: HydroCore(grid, cfg).msfx,
+              lambda: MolochCore(mgrid, mcfg).fmz,
+              lambda: PhysicsSuite(cfg, grid).xlat,
+              lambda: standard_atmosphere_state(grid, cfg).t_a,
+              lambda: zeros_hydro(14, 16, 20).t_a]
+    for build in builds:
+        if torch.cuda.is_available():
+            assert build().device.type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match='device="cpu"'):
+                build()
+    m = Model(mcfg, device="cpu")
+    m.step()
+    assert m.state.t.device.type == "cpu" and m.check_finite()
