@@ -5,6 +5,8 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
+On a host with four or more cards, phase 10 runs the nccl path too.
+
 Phases (any failure raises and the script exits nonzero):
   1. card, power limit and library versions;
   2. build the four hand-written CUDA kernels from regcm_tpu_torch/csrc,
@@ -25,7 +27,21 @@ Phases (any failure raises and the script exits nonzero):
      (reported, as the reference's does); then the same settings on a
      48x48x41 domain for 24 steps, held to the JAX package's numbers;
   7. MOLOCH on the card against the CPU in f64 at 16x20x14 over a hill;
-  8. a JSON line of the kernels, then the result line.
+  8. (the kernels line, printed at the end);
+  9. the decomposed kernels K5a/b/c in one process: the 192x192x41 K4
+     inputs (f32, f64) and the K3, K1 inputs cut into 2x2 blocks, each
+     block halo-extended from the global tensors as the CPU tests do,
+     each block's result assembled and held to the unsharded kernel bit
+     for bit and to the plain version, the per-block time beside its
+     bound;
+ 10. the decomposed MOLOCH flagship: 2x2 ranks at 192x192x41 f32 (gloo
+     with host-staged halos on the card(s); with four or more cards
+     also nccl, one card a rank), 12 steps against phase 6's single-card
+     run within its own roundoff spread, the ms/step, halo exchanges and
+     bytes a step and each rank's K1-K5 launches;
+ 11. decomposed MOLOCH in f64 at 32x32x14 over phase 7's hill, the
+     three-step setting of dryrun_multichip, 2x2 against one card;
+then a JSON line of the kernels and the result line.
 """
 import json
 import os
@@ -49,16 +65,30 @@ REFERENCE = {6: (1011.3323, 1013.6910, 0.22048),
 # f64 recurrences and sums agree to roundoff; f32 sums reordered
 TOL = {"float64": {"K1": 1e-12, "K2": 1e-10, "K3": 1e-12, "K4": 1e-12},
        "float32": {"K1": 1e-5, "K2": 1e-5, "K3": 1e-5, "K4": 1e-5}}
+for _d in TOL.values():         # the decomposed forms: K1, K3, K4's sums
+    _d.update(K5a=_d["K4"], K5b=_d["K3"], K5c=_d["K1"])
 # published H100 SXM peaks: HBM bytes/s and
 # float32 FLOP/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 NAMES = {"K1": "pbl_tridiag", "K2": "emanuel_mixing", "K3": "tridiag_w",
-         "K4": "waf_advect"}
+         "K4": "waf_advect", "K5a": "waf_advect_sharded",
+         "K5b": "tridiag_w_sharded", "K5c": "pbl_tridiag_sharded"}
 REPLACES = {"K1": "regcm_tpu/dynamics/pallas_kernels.py:520",
             "K2": "regcm_tpu/dynamics/pallas_kernels.py:426",
             "K3": "regcm_tpu/dynamics/pallas_kernels.py:68",
-            "K4": "regcm_tpu/dynamics/pallas_kernels.py:321"}
+            "K4": "regcm_tpu/dynamics/pallas_kernels.py:321",
+            "K5a": "regcm_tpu/dynamics/pallas_kernels.py:350",
+            "K5b": "regcm_tpu/dynamics/pallas_kernels.py:409",
+            "K5c": "regcm_tpu/dynamics/pallas_kernels.py:553"}
+# the decomposed kernels: the unsharded kernel each is held to, and the
+# CUDA source of both
+BASE = {"K5a": "K4", "K5b": "K3", "K5c": "K1"}
+SOURCE = {k: NAMES[BASE.get(k, k)] for k in NAMES}
+FLAGSHIP = 192                  # the MOLOCH 3 km domain, iy = jx
+GRID = (2, 2)                   # the decomposed runs' grid of ranks
+DECOMP_STEPS = 12
+TIME_STEPS = 12
 # shapes: (small ragged or test_001 shape, MOLOCH 192x192x41 shape)
 SHAPES = {"K1": [(5, 18, 34, 48), (5, 41, 192, 192)],
           "K2": [(34 * 48, 18), (192 * 192, 41)],
@@ -125,6 +155,14 @@ K2_OPS = {
 
 
 def work(k, shape, b, counts=None):
+    if k in ("K5b", "K5c"):        # K3, K1 on the block: no halo
+        return work(BASE[k], shape, b)
+    if k == "K5a":                 # the block's inputs with their 2-wide
+        nf, kz, ly, lx = shape     # halo read, the block written
+        pe = (ly + 4) * (lx + 4)
+        byt = ((nf * kz + 3 * kz + 2 * (kz + 1) + 2) * pe
+               + nf * kz * ly * lx) * b
+        return byt, 97 * nf * kz * ly * lx
     if k == "K1":                  # c1, c2, c3, rhs in; x out
         n = int(np.prod(shape))    # fwd: 2 mul, 2 sub/add, 2 div; back: 2
         return 5 * n * b, 8 * n
@@ -335,6 +373,292 @@ def profile_steps(model, nsteps):
         print(f"  {ms:9.3f} ms  {name[:100]}")
 
 
+def flagship_cfg():
+    from regcm_tpu_torch.config.params import RegCMConfig
+    cfg = RegCMConfig()
+    cfg.core.idynamic = 3
+    cfg.dim.iy = cfg.dim.jx = FLAGSHIP
+    cfg.dim.kz = 41
+    cfg.geo.ds = 3.0
+    cfg.time.dt = 30.0
+    return cfg
+
+
+def hill_cfg(iy, jx):
+    from regcm_tpu_torch.config.params import RegCMConfig
+    cfg = RegCMConfig()
+    cfg.core.idynamic = 3
+    cfg.dim.iy, cfg.dim.jx, cfg.dim.kz = iy, jx, 14
+    cfg.geo.ds = 10.0
+    cfg.time.dt = 60.0
+    return cfg
+
+
+def compare_decomposed(dev, mods):
+    """Phase 9: K5a/b/c on the 2x2 blocks of the MOLOCH-shape inputs,
+    each block extended from the global tensors by ``extend_block`` (the
+    CPU tests' halo reference), held to the unsharded kernel bit for bit
+    and to the plain version; returns the f32 stats of block 0."""
+    import torch
+    from regcm_tpu_torch.parallel.halo import extend_block
+    from regcm_tpu_torch.parallel.mesh import DomainMesh
+    k1, k3, k4 = mods["K1"], mods["K3"], mods["K4"]
+    modes = ["zero"] * 4 + ["edge"] * 2 + ["zero"] * 2   # K4's operands
+    stats = {}
+    for dtype in (torch.float64, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        calls = {}
+        args = k4_inputs(SHAPES["K4"][1], dtype, dev)
+        ops, (dtrdx, dtrdz) = args[:8], args[8:]
+        iy, jx = ops[0].shape[-2:]
+        meshes = [DomainMesh(*GRID, iy, jx, rank=r)
+                  for r in range(GRID[0] * GRID[1])]
+
+        def waf_blocks(m):
+            ext = [extend_block(a, m.y0, m.x0, m.ly, m.lx, 2, mode)
+                   for a, mode in zip(ops, modes)]
+            geo = (dtrdx, dtrdz, iy, jx, m.y0, m.x0)
+            return (lambda: k4.waf_advect_halo(*ext, *geo),
+                    lambda: k4.waf_advect_sharded_plain(*ext, *geo))
+        calls["K5a"] = (lambda: k4.waf_advect(*args),
+                        [waf_blocks(m) for m in meshes],
+                        (SHAPES["K4"][1][0], SHAPES["K4"][1][1],
+                         meshes[0].ly, meshes[0].lx))
+        for k, mod, name, make, full in (
+                ("K5b", k3, "tridiag_w", k3_inputs, SHAPES["K3"][1]),
+                ("K5c", k1, "pbl_tridiag", k1_inputs, SHAPES["K1"][1])):
+            arrs = make(full, dtype, dev)
+            sharded = getattr(mod, name + "_sharded")
+            plain = getattr(mod, name + "_plain")
+
+            def blocks(m, arrs=arrs, sharded=sharded, plain=plain):
+                loc = [m.local(a) for a in arrs]
+                return (lambda: sharded(m, *loc), lambda: plain(*loc))
+            calls[k] = (lambda arrs=arrs, mod=mod, name=name:
+                        getattr(mod, name)(*arrs),
+                        [blocks(m) for m in meshes],
+                        tuple(full[:-2]) + (meshes[0].ly, meshes[0].lx))
+        for k, (whole, per_block, bshape) in calls.items():
+            want = whole()
+            got = [kern() for kern, _ in per_block]
+            ref = [plain() for _, plain in per_block]
+            torch.cuda.synchronize()
+            cat = lambda bl: torch.cat([torch.cat(bl[py * GRID[1]:(py + 1)
+                                                     * GRID[1]], dim=-1)
+                                        for py in range(GRID[0])], dim=-2)
+            got, ref = cat(got), cat(ref)
+            same = torch.equal(got, want)
+            rel, ab = rel_err(got, ref)
+            print(f"{k} {NAMES[k]} {dname} 2x2 blocks of {tuple(want.shape)}"
+                  f": {'bit-identical' if same else 'DIFFERENT'} to the "
+                  f"unsharded {BASE[k]}; against the plain version max "
+                  f"rel err {rel:.3e} (max abs {ab:.3e}, tol "
+                  f"{TOL[dname][k]:g})")
+            if not same:
+                raise AssertionError(f"{k} {dname}: the blocks differ from "
+                                     f"the unsharded {BASE[k]} by "
+                                     f"{float((got - want).abs().max())}")
+            if not rel <= TOL[dname][k]:
+                raise AssertionError(f"{k} {dname} disagrees with its plain "
+                                     f"version: {rel}")
+            if dname == "float32":
+                kern, plain = per_block[0]
+                b_ms, b_by, byt, nops = bound(k, bshape, 4)
+                st = dict(max_abs_err=ab, ms=time_ms(kern),
+                          plain_ms=time_ms(plain), bound_ms=b_ms,
+                          bound_by=b_by, bytes=byt, ops=nops,
+                          shape=list(bshape))
+                stats[k] = {"moloch": st}
+                print(f"{k} f32 block {bshape}: kernel {st['ms']:.4f} ms, "
+                      f"plain {st['plain_ms']:.4f} ms, bound {b_ms:.4f} ms "
+                      f"({b_by}: {byt / 1e6:.2f} MB, {nops / 1e9:.3f} "
+                      f"GFLOP)")
+            del want, got, ref
+        del calls, args, ops
+        torch.cuda.empty_cache()
+    return stats
+
+
+def dryrun(cfg, grid, device, mesh=None, steps=3):
+    """dryrun_multichip's MOLOCH setting: three full-physics f64 steps
+    from the 0.2 K perturbed rest state, every alarm on step 0, surface
+    and cumulus after, cos(zenith) 0.4; the whole domain's prognostics."""
+    import torch
+    from regcm_tpu_torch.core.state import StepFlags
+    from regcm_tpu_torch.driver import moloch_bdy_from_state
+    from regcm_tpu_torch.dynamics.moloch import MolochCore
+    from regcm_tpu_torch.physics.suite import PhysicsSuite
+    f64 = torch.float64
+    core = MolochCore(grid, cfg, device=device, dtype=f64, mesh=mesh,
+                      physics=PhysicsSuite(cfg, grid, device, f64,
+                                           mesh=mesh))
+    st = core.initial_state(perturb=0.2)
+    bdy = moloch_bdy_from_state(st)
+    mu = torch.full_like(st.tg, 0.4)
+    for n in range(steps):
+        flags = StepFlags(do_rad=True, do_srf=True, do_cum=True,
+                          do_abem=True, first=True) if n == 0 \
+            else StepFlags(do_rad=False, do_srf=True, do_cum=True)
+        st, _ = core.step(st, bdy, n * cfg.dtsec, cfg.dtsec, flags, mu,
+                          (1.0343, 1361.8))
+    out = {k: getattr(st, k) for k in ("pai", "t", "u", "v", "w", "qx")}
+    if mesh is not None:
+        out = {k: mesh.gather(v) for k, v in out.items()}
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def decomposed_rank(rank, time_steps):
+    """Phases 10 and 11 on one rank of a 2x2 group: the flagship in f32
+    for DECOMP_STEPS steps (counters reset just before, read just
+    after), the whole domain's fields at the end (on rank 0), the
+    ms/step of ``time_steps`` further steps; then the f64 dryrun."""
+    import torch
+    import torch.distributed as dist
+    from regcm_tpu_torch.core.grid import build_grid
+    from regcm_tpu_torch.driver import Model
+    from regcm_tpu_torch.dynamics.moloch import MolochCore
+    from regcm_tpu_torch.kernels import emanuel_mixing as k2
+    from regcm_tpu_torch.kernels import pbl_tridiag as k1
+    from regcm_tpu_torch.kernels import tridiag_w as k3
+    from regcm_tpu_torch.kernels import waf_advect as k4
+    from regcm_tpu_torch.parallel import halo
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = rank.device
+    cfg = flagship_cfg()
+    grid = build_grid(cfg)
+    mesh = rank.mesh(grid.iy, grid.jx)
+    torch.cuda.reset_peak_memory_stats(dev)
+    s0 = MolochCore(grid, cfg, device=dev, dtype=torch.float32,
+                    mesh=mesh).initial_state(perturb=0.3, seed=1)
+    model = Model(cfg, grid=grid, device=dev, dtype=torch.float32,
+                  initial_state=s0, mesh=mesh)
+    del s0
+    mods = {"K1": k1, "K2": k2, "K3": k3, "K4": k4}
+    for m in mods.values():
+        m.launches = 0
+    k1.launches_sharded = k3.launches_sharded = k4.launches_sharded = 0
+    halo.exchanges = halo.bytes_sent = 0
+    model.run(DECOMP_STEPS)
+    launches = {k: m.launches for k, m in mods.items()}
+    launches.update(K5a=k4.launches_sharded, K5b=k3.launches_sharded,
+                    K5c=k1.launches_sharded)
+    exch = (halo.exchanges / DECOMP_STEPS, halo.bytes_sent / DECOMP_STEPS)
+    finite = model.check_finite()
+    dec = model.decoupled()
+    dist.barrier()
+    _, wall = model.run(time_steps)
+    walls = [None] * rank.world
+    dist.all_gather_object(walls, wall)
+    out = dict(launches=launches, exchanges_per_step=exch[0],
+               bytes_per_step=exch[1], finite=finite,
+               ms_per_step=1000.0 * max(walls) / time_steps,
+               peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+               device=str(dev), backend=rank.backend,
+               dec=dec if rank.rank == 0 else None)
+    del model
+    torch.cuda.empty_cache()
+    hcfg = hill_cfg(32, 32)
+    hgrid = build_grid(hcfg, ht=hill(32, 32))
+    d64 = dryrun(hcfg, hgrid, dev, rank.mesh(32, 32))
+    out["dryrun"] = d64 if rank.rank == 0 else None
+    return out
+
+
+def run_decomposed(dev, smi, single12):
+    """Phases 10 and 11: the 2x2 groups of ``decomposed_rank`` on every
+    backend the host allows, held to the single card's
+    step-12 fields ``single12`` within its own roundoff spread (a 1e-7
+    relative change of T, PERF.md section 7) and to its f64 dryrun;
+    returns each backend's rank results."""
+    import torch
+    from regcm_tpu_torch.core.grid import build_grid
+    from regcm_tpu_torch.driver import Model
+    from regcm_tpu_torch.dynamics.moloch import MolochCore
+    from regcm_tpu_torch.parallel.launch import spawn
+    fcfg = flagship_cfg()
+    fgrid = build_grid(fcfg)
+    fs0 = MolochCore(fgrid, fcfg, device=dev, dtype=torch.float32
+                     ).initial_state(perturb=0.3, seed=1)
+    rng = np.random.default_rng(0)
+    fs1 = fs0._replace(t=fs0.t * (1.0 + 1e-7 * torch.as_tensor(
+        rng.standard_normal(tuple(fs0.t.shape)), dtype=torch.float32,
+        device=dev)))
+    model = Model(fcfg, grid=fgrid, device=dev, dtype=torch.float32,
+                  initial_state=fs1)
+    model.run(DECOMP_STEPS)
+    pert12 = model.decoupled()
+    del model, fs0, fs1
+    torch.cuda.empty_cache()
+    # phase 11's single-card reference
+    hcfg = hill_cfg(32, 32)
+    hgrid = build_grid(hcfg, ht=hill(32, 32))
+    ref64 = dryrun(hcfg, hgrid, dev)
+    ncards = torch.cuda.device_count()
+    world = GRID[0] * GRID[1]
+    cards = (f"{ncards} cards: one card a rank" if ncards >= world
+             else f"{ncards} card(s) for {world} ranks")
+    why = {"gloo": f"{cards}, halos staged through host memory",
+           "nccl": cards}
+    backends = ["gloo"]
+    if ncards >= world:
+        backends.append("nccl")
+    else:
+        print(f"decomposed runs: nccl not run: it needs a card for each "
+              f"of the {world} ranks, this host has {ncards}")
+    decomp = {}
+    for backend in backends:
+        print(f"decomposed runs: {GRID[0]}x{GRID[1]} ranks, {backend} "
+              f"({why[backend]})")
+        t0 = time.time()
+        res = spawn(decomposed_rank, *GRID, backend, "cuda",
+                    args=(TIME_STEPS,), timeout=900)
+        print(f"  {backend} group ran in {time.time() - t0:.1f} s")
+        for r, out in enumerate(res):
+            print(f"  rank {r} on {out['device']}: launches "
+                  f"{out['launches']}, {out['exchanges_per_step']:.1f} "
+                  f"halo exchanges and {out['bytes_per_step'] / 1e6:.3f} MB "
+                  f"sent a step, peak device memory {out['peak_gib']:.2f} "
+                  f"GiB")
+            if not out["finite"]:
+                raise AssertionError(f"rank {r}: non-finite state after "
+                                     f"{DECOMP_STEPS} decomposed steps")
+            for k in ("K5a", "K5b", "K5c"):
+                if out["launches"][k] <= 0:
+                    raise AssertionError(f"rank {r} ({backend}): the "
+                                         f"decomposed path bypassed {k}")
+        dec = res[0]["dec"]
+        for f in ("ps", "t", "qv", "u", "v", "w"):
+            err = rel_rms(dec[f], single12[f])
+            spread = rel_rms(pert12[f], single12[f])
+            print(f"  MOLOCH 192x192x41 f32 step {DECOMP_STEPS}, {backend} "
+                  f"2x2 vs one card, {f}: rel-RMS {err:.3e} (the single "
+                  f"card's spread under a 1e-7 change of T {spread:.3e}, "
+                  f"bound 4x)")
+            if not (np.all(np.isfinite(dec[f])) and err <= 4.0 * spread):
+                raise AssertionError(f"decomposed flagship ({backend}) "
+                                     f"leaves the single card's spread in "
+                                     f"{f}: {err} vs {spread}")
+        ms = res[0]["ms_per_step"]
+        last = DECOMP_STEPS + TIME_STEPS - 1
+        print(f"  decomposed MOLOCH ms/step (f32, 192x192x41 on 2x2 ranks, "
+              f"{backend}, steps {DECOMP_STEPS}..{last}: cumulus and "
+              f"surface at 20, no radiation; synchronised, slowest rank): "
+              f"{ms:.3f} on {smi}")
+        # -- 11. f64 at 32x32x14 over the hill, 2x2 against one card
+        d64 = res[0]["dryrun"]
+        for f, want in ref64.items():
+            rel = float(np.max(np.abs(d64[f] - want))
+                        / max(float(np.max(np.abs(want))), 1e-300))
+            print(f"  MOLOCH 32x32x14 f64 dryrun, {backend} 2x2 vs one "
+                  f"card, {f}: max rel err {rel:.3e} (bound 1e-12)")
+            if not rel <= 1e-12:
+                raise AssertionError(f"decomposed f64 dryrun ({backend}) "
+                                     f"disagrees in {f}: {rel}")
+        decomp[backend] = res
+    return decomp
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -447,9 +771,15 @@ def main():
     print(f"MOLOCH set-up {time.time() - t0:.1f} s")
     del ms0
     reset(mods)
-    _, wall = model.run(STEPS)
+    _, wall0 = model.run(DECOMP_STEPS)
+    single12 = model.decoupled()        # phase 10 compares with it
+    _, wall = model.run(STEPS - DECOMP_STEPS)
     moloch_launches = read(mods)
-    print(f"MOLOCH path: {STEPS} steps in {wall:.3f} s; launches "
+    print(f"MOLOCH one card ms/step (f32, 192x192x41, steps "
+          f"{DECOMP_STEPS}..{STEPS - 1}: cumulus and surface at 20, no "
+          f"radiation; synchronised): "
+          f"{1000.0 * wall / (STEPS - DECOMP_STEPS):.3f} on {smi}")
+    print(f"MOLOCH path: {STEPS} steps in {wall0 + wall:.3f} s; launches "
           f"{moloch_launches}")
     if not model.check_finite():
         raise AssertionError("non-finite MOLOCH state after the f32 run")
@@ -560,26 +890,43 @@ def main():
         runs[name] = m.decoupled()
     card_vs_cpu(runs, ("ps", "t", "qv", "u", "v", "w"), "MOLOCH")
 
+    # -- 9. the decomposed kernels on 2x2 blocks, one process
+    k5_stats = compare_decomposed(dev, mods)
+    stats.update(k5_stats)
+
+    # -- 10, 11. the decomposed MOLOCH runs
+    decomp = run_decomposed(dev, smi, single12)
+
     if "jax" in sys.modules or any(
             m == "regcm_tpu" or m.startswith("regcm_tpu.")
             for m in sys.modules):
         raise AssertionError("the port imported jax or the JAX package")
 
-    # -- 8. results: timings at the MOLOCH shape (the MOLOCH main
-    # path), launches from the MOLOCH path's run; no single PyTorch call
-    # computes any of the four functions, so library_ms is null
+    # -- results: timings at the MOLOCH shape (K5: one 96x96 block),
+    # launches from each kernel's path: K1-K4 from phase 6's run, K5
+    # from rank 0 of phase 10's gloo run (every rank's in launches_ranks);
+    # no single PyTorch call computes any of these functions, so
+    # library_ms is null
     kernels = []
-    for k in mods:
+    ranks = decomp["gloo"]
+    for k in NAMES:
         st = stats[k]["moloch"]
-        kernels.append(dict(
+        row = dict(
             name=NAMES[k], route="cuda",
-            source=f"regcm_tpu_torch/csrc/{NAMES[k]}.cu",
-            replaces=REPLACES[k], launches=moloch_launches[k],
+            source=f"regcm_tpu_torch/csrc/{SOURCE[k]}.cu",
+            replaces=REPLACES[k],
+            launches=(ranks[0]["launches"][k] if k in BASE
+                      else moloch_launches[k]),
             max_abs_err=st["max_abs_err"], ms=st["ms"],
             plain_ms=st["plain_ms"], bound_ms=st["bound_ms"],
-            bound_by=st["bound_by"], library_ms=None,
-            shape=st["shape"], launches_hydrostatic=hydro_launches[k],
-            small_shape=stats[k]["small"]))
+            bound_by=st["bound_by"], library_ms=None, shape=st["shape"])
+        if k in BASE:
+            row["launches_ranks"] = {b: [r["launches"][k] for r in res]
+                                     for b, res in decomp.items()}
+        else:
+            row.update(launches_hydrostatic=hydro_launches[k],
+                       small_shape=stats[k]["small"])
+        kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -8,9 +8,16 @@ cumulus every dtcum, surface every dtsrf, radiation every dtrad and the
 LW absorptivities every dtabem. It runs on the CUDA card unless the
 caller passes ``device="cpu"``. ICBC input, restart and output are not
 ported; the boundary is held at the initial state.
+
+``Model(cfg, mesh=DomainMesh(...))`` runs the MOLOCH core decomposed over
+a (y, x) grid of ranks, one ``Model`` in each rank's process
+(``parallel.launch``): the rank holds its block of the state, the solar
+zenith angles are computed on the whole grid and cut to it, and
+``check_finite`` and ``decoupled`` look at the whole domain.
 """
 from __future__ import annotations
 
+import functools
 import time
 from typing import Dict, Optional
 
@@ -19,14 +26,12 @@ import torch
 
 from .config.params import RegCMConfig
 from .core.grid import ModelGrid, build_grid
-from .core.state import (HydroState, StepFlags, IQV, IQC,
-                         bdy_from_numpy, bdy_from_state, state_from_numpy,
-                         zeros_hydro)
+from .core.state import (HydroState, StepFlags, bdy_from_numpy,
+                         bdy_from_state, state_from_numpy, zeros_hydro)
 from .device import resolve_device
 from .dynamics.hydrostatic import HydroCore
 from .dynamics.moloch import (MolochBdy, MolochCore, MolochState,
                               moloch_bdy_from_numpy, moloch_state_from_numpy)
-from .dynamics.stencil import cross2dot
 from .physics.surface.bats import bats_init_state
 from .utils import constants as c
 from .utils.calendar import Date
@@ -72,8 +77,9 @@ def moloch_bdy_from_state(s: MolochState) -> MolochBdy:
 
 
 def _as_state(st, cls, from_numpy, device, dtype):
-    """A ``cls`` of tensors on (device, dtype) from either form: tensors,
-    or the JAX package's state after ``jax.device_get``."""
+    """A ``cls`` of tensors on (device, dtype) from either form: tensors
+    (the rank's block in a decomposed run), or numpy arrays such as the
+    JAX package's state after ``jax.device_get`` (the whole domain)."""
     if isinstance(st, cls) and isinstance(st[0], torch.Tensor):
         return cls(*(v.to(device=device, dtype=dtype) for v in st))
     return from_numpy(st, device, dtype)
@@ -84,11 +90,16 @@ class Model:
 
     def __init__(self, cfg: RegCMConfig, grid: Optional[ModelGrid] = None,
                  device="cuda", dtype=torch.float64, physics=None,
-                 initial_state=None, bdy=None):
+                 initial_state=None, bdy=None, mesh=None):
         if cfg.core.idynamic not in (1, 3):
             raise NotImplementedError(
                 f"coreparam idynamic={cfg.core.idynamic}: the hydrostatic "
                 "(1) and MOLOCH (3) cores are ported")
+        if mesh is not None and cfg.core.idynamic != 3:
+            raise NotImplementedError(
+                "a decomposed run (mesh=) of the hydrostatic core is not "
+                "ported yet (ROADMAP.md Queue 1, item 10a); the MOLOCH core "
+                "(idynamic=3) runs decomposed")
         pp = cfg.perturb
         if cfg.globdat.ensemble_run and any(
                 getattr(pp, f"lperturb_{n}") for n in
@@ -97,6 +108,11 @@ class Model:
                                       "ported to regcm_tpu_torch")
         self.cfg = cfg
         self.grid = grid or build_grid(cfg)
+        if mesh is not None and (mesh.iy, mesh.jx) != (self.grid.iy,
+                                                       self.grid.jx):
+            raise ValueError(f"{mesh} does not cover the "
+                             f"{self.grid.iy}x{self.grid.jx} grid")
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.dtype = dtype
         self.idynamic = cfg.core.idynamic
@@ -104,16 +120,18 @@ class Model:
             physics = None
         elif physics is None:
             from .physics.suite import PhysicsSuite
-            physics = PhysicsSuite(cfg, self.grid, self.device, dtype)
+            physics = PhysicsSuite(cfg, self.grid, self.device, dtype,
+                                   mesh=mesh)
         self.dtsec = cfg.dtsec
         if self.idynamic == 3:
             self.core = MolochCore(self.grid, cfg, device=self.device,
-                                   dtype=dtype, physics=physics)
+                                   dtype=dtype, physics=physics, mesh=mesh)
             if initial_state is None:
                 initial_state = self.core.initial_state()
             self.state = _as_state(initial_state, MolochState,
-                                   moloch_state_from_numpy, self.device,
-                                   dtype)
+                                   functools.partial(moloch_state_from_numpy,
+                                                     mesh=mesh),
+                                   self.device, dtype)
         else:
             self.core = HydroCore(self.grid, cfg, device=self.device,
                                   dtype=dtype, physics=physics)
@@ -135,7 +153,8 @@ class Model:
             bdy = moloch_bdy_from_state(self.state) if self.idynamic == 3 \
                 else bdy_from_state(self.state)
         elif not isinstance(bdy[0], torch.Tensor):
-            bdy = (moloch_bdy_from_numpy if self.idynamic == 3
+            bdy = (functools.partial(moloch_bdy_from_numpy, mesh=mesh)
+                   if self.idynamic == 3
                    else bdy_from_numpy)(bdy, self.device, dtype)
         self.bdy = bdy
         self.start_date = Date.from_int(cfg.restart.mdate1,
@@ -156,8 +175,10 @@ class Model:
             mu = np.ones((g.iy, g.jx))       # overhead sun everywhere
         else:
             mu = _coszrs(self.date, g.xlat, g.xlon, decl=sol.declin)
-        mu = torch.as_tensor(np.asarray(mu), dtype=self.dtype,
-                             device=self.device)
+        mu = np.asarray(mu)
+        if self.mesh is not None:
+            mu = self.mesh.local(mu)
+        mu = torch.as_tensor(mu, dtype=self.dtype, device=self.device)
         # third slot: fractional month position (mid-month nodes)
         mpos = self.date.month + (self.date.day - 15) / 30.0
         self.state, diags = self.core.step(
@@ -210,22 +231,17 @@ class Model:
         return diags, time.time() - t0
 
     def check_finite(self) -> bool:
-        return all(bool(torch.isfinite(x).all()) for x in self.state)
+        """Whether every field is finite (on every rank)."""
+        ok = torch.stack([torch.isfinite(x).all() for x in self.state])
+        ok = ok.all().to(torch.int32)
+        if self.mesh is not None:
+            ok = self.mesh.all_reduce(ok, torch.distributed.ReduceOp.MIN)
+        return bool(ok)
 
     def decoupled(self) -> Dict[str, np.ndarray]:
-        """Physical-unit prognostics on the host."""
-        s = self.state
-        if self.idynamic == 3:
-            # MOLOCH prognostics are physical already; winds face→cross
-            ux, vx = self.core.uvstag2x(s.u, s.v)
-            atms = self.core.mkslice(s.t, s.pai, s.qx, s.u, s.v, s.w)
-            out = dict(ps=atms["ps2d"] / 100.0,                  # hPa
-                       t=s.t, qv=s.qx[0], qc=s.qx[1], u=ux, v=vx, w=s.w)
-            return {k: v.cpu().numpy() for k, v in out.items()}
-        rps = 1.0 / s.ps_a
-        rpsd = 1.0 / cross2dot(s.ps_a)
-        out = dict(ps=(s.ps_a + self.grid.ptop) * 10.0,          # hPa
-                   t=s.t_a * rps[None], qv=s.qx_a[IQV] * rps[None],
-                   qc=s.qx_a[IQC] * rps[None],
-                   u=s.u_a * rpsd[None], v=s.v_a * rpsd[None])
+        """Physical-unit prognostics on the host (of the whole domain,
+        on every rank)."""
+        out = self.core.decoupled(self.state)
+        if self.mesh is not None:
+            out = {k: self.mesh.gather(v) for k, v in out.items()}
         return {k: v.cpu().numpy() for k, v in out.items()}

@@ -841,6 +841,15 @@ class HydroCore:
         ddiv = ddiv * self.m_c
         return torch.einsum("nk,kyx->nyx", self.sp_zmatxr, ddiv)
 
+    def decoupled(self, s: HydroState) -> Dict[str, torch.Tensor]:
+        """Physical-unit prognostics: p*-coupled fields divided by p*."""
+        rps = 1.0 / s.ps_a
+        rpsd = 1.0 / cross2dot(s.ps_a)
+        return dict(ps=(s.ps_a + self.ptop) * 10.0,                # hPa
+                    t=s.t_a * rps[None], qv=s.qx_a[IQV] * rps[None],
+                    qc=s.qx_a[IQC] * rps[None],
+                    u=s.u_a * rpsd[None], v=s.v_a * rpsd[None])
+
     @with_topology
     def init_split_storage(self, s: HydroState) -> HydroState:
         """Initial dstor/hstor from the b-level state (spinit,

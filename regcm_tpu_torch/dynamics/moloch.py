@@ -14,6 +14,14 @@ WAF advection passes of the whole field stack through kernel K4
 (``kernels.waf_advect``), then the physics, the boundary relaxation and
 the every-step smoothers. The metric and mask constants are built in
 numpy, as in the JAX package, and put on the device once.
+
+With a ``DomainMesh`` (``MolochCore(..., mesh=...)``, the JAX core's
+``set_mesh``) the core steps one rank's (ly, lx) block of the domain:
+the constants and the initial state are built on the whole grid and
+sliced, every horizontal stencil reads across block edges through the
+halo exchange of ``stencil.shift``/``shifte``, the w solve goes through
+K5b and the WAF pass through K5a (Holtslag's solve through K5c), and
+the diagnostics are reduced over the ranks.
 """
 from __future__ import annotations
 
@@ -27,11 +35,12 @@ from ..config.params import RegCMConfig
 from ..core.grid import ModelGrid
 from ..core.state import tensors_from, state_to_numpy
 from ..device import resolve_device
-from ..kernels.tridiag_w import tridiag_w
-from ..kernels.waf_advect import waf_advect, waf_advect_plain
+from ..kernels.tridiag_w import tridiag_w, tridiag_w_sharded
+from ..kernels.waf_advect import (waf_advect, waf_advect_plain,
+                                  waf_advect_sharded)
 from ..utils import constants as c
 from ..utils.thermo import pfwsat, wlh
-from .stencil import shift, shifte
+from .stencil import shift, shifte, with_topology
 
 T0_ZITA = 280.0
 HZITA = c.rgas * T0_ZITA / c.egrav          # Share/mod_zita.F90:32
@@ -154,16 +163,28 @@ def zeros_moloch_phys(kz: int, iy: int, jx: int, device="cuda",
                 chemdiag=full((3, 0, iy, jx)))
 
 
-def moloch_state_from_numpy(s, device="cuda",
-                            dtype=torch.float64) -> MolochState:
+def _sliced(nt, mesh):
+    """The NamedTuple ``nt`` of global (..., iy, jx) arrays cut to the
+    rank's block of ``mesh`` (unchanged without a mesh)."""
+    if mesh is None:
+        return nt
+    return nt._replace(**{k: mesh.local(np.asarray(v))
+                          for k, v in nt._asdict().items() if v is not None})
+
+
+def moloch_state_from_numpy(s, device="cuda", dtype=torch.float64,
+                            mesh=None) -> MolochState:
     """MolochState of tensors from any NamedTuple with the same fields
-    (e.g. the JAX package's state after ``jax.device_get``)."""
-    return tensors_from(MolochState, s, device, dtype)
+    (e.g. the JAX package's state after ``jax.device_get``); with a
+    ``DomainMesh`` the global arrays are cut to the rank's block."""
+    return tensors_from(MolochState, _sliced(s, mesh), device, dtype)
 
 
-def moloch_bdy_from_numpy(b, device="cuda", dtype=torch.float64) -> MolochBdy:
-    """MolochBdy of tensors from any NamedTuple with the same fields."""
-    return tensors_from(MolochBdy, b, device, dtype)
+def moloch_bdy_from_numpy(b, device="cuda", dtype=torch.float64,
+                          mesh=None) -> MolochBdy:
+    """MolochBdy of tensors from any NamedTuple with the same fields (cut
+    to the rank's block of ``mesh``)."""
+    return tensors_from(MolochBdy, _sliced(b, mesh), device, dtype)
 
 
 # field name → numpy array (host copy), as for the hydrostatic state
@@ -188,7 +209,7 @@ class MolochCore:
     """MOLOCH integration engine: device constants and the eager step."""
 
     def __init__(self, grid: ModelGrid, cfg: RegCMConfig, device="cuda",
-                 dtype=torch.float64, physics=None):
+                 dtype=torch.float64, physics=None, mesh=None):
         _refuse_options(cfg)
         device = resolve_device(device)
         self.grid = grid
@@ -196,8 +217,14 @@ class MolochCore:
         self.device = device
         self.dtype = dtype
         self.physics = physics
-        f = lambda x: torch.as_tensor(np.asarray(x), dtype=dtype,
-                                      device=device)
+        self.mesh = mesh
+        # vertical profiles, and (..., iy, jx) fields built on the whole
+        # grid (np.roll wraps around it, hx[:, 0] fixes its edge) and cut
+        # to the rank's block
+        f1 = lambda x: torch.as_tensor(np.asarray(x), dtype=dtype,
+                                       device=device)
+        f = f1 if mesh is None \
+            else (lambda x: f1(mesh.local(np.asarray(x))))
         g = grid
         kz, iy, jx = g.kz, g.iy, g.jx
         self.kz, self.iy, self.jx = kz, iy, jx
@@ -224,12 +251,15 @@ class MolochCore:
         zeta_np = np.stack([md_zeta_h(zitah[k], orog, self.a0, self.b0)
                             for k in range(kz)])
         self.zeta = f(zeta_np)
+        # what initial_state needs of the whole grid, in the working dtype
+        self._init_fields = tuple(
+            torch.as_tensor(a, dtype=dtype) for a in (zeta_np, ht, fmzf))
         zetaf = np.stack([md_zeta_h(zitaf[k], orog, self.a0, self.b0)
                           for k in range(kz + 1)])
         zetaf[0] = 48446.4
         self.zetaf = f(zetaf)
-        self.gzitak = f(gzita(zitaf, self.a0))       # (kz+1,)
-        self.gzitakh = f(gzita(zitah, self.a0))      # (kz,)
+        self.gzitak = f1(gzita(zitaf, self.a0))      # (kz+1,)
+        self.gzitakh = f1(gzita(zitah, self.a0))     # (kz,)
 
         # acoustic vertical filter (mod_init.F90:999-1012), interface idx
         mo_nzfilt = int(cfg.moloch.extras.get("mo_nzfilt", 10))
@@ -244,7 +274,7 @@ class MolochCore:
                     zzi = (self.dz * (kz + 1 - (k + 1)) - zfilt) \
                         / (HZITA - zfilt)
                     ffilt[k] = 0.8 * math.sin(0.5 * math.pi * zzi) ** 2
-        self.ffilt = f(ffilt)
+        self.ffilt = f1(ffilt)
 
         # horizontal metrics: map factors at the faces, terrain slopes
         # hx/hy (mod_params.F90:2762-2776)
@@ -295,7 +325,7 @@ class MolochCore:
         # the coupling factor in atms is 1)
         self.nqx = 5 if cfg.physics.ipptls in (2, 3) else 2
         self.grid_lndocn = f(g.lndocn)
-        self.sst = torch.full((iy, jx), 288.0, dtype=dtype, device=device)
+        self.sst = torch.full_like(self.mx2, 288.0)
         self.coriol = f(g.coriol)
         self.m_di = self.m_u                 # only used by B-grid paths
         sx = cfg.subex
@@ -344,8 +374,10 @@ class MolochCore:
         bubble: optional (amp_K, y0, x0, rad_m, zc_m) warm bubble;
         perturb: white-noise T amplitude from numpy.random.default_rng(seed)."""
         kz, iy, jx = self.kz, self.iy, self.jx
-        host = lambda a: a.cpu().numpy()
-        zc = host(self.zeta) + host(self.ht)[None] * c.regrav
+        # on the whole grid (in the working dtype), then cut to the block
+        zeta, ht, fmzf = (a.numpy() for a in self._init_fields)
+        dev = self.device if self.mesh is None else torch.device("cpu")
+        zc = zeta + ht[None] * c.regrav
         t = np.maximum(c.stdt - c.lrate * zc, 216.65)
         # analytic hydrostatic Exner of the standard atmosphere
         pex = c.egrav / (c.cpd * c.lrate)
@@ -359,7 +391,6 @@ class MolochCore:
         # discrete hydrostatic balance of the sound solver:
         # pai[K-1] = pai[K] − g·dz/(cp·fmzf[K]·½(θv[K-1]+θv[K]))
         tv = t
-        fmzf = host(self.fmzf)
         for K in range(kz - 1, 0, -1):
             x = pai[K - 1].copy()
             for _ in range(8):
@@ -381,22 +412,23 @@ class MolochCore:
         qv = 0.4 * pfwsat(torch.as_tensor(t),
                           torch.as_tensor(pai ** c.cpovr * c.stdp)).numpy()
         qv = np.minimum(qv, 0.012)
-        f = lambda x: torch.as_tensor(x, dtype=self.dtype,
-                                      device=self.device)
+        f = lambda x: torch.as_tensor(x, dtype=self.dtype, device=dev)
         qx = torch.cat([f(qv)[None],
                         torch.zeros((self.nqx - 1, kz, iy, jx),
-                                    dtype=self.dtype, device=self.device)])
+                                    dtype=self.dtype, device=dev)])
         nlak = int(self.cfg.physics.extras.get("lake_ndpmax", 100)) \
             if self.cfg.physics.lakemod == 1 else 1
-        phys = zeros_moloch_phys(kz, iy, jx, self.device, self.dtype,
-                                 nlak=nlak)
+        phys = zeros_moloch_phys(kz, iy, jx, dev, self.dtype, nlak=nlak)
         phys["tg"] = f(t[kz - 1])
-        z3 = torch.zeros((kz, iy, jx), dtype=self.dtype, device=self.device)
-        return MolochState(
+        z3 = torch.zeros((kz, iy, jx), dtype=self.dtype, device=dev)
+        st = MolochState(
             u=z3, v=z3.clone(),
-            w=torch.zeros((kz + 1, iy, jx), dtype=self.dtype,
-                          device=self.device),
+            w=torch.zeros((kz + 1, iy, jx), dtype=self.dtype, device=dev),
             pai=f(pai), t=f(t), qx=qx, **phys)
+        if self.mesh is not None:
+            st = MolochState(*(self.mesh.local(a).to(self.device)
+                               for a in st))
+        return st
 
     # ------------------------------------------------------------------
     def _sound(self, u, v, w, pai, tetav, qv, qsat, dts):
@@ -458,7 +490,9 @@ class MolochCore:
                 + self.ffilt[1:kz, None, None]
 
             w_old = w
-            w_new_int = tridiag_w(wexpl, zm, zp, w[kz])
+            w_new_int = tridiag_w(wexpl, zm, zp, w[kz]) \
+                if self.mesh is None \
+                else tridiag_w_sharded(self.mesh, wexpl, zm, zp, w[kz])
             w = torch.cat([torch.zeros_like(w[:1]), w_new_int, w[kz:]],
                           dim=0)
             deltaw = w - w_old
@@ -506,11 +540,13 @@ class MolochCore:
                                 dta / self.dx, dta / self.dz)
 
     # staggering helpers (uvstagtox/xtouvstag, mod_moloch public)
+    @with_topology
     def uvstag2x(self, u, v):
         ux = 0.5 * (u + shift(u, 0, 1))
         vx = 0.5 * (v + shift(v, 1, 0))
         return ux, vx
 
+    @with_topology
     def x2uvstag(self, ux, vx):
         u = 0.5 * (ux + shifte(ux, 0, -1))
         v = 0.5 * (vx + shifte(vx, -1, 0))
@@ -523,6 +559,7 @@ class MolochCore:
         w_int = 0.5 * (wx[:-1] + wx[1:])
         return torch.cat([w_old[:1], w_int, w_old[-1:]], dim=0)
 
+    @with_topology
     def couple_uvten(self, utenx, vtenx, cpl):
         """Cross-point physics wind tendencies → C-grid faces
         (tenxtouvten, Main/mpplib/mod_mppparam.F90:13524-13580): 4th-order
@@ -572,6 +609,14 @@ class MolochCore:
             omega_pa=-0.5 * c.egrav * rho * (w[:kz] + w[1:]),
             qdot=torch.zeros_like(w), coszrs=torch.zeros_like(ps))
 
+    def decoupled(self, s: MolochState) -> Dict[str, torch.Tensor]:
+        """Physical-unit prognostics (already uncoupled), the face winds
+        at the cross points."""
+        ux, vx = self.uvstag2x(s.u, s.v)
+        atms = self.mkslice(s.t, s.pai, s.qx, s.u, s.v, s.w)
+        return dict(ps=atms["ps2d"] / 100.0,                    # hPa
+                    t=s.t, qv=s.qx[0], qc=s.qx[1], u=ux, v=vx, w=s.w)
+
     def _condtq(self, t, qx, p, tten, qxten, cldfra, dt):
         """SUBEX saturation adjustment, MOLOCH branch (condtq,
         Main/mod_micro_interface.F90:395-493 idynamic==3 path):
@@ -606,6 +651,7 @@ class MolochCore:
         return tmp2 * wwlh * c.rcpd, -tmp2, tmp2
 
     # ------------------------------------------------------------------
+    @with_topology
     def step(self, st: MolochState, bdy=None, xt=0.0, dt=None,
              flags=None, coszrs=None, solar=None
              ) -> Tuple[MolochState, Dict[str, torch.Tensor]]:
@@ -642,9 +688,11 @@ class MolochCore:
             wx = self.wstag2x(w)
             fields = torch.cat([tetav[None], pai[None], ux[None], vx[None],
                                 wx[None], qx], dim=0)
-            adv = waf_advect(fields, u * self.rmu[None], v * self.rmv[None],
-                             s, self.fmz, self.fmzf, self.mx2, self.m_ci,
-                             dtstepa / self.dx, dtstepa / self.dz)
+            args = (fields, u * self.rmu[None], v * self.rmv[None], s,
+                    self.fmz, self.fmzf, self.mx2, self.m_ci,
+                    dtstepa / self.dx, dtstepa / self.dz)
+            adv = waf_advect(*args) if self.mesh is None \
+                else waf_advect_sharded(self.mesh, *args)
             tetav, pai, ux, vx, wx = (adv[0], adv[1], adv[2], adv[3],
                                       adv[4])
             qx = adv[5:5 + self.nqx]
@@ -735,6 +783,10 @@ class MolochCore:
             pmin=torch.min(torch.where(self.m_ci > 0.5, p[kz - 1], 1e9)),
             pmax=torch.max(torch.where(self.m_ci > 0.5, p[kz - 1], 0.0)),
         )
+        if self.mesh is not None:       # over the whole domain
+            red = self.mesh.all_reduce(torch.stack(
+                [diags["wmax"], -diags["pmin"], diags["pmax"]]))
+            diags = dict(wmax=red[0], pmin=-red[1], pmax=red[2])
         return ns, diags
 
     def _nudge(self, diff):

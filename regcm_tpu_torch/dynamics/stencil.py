@@ -4,6 +4,12 @@
 ``shift`` reads the neighbour at (y+dy, x+dx) with a constant fill
 outside the domain; ``shifte`` replicates the edge instead. Periodic
 directions (tropical band: x; CRM: x and y) wrap with ``torch.roll``.
+
+Under a ``DomainMesh`` (``topology(mesh=...)``) each tensor is one
+rank's block of the domain: a shift first extends the block by |dy|
+rows and |dx| columns on the side it reads from (``parallel.halo``,
+y before x so that a diagonal shift gets its corner), then slices, so
+that every rank computes its block of the undecomposed result.
 """
 from __future__ import annotations
 
@@ -12,32 +18,39 @@ import functools
 
 import torch
 
+from ..parallel.halo import halo_expand
+
 # Topology flags: the reference's set_nproc builds an x-periodic (band,
 # i_band=1) or doubly periodic (CRM, i_crm=1) topology
 # (Main/mpplib/mod_mppparam.F90:1131 dim_period).
 _PX = False
 _PY = False
+_MESH = None          # the DomainMesh of a decomposed run, or None
 
 
 @contextlib.contextmanager
-def topology(periodic_x: bool = False, periodic_y: bool = False):
+def topology(periodic_x: bool = False, periodic_y: bool = False,
+             mesh=None):
     """Set the stencil topology for code run within this context."""
-    global _PX, _PY
-    old = (_PX, _PY)
-    _PX, _PY = bool(periodic_x), bool(periodic_y)
+    global _PX, _PY, _MESH
+    if mesh is not None and (periodic_x or periodic_y):
+        raise NotImplementedError("periodic topologies are not decomposed")
+    old = (_PX, _PY, _MESH)
+    _PX, _PY, _MESH = bool(periodic_x), bool(periodic_y), mesh
     try:
         yield
     finally:
-        _PX, _PY = old
+        _PX, _PY, _MESH = old
 
 
 def with_topology(fn):
     """Method decorator: run the body under the core's grid topology
-    (core.periodic_x/periodic_y attributes)."""
+    (core.periodic_x/periodic_y/mesh attributes)."""
     @functools.wraps(fn)
     def wrapped(self, *a, **k):
         with topology(getattr(self, "periodic_x", False),
-                      getattr(self, "periodic_y", False)):
+                      getattr(self, "periodic_y", False),
+                      getattr(self, "mesh", None)):
             return fn(self, *a, **k)
     return wrapped
 
@@ -66,11 +79,27 @@ def _span(n, d):
     return slice(max(-d, 0), n - max(d, 0)), slice(max(d, 0), n - max(-d, 0))
 
 
+def _decomposed(a, dy, dx, mode):
+    """shift/shifte of a rank's block: extend it from the neighbours on
+    the side each offset reads from, then slice."""
+    ly, lx = a.shape[-2], a.shape[-1]
+    if dy:
+        a = halo_expand(a, _MESH, -2, max(-dy, 0), max(dy, 0), mode)
+    if dx:
+        a = halo_expand(a, _MESH, -1, max(-dx, 0), max(dx, 0), mode)
+    y, x = max(dy, 0), max(dx, 0)
+    return a[..., y:y + ly, x:x + lx]
+
+
 def shift(a, dy: int, dx: int, fill=0.0):
     """out[..., y, x] = a[..., y+dy, x+dx]; out-of-range → fill (wraps on
     a periodic axis)."""
     if dy == 0 and dx == 0:
         return a
+    if _MESH is not None:
+        if fill != 0.0:
+            raise NotImplementedError("a decomposed shift fills with zeros")
+        return _decomposed(a, dy, dx, "zero")
     a, dy, dx = _wrap(a, dy, dx)
     if dy == 0 and dx == 0:
         return a
@@ -85,6 +114,8 @@ def shifte(a, dy: int, dx: int):
     """Shift with edge replication (periodic axes wrap instead)."""
     if dy == 0 and dx == 0:
         return a
+    if _MESH is not None:
+        return _decomposed(a, dy, dx, "edge")
     a, dy, dx = _wrap(a, dy, dx)
     ny, nx = a.shape[-2], a.shape[-1]
     if dy != 0:

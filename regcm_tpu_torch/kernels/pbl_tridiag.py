@@ -6,6 +6,10 @@ the signature of the TPU kernel ``regcm_tpu/dynamics/pallas_kernels.py``
 ``pbl_tridiag``. A CPU tensor goes to the plain PyTorch recurrence
 ``pbl_tridiag_plain``; a CUDA tensor launches the hand-written kernel
 ``csrc/pbl_tridiag.cu`` or raises.
+
+``pbl_tridiag_sharded(mesh, ...)`` (K5c, the TPU's
+``pbl_tridiag_sharded``) solves one rank's (y, x) block of a
+``DomainMesh``: the same kernel on the block, with no halo.
 """
 from __future__ import annotations
 
@@ -15,8 +19,10 @@ import torch
 
 from . import _build
 
-# kernel launches since the last reset (plain-version calls not counted)
+# kernel launches since the last reset (plain-version calls not
+# counted): unsharded (K1) and on a rank's block (K5c)
 launches = 0
+launches_sharded = 0
 
 _P = ctypes.c_void_p
 _SIG = [_P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
@@ -67,12 +73,11 @@ def _check(c1, c2, c3, rhs):
             raise ValueError("pbl_tridiag: inputs must be contiguous")
 
 
-def pbl_tridiag(c1, c2, c3, rhs):
-    """Solve the batched tridiagonal systems; returns x (ns, kz, iy, jx)."""
-    global launches
+def _solve(c1, c2, c3, rhs):
+    """The checked solve; returns (x, whether the kernel launched)."""
     _check(c1, c2, c3, rhs)
     if rhs.device.type == "cpu":
-        return pbl_tridiag_plain(c1, c2, c3, rhs)
+        return pbl_tridiag_plain(c1, c2, c3, rhs), False
     if rhs.device.type != "cuda":
         raise ValueError(f"pbl_tridiag: device {rhs.device} not supported")
     lib = build()
@@ -87,5 +92,24 @@ def pbl_tridiag(c1, c2, c3, rhs):
                 rhs.data_ptr(), out.data_ptr(), scratch.data_ptr(),
                 ns, kz, iy * jx, stream)
     _build.check_status(rc, "pbl_tridiag")
-    launches += 1
+    return out, True
+
+
+def pbl_tridiag(c1, c2, c3, rhs):
+    """Solve the batched tridiagonal systems; returns x (ns, kz, iy, jx)."""
+    global launches
+    out, launched = _solve(c1, c2, c3, rhs)
+    launches += launched
+    return out
+
+
+def pbl_tridiag_sharded(mesh, c1, c2, c3, rhs):
+    """K5c: the solve on this rank's (ly, lx) block of ``mesh``."""
+    global launches_sharded
+    if tuple(rhs.shape[-2:]) != (mesh.ly, mesh.lx):
+        raise ValueError(f"pbl_tridiag_sharded: expected the rank's "
+                         f"{mesh.ly}x{mesh.lx} block, got "
+                         f"{tuple(rhs.shape)}")
+    out, launched = _solve(c1, c2, c3, rhs)
+    launches_sharded += launched
     return out

@@ -8,6 +8,10 @@ interior interfaces. The signature of the TPU kernel
 ``regcm_tpu/dynamics/pallas_kernels.py`` ``tridiag_w``. A CPU tensor
 goes to the plain PyTorch sweeps ``tridiag_w_plain``; a CUDA tensor
 launches the hand-written kernel ``csrc/tridiag_w.cu`` or raises.
+
+``tridiag_w_sharded(mesh, ...)`` (K5b, the TPU's ``tridiag_w_sharded``)
+solves one rank's (y, x) block of a ``DomainMesh``: the columns are
+independent, so it is the same kernel on the block, with no halo.
 """
 from __future__ import annotations
 
@@ -17,8 +21,10 @@ import torch
 
 from . import _build
 
-# kernel launches since the last reset (plain-version calls not counted)
+# kernel launches since the last reset (plain-version calls not
+# counted): unsharded (K3) and on a rank's block (K5b)
 launches = 0
+launches_sharded = 0
 
 _P = ctypes.c_void_p
 _SIG = [_P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong, _P]
@@ -71,12 +77,11 @@ def _check(wexpl, zm, zp, w_bot):
             raise ValueError("tridiag_w: inputs must be contiguous")
 
 
-def tridiag_w(wexpl, zm, zp, w_bot):
-    """Implicit-w solve; returns w at the interior interfaces, (n, iy, jx)."""
-    global launches
+def _solve(wexpl, zm, zp, w_bot):
+    """The checked solve; returns (out, whether the kernel launched)."""
     _check(wexpl, zm, zp, w_bot)
     if wexpl.device.type == "cpu":
-        return tridiag_w_plain(wexpl, zm, zp, w_bot)
+        return tridiag_w_plain(wexpl, zm, zp, w_bot), False
     if wexpl.device.type != "cuda":
         raise ValueError(f"tridiag_w: device {wexpl.device} not supported")
     lib = build()
@@ -91,5 +96,24 @@ def tridiag_w(wexpl, zm, zp, w_bot):
                 w_bot.data_ptr(), out.data_ptr(), scratch.data_ptr(),
                 n, iy * jx, stream)
     _build.check_status(rc, "tridiag_w")
-    launches += 1
+    return out, True
+
+
+def tridiag_w(wexpl, zm, zp, w_bot):
+    """Implicit-w solve; returns w at the interior interfaces, (n, iy, jx)."""
+    global launches
+    out, launched = _solve(wexpl, zm, zp, w_bot)
+    launches += launched
+    return out
+
+
+def tridiag_w_sharded(mesh, wexpl, zm, zp, w_bot):
+    """K5b: the solve on this rank's (ly, lx) block of ``mesh``."""
+    global launches_sharded
+    if tuple(w_bot.shape) != (mesh.ly, mesh.lx):
+        raise ValueError(f"tridiag_w_sharded: expected the rank's "
+                         f"{mesh.ly}x{mesh.lx} block, got "
+                         f"{tuple(w_bot.shape)}")
+    out, launched = _solve(wexpl, zm, zp, w_bot)
+    launches_sharded += launched
     return out

@@ -15,7 +15,7 @@ import torch
 
 from ...utils import constants as c
 
-from ...kernels.pbl_tridiag import pbl_tridiag
+from ...kernels.pbl_tridiag import pbl_tridiag, pbl_tridiag_sharded
 
 # constants (mod_pbl_holtbl.F90:63-76)
 KZO = 1.0
@@ -44,10 +44,12 @@ class HoltslagOut(NamedTuple):
     kpbl: torch.Tensor       # PBL top level index (float)
 
 
-def _tridiag_implicit_many(fs, alphaks, betaks, dt, sfc_extras):
+def _tridiag_implicit_many(fs, alphaks, betaks, dt, sfc_extras,
+                           mesh=None):
     """Solve several implicit-diffusion systems of identical shape in
-    one K1 call: coefficients as holtbl builds them
-    (mod_pbl_holtbl.F90:566-660), systems stacked on a leading axis."""
+    one K1 call (K5c on a rank's block of ``mesh``): coefficients as
+    holtbl builds them (mod_pbl_holtbl.F90:566-660), systems stacked on
+    a leading axis."""
     f = torch.stack(fs)                       # (ns, kz, iy, jx)
     al = torch.stack(alphaks)
     be = torch.stack(betaks)
@@ -62,7 +64,8 @@ def _tridiag_implicit_many(fs, alphaks, betaks, dt, sfc_extras):
     c2 = 1.0 + c1 + c3
     rhs = f.clone()
     rhs[:, kz - 1] = rhs[:, kz - 1] + se
-    x = pbl_tridiag(c1, c2, c3, rhs)
+    x = pbl_tridiag(c1, c2, c3, rhs) if mesh is None \
+        else pbl_tridiag_sharded(mesh, c1, c2, c3, rhs)
     return tuple(x[i] for i in range(len(fs)))
 
 
@@ -88,10 +91,12 @@ def _find_zpbl(ri, za, kmxpbl, ricr, kz):
 def holtbl(tpatm, tatm, patm, patmf, qv, qc, ux, vx, udd, vdd,
            za, dzq, rhox2d, uvdrag, hfx, qfx, tg, coriol,
            psb, psdotb, kmxpbl, dt, ricr=0.25, zhnew_fac=0.25,
-           cross2dot_fn=None, m_di=None, m_ci=None) -> HoltslagOut:
+           cross2dot_fn=None, m_di=None, m_ci=None,
+           mesh=None) -> HoltslagOut:
     """One Holtslag PBL step. 3-D inputs (kz, iy, jx) decoupled; udd/vdd
     decoupled dot winds; kmxpbl (iy, jx) int64. Returns coupled
-    tendencies."""
+    tendencies. With a ``DomainMesh`` the inputs are one rank's block
+    and the implicit solve goes through K5c."""
     kz = tpatm.shape[0]
     rdt = 1.0 / dt
 
@@ -252,7 +257,7 @@ def holtbl(tpatm, tatm, patm, patmf, qv, qc, ux, vx, udd, vdd,
         [-dt * alphak_d[kz - 1] * uflxsf,
          -dt * alphak_d[kz - 1] * vflxsf,
          dt * akzz2[kz - 1] * hfx * c.rcpd,
-         dt * akzz2[kz - 1] * qfx, 0.0])
+         dt * akzz2[kz - 1] * qfx, 0.0], mesh=mesh)
     uten = (up - udd) * rdt * psdotb[None]
     vten = (vp - vdd) * rdt * psdotb[None]
     if m_di is not None:

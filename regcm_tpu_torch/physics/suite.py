@@ -82,11 +82,16 @@ def validate_physics(cfg):
 class PhysicsSuite:
     """Callable plugged into HydroCore (core.physics)."""
 
-    def __init__(self, cfg, grid, device="cuda", dtype=torch.float64):
+    def __init__(self, cfg, grid, device="cuda", dtype=torch.float64,
+                 mesh=None):
         validate_physics(cfg)
         device = resolve_device(device)
         self.cfg = cfg
         self.grid = grid
+        # the rank's block of a decomposed domain: the static fields are
+        # sliced to it and Holtslag solves through K5c
+        self.mesh = mesh
+        loc = (lambda a: a) if mesh is None else mesh.local
         self.ricr = 0.25      # ricr_lnd/ocn default (mod_params.F90:485)
         self.idynamic = cfg.core.idynamic
         self.land_scheme = "bats1e"
@@ -111,17 +116,18 @@ class PhysicsSuite:
                                                    1367.0))
         f = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype,
                                       device=device)
-        self.xlat = f(grid.xlat)
+        self.xlat = f(loc(grid.xlat))
         # BATS1e static fields from the DOMAIN landuse/texture
         # (defaults: short grass over land, ocean class 15, loam)
-        lveg = np.asarray(grid.extras.get(
-            "lveg", np.where(grid.lndocn > 0.5, 2, 15)))
-        ltex = np.asarray(grid.extras.get(
-            "ltex", np.full((grid.iy, grid.jx), 6)))
+        lveg = loc(np.asarray(grid.extras.get(
+            "lveg", np.where(grid.lndocn > 0.5, 2, 15))))
+        ltex = loc(np.asarray(grid.extras.get(
+            "ltex", np.full((grid.iy, grid.jx), 6))))
         self.bats_ss_np = soil_static(lveg, ltex)
         self.bats_ss = soil_static_tensors(self.bats_ss_np, device, dtype)
-        ncol = grid.iy * grid.jx
-        self.elcrit = f(np.where(grid.lndocn.reshape(ncol) > 0.5,
+        lnd = loc(np.asarray(grid.lndocn))
+        ncol = lnd.size
+        self.elcrit = f(np.where(lnd.reshape(ncol) > 0.5,
                                  ELCRIT_LND, ELCRIT_OCN))
         self.epmax = torch.full((ncol,), EPMAX, dtype=dtype, device=device)
 
@@ -293,7 +299,7 @@ class PhysicsSuite:
             torch.ones_like(cpl) if mo else cross2dot(psb),
             kmx, dt, ricr=self.ricr,
             cross2dot_fn=None if mo else cross2dot,
-            m_di=None if mo else core.m_di, m_ci=m_ci)
+            m_di=None if mo else core.m_di, m_ci=m_ci, mesh=self.mesh)
         tphy = tphy + hout.tten
         qvphy = qvphy + hout.qvten
         qcphy = qcphy + hout.qcten

@@ -1,0 +1,409 @@
+"""The decomposed MOLOCH path of the PyTorch port on the CPU: rank groups
+of ``torch.distributed`` (gloo) started by ``parallel.launch.spawn``,
+held against the undecomposed port and against the JAX package's
+sharded kernels and MOLOCH core in f64.
+
+The ranks run ``tests/_torch_parallel_ranks.py`` and never import jax;
+one 2x2 group does every 2x2 check. The group and the JAX package's
+MOLOCH trajectory (a cold compile of about a minute, in a process of its
+own so that its tracing does not share this one's interpreter lock with
+the Pallas interpret run) start when the module does, and run while the
+other tests do."""
+import multiprocessing as mp
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from regcm_tpu_torch.parallel import launch  # noqa: E402
+from regcm_tpu_torch.parallel.halo import extend_block  # noqa: E402
+from regcm_tpu_torch.parallel.mesh import DomainMesh, factor2d  # noqa: E402
+
+from . import _torch_parallel_ranks as R  # noqa: E402
+
+IY, JX = 16, 16                   # the 2x2 checks: 8x8 blocks
+K5_SHAPE = (7, 14, 16, 24)        # K5a's stack: nf, kz, iy, jx (f64)
+
+
+def _rel(got, want):
+    return float(np.max(np.abs(got - want))
+                 / max(float(np.max(np.abs(want))), 1e-300))
+
+
+def k5_inputs():
+    """K5a/b/c operands of the MOLOCH step's kind (as chip_smoke.py
+    draws them): smooth fields with noise, winds and s of both signs,
+    fmzf 0 at the top, an interior mask; the tridiagonal coefficients
+    diagonally dominant."""
+    nf, kz, iy, jx = K5_SHAPE
+    rng = np.random.default_rng(11)
+    sm = lambda sh: rng.normal(size=sh) + 10.0 * np.sin(
+        np.linspace(0, 3, int(np.prod(sh))).reshape(sh))
+    pp = sm((nf, kz, iy, jx))
+    pp[0] += 300.0
+    um = 8.0 + 0.5 * sm((kz, iy, jx))
+    vm = -5.0 + 0.5 * sm((kz, iy, jx))
+    s = 0.1 * sm((kz + 1, iy, jx))
+    fmz = 1.0 + 0.05 * rng.random((kz, iy, jx))
+    fmzf = 1.0 + 0.05 * rng.random((kz + 1, iy, jx))
+    fmzf[0] = 0.0
+    mx2 = 1.0 + 0.01 * rng.random((iy, jx))
+    m_ci = np.zeros((iy, jx))
+    m_ci[1:iy - 2, 1:jx - 2] = 1.0
+    w3 = (kz - 1, iy, jx)
+    tw = (rng.normal(size=w3), rng.uniform(0.01, 0.5, w3),
+          rng.uniform(0.01, 0.5, w3), rng.normal(size=(iy, jx)))
+    sh = (5, kz, iy, jx)
+    al, be = rng.uniform(0.1, 1.0, sh), rng.uniform(0.1, 1.0, sh)
+    bkp = np.concatenate([be[:, 1:], np.zeros_like(be[:, :1])], axis=1)
+    c1, c3 = 150.0 * al * bkp, 150.0 * al * be
+    c3[:, 0] = 0.0
+    pb = (c1, 1.0 + c1 + c3, c3, rng.normal(size=sh))
+    return ((pp, um, vm, s, fmz, fmzf, mx2, m_ci), 30.0 / 3000.0,
+            30.0 / 199.4, tw, pb)
+
+
+def assemble(blocks, ny, nx):
+    """The global array from the blocks of ranks 0..ny·nx-1."""
+    return np.concatenate([np.concatenate(blocks[py * nx:(py + 1) * nx],
+                                          axis=-1) for py in range(ny)],
+                          axis=-2)
+
+
+@pytest.fixture(scope="module")
+def k5():
+    return k5_inputs()
+
+
+@pytest.fixture(scope="module")
+def background():
+    # torch on one thread here: the ranks and the JAX compile share the
+    # cores, and torch's pool at these sizes only contends with them
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with ThreadPoolExecutor(1) as th, ProcessPoolExecutor(
+                1, mp_context=mp.get_context("spawn")) as pr:
+            yield th, pr
+    finally:
+        torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module")
+def group22_started(background, k5):
+    return background[0].submit(launch.spawn, R.two_by_two, 2, 2, "gloo",
+                                "cpu", args=(IY, JX, k5), timeout=900)
+
+
+@pytest.fixture(scope="module")
+def group22(group22_started):
+    return group22_started.result()
+
+
+def _dryrun_jax():
+    """The JAX package's MOLOCH on dryrun_multichip's settings, one
+    device (the JAX sharded gate is 1e-6). Runs in a spawned process,
+    which has not read the conftest's settings."""
+    jax.config.update("jax_enable_x64", True)
+    from regcm_tpu.config.params import RegCMConfig
+    from regcm_tpu.core.state import StepFlags
+    from regcm_tpu.driver import Model, moloch_bdy_from_state
+    cfg = RegCMConfig()
+    cfg.dim.iy, cfg.dim.jx, cfg.dim.kz = IY, JX, 14
+    cfg.geo.ds = 10.0
+    cfg.time.dt = 60.0
+    cfg.core.idynamic = 3
+    m = Model(cfg, dtype=jnp.float64)
+    st = m.core.initial_state(perturb=0.2)
+    bdy = moloch_bdy_from_state(st)
+    step = jax.jit(m.core.step, static_argnames=("flags",))
+    mu = jnp.full((IY, JX), 0.4, jnp.float64)
+    solar = jnp.asarray([1.0343, 1361.8], jnp.float64)
+    xt = 0.0
+    for n in range(3):
+        flags = StepFlags(do_rad=True, do_srf=True, do_cum=True,
+                          do_abem=True, first=True) if n == 0 \
+            else StepFlags(do_rad=False, do_srf=True, do_cum=True)
+        st, _ = step(st, bdy, xt, cfg.dtsec, flags, mu, solar)
+        xt += cfg.dtsec
+    return {k: np.asarray(getattr(st, k)) for k in R.MOLOCH_FIELDS}
+
+
+@pytest.fixture(scope="module")
+def dryrun_jax_started(background):
+    return background[1].submit(_dryrun_jax)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _start_in_background(group22_started, dryrun_jax_started):
+    """Start the 2x2 group and the JAX trajectory with the module."""
+
+
+def test_k5a_plain_halo_form_matches_jax_and_unsharded(k5, group22_started):
+    """K5a's plain halo form on a 2x2 split of a (7, 14, 16, 24) f64
+    stack against the JAX package's waf_advect_sharded on a 2x2 mesh of
+    the test's CPU devices (Pallas interpret mode) and against the
+    port's unsharded plain K4. Against the port: exact. Against JAX:
+    1e-12 relative, the JAX package's own Pallas-vs-XLA tolerance
+    (tests/test_moloch.py); measured 3.7e-16, the gap that the
+    unsharded Pallas kernel already has to the port's plain K4 (2.7e-16,
+    tests/test_torch_kernels.py), which equals jax.vmap(_wafone)."""
+    from jax.sharding import Mesh
+    from regcm_tpu.dynamics.pallas_kernels import waf_advect_sharded
+    from regcm_tpu_torch.kernels import waf_advect as k4
+    waf, dtrdx, dtrdz = k5[:3]
+    mesh = Mesh(np.asarray(jax.devices()[:4]).reshape(2, 2), ("y", "x"))
+    pp, um, vm, s, fmz, fmzf, mx2, m_ci = map(jnp.asarray, waf)
+    jgot = np.asarray(waf_advect_sharded(mesh, pp, um, vm, s, fmz, fmzf,
+                                         mx2, m_ci, dtrdx, dtrdz,
+                                         interpret=True))
+    got = assemble([r["k5"]["waf"] for r in group22_started.result()],
+                   2, 2)
+    T = torch.as_tensor
+    want = k4.waf_advect_plain(*map(T, waf), dtrdx, dtrdz).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert _rel(got, jgot) <= 1e-12
+
+
+@pytest.mark.parametrize("n", range(1, 17))
+def test_factor2d_matches_jax(n):
+    from regcm_tpu.parallel.mesh import factor2d as jfactor2d
+    assert factor2d(n) == jfactor2d(n)
+    assert factor2d(n, 2.0) == jfactor2d(n, 2.0)
+
+
+def _pad_reference(g, mode, periodic_x, h=2):
+    fill = "constant" if mode == "zero" else "edge"
+    a = np.pad(g, ((0, 0), (h, h), (0, 0)), mode=fill)
+    return np.pad(a, ((0, 0), (0, 0), (h, h)),
+                  mode="wrap" if periodic_x else fill)
+
+
+@pytest.mark.parametrize("grid", [(2, 2), (1, 4)])
+def test_halo_expand2d_matches_numpy_pad(grid, group22):
+    """Every rank's extended block is numpy.pad of the global array,
+    sliced: zero and edge fill, with and without a periodic x axis."""
+    ny, nx = grid
+    iy, jx = (IY, JX) if grid == (2, 2) else (8, 32)
+    res = [r["halo"] for r in group22] if grid == (2, 2) else \
+        launch.spawn(R.halo_blocks, ny, nx, "gloo", "cpu", args=(iy, jx))
+    g = R.field((3, iy, jx))
+    ly, lx = iy // ny, jx // nx
+    for rank, blocks in enumerate(res):
+        py, px = divmod(rank, nx)
+        for (mode, per), got in blocks.items():
+            want = _pad_reference(g, mode, per)[
+                :, py * ly:py * ly + ly + 4, px * lx:px * lx + lx + 4]
+            np.testing.assert_array_equal(got, want,
+                                          err_msg=f"{rank} {mode} {per}")
+            if not per:
+                np.testing.assert_array_equal(
+                    got, extend_block(torch.as_tensor(g), py * ly, px * lx,
+                                      ly, lx, 2, mode).numpy())
+
+
+SHIFT_CASES = [(k, dy, dx) for k in ("shift", "shifte")
+               for dy, dx in R.SHIFTS] + ["cross2dot", "dot2cross"]
+
+
+@pytest.mark.parametrize("case", SHIFT_CASES, ids=str)
+def test_shift_under_mesh_is_exact(case, group22):
+    """Under a 2x2 mesh each rank's shift is its block of the global
+    shift: exact."""
+    from regcm_tpu_torch.dynamics import stencil
+    g = torch.as_tensor(R.field((3, IY, JX), seed=1))
+    if isinstance(case, tuple):
+        kind, dy, dx = case
+        want = getattr(stencil, kind)(g, dy, dx).numpy()
+    else:
+        want = getattr(stencil, case)(g).numpy()
+    got = assemble([r["shifts"][case] for r in group22], 2, 2)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_k5a_halo_form_from_extended_blocks_is_exact(k5, dtype):
+    """The halo form fed with blocks extended from the global tensors
+    (``extend_block``: what chip_smoke.py hands the CUDA kernel) gives
+    the unsharded result bit for bit, on every block of a 2x2 and a 1x3
+    split; an off-domain block is refused."""
+    from regcm_tpu_torch.kernels import waf_advect as k4
+    waf, dtrdx, dtrdz = k5[:3]
+    g = [torch.as_tensor(a, dtype=dtype) for a in waf]
+    want = k4.waf_advect(*g, dtrdx, dtrdz).numpy()
+    nf, kz, iy, jx = K5_SHAPE
+    modes = ["zero"] * 4 + ["edge"] * 2 + ["zero"] * 2
+    for ny, nx in ((2, 2), (1, 3)):
+        blocks = []
+        for r in range(ny * nx):
+            m = DomainMesh(ny, nx, iy, jx, rank=r)
+            ext = [extend_block(a, m.y0, m.x0, m.ly, m.lx, 2, mode)
+                   for a, mode in zip(g, modes)]
+            blocks.append(k4.waf_advect_halo(*ext, dtrdx, dtrdz, iy, jx,
+                                             m.y0, m.x0).numpy())
+        np.testing.assert_array_equal(assemble(blocks, ny, nx), want)
+    with pytest.raises(ValueError):
+        k4.waf_advect_halo(*ext, dtrdx, dtrdz, iy, jx, m.y0 + 4, m.x0)
+    assert k4.launches_sharded == 0          # CPU tensors: plain version
+
+
+@pytest.mark.parametrize("name", ["tw", "pb"])
+def test_k5b_k5c_blocks_are_exact(name, k5, group22):
+    """tridiag_w_sharded and pbl_tridiag_sharded on each rank's block
+    make up the unsharded solve exactly (the columns are independent)."""
+    from regcm_tpu_torch.kernels import pbl_tridiag as k1
+    from regcm_tpu_torch.kernels import tridiag_w as k3
+    fn = k3.tridiag_w if name == "tw" else k1.pbl_tridiag
+    want = fn(*map(torch.as_tensor, k5[3 if name == "tw" else 4])).numpy()
+    got = assemble([r["k5"][name] for r in group22], 2, 2)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.fixture(scope="module")
+def dryrun_single():
+    return R.dryrun_moloch()
+
+
+@pytest.mark.parametrize("field", R.MOLOCH_FIELDS)
+def test_dryrun_moloch_matches_single_rank(field, group22, dryrun_single):
+    """dryrun_multichip's 3-step full-physics MOLOCH trajectory (f64,
+    16x16x14) on 2x2 ranks against one: 1e-12 relative. The halo copies
+    are exact; what differs is summation order in the column physics on
+    64 instead of 256 columns (measured: qx ~1e-20, the rest 0.0)."""
+    got = group22[0]["dryrun"][field]
+    want = dryrun_single[field]
+    assert np.all(np.isfinite(got))
+    assert _rel(got, want) <= 1e-12
+
+
+def test_dryrun_diagnostics_are_global(group22, dryrun_single):
+    """wmax, pmin and pmax are reduced over the ranks; every rank reads
+    the halo counters of a real exchange."""
+    for r in group22:
+        for k, v in dryrun_single["diags"].items():
+            assert r["dryrun"]["diags"][k] == pytest.approx(v, rel=1e-12)
+        assert r["dryrun_halo"][0] > 0 and r["dryrun_halo"][1] > 0
+
+
+@pytest.fixture(scope="module")
+def model_single():
+    return R.model_run()
+
+
+@pytest.mark.parametrize("field", ["ps", "t", "qv", "qc", "u", "v", "w"])
+def test_model_mesh_matches_single_rank(field, group22, model_single):
+    """Model(cfg, mesh=...) with the default physics over the hill, six
+    steps (every alarm), 2x2 against one rank: 1e-12 relative."""
+    got = group22[0]["model"]
+    assert got["finite"]
+    assert _rel(got["dec"][field], model_single["dec"][field]) <= 1e-12
+
+
+def test_model_mesh_refuses_the_hydrostatic_core():
+    from regcm_tpu_torch.config.params import RegCMConfig
+    from regcm_tpu_torch.driver import Model
+    cfg = RegCMConfig()
+    mesh = DomainMesh(2, 2, cfg.dim.iy, cfg.dim.jx, rank=0)
+    with pytest.raises(NotImplementedError, match="10a"):
+        Model(cfg, device="cpu", mesh=mesh)
+
+
+def test_mesh_refusals():
+    with pytest.raises(ValueError):
+        DomainMesh(3, 2, 16, 16, rank=0)        # uneven
+    with pytest.raises(ValueError):
+        DomainMesh(2, 4, 16, 12, rank=0)        # 8x3 blocks
+    with pytest.raises(RuntimeError):
+        DomainMesh(2, 2, 16, 16)                # no group
+    m = DomainMesh(2, 2, 16, 16, rank=3)
+    assert (m.py, m.px, m.y0, m.x0, m.ly, m.lx) == (1, 1, 8, 8, 8, 8)
+    with pytest.raises(RuntimeError):
+        m.gather(torch.zeros(8, 8))             # detached
+    with pytest.raises(ValueError):
+        launch.spawn(R.halo_blocks, 2, 2, "nccl", "cpu", args=(16, 16))
+    with pytest.raises(ValueError):
+        launch.spawn(R.halo_blocks, 2, 2, "mpi", "cpu", args=(16, 16))
+
+
+def test_a_failing_rank_fails_the_group():
+    with pytest.raises(RuntimeError, match="rank2 failed first"):
+        launch.spawn(R.fail_on, 2, 2, "gloo", "cpu", args=(2,), timeout=120)
+
+
+@pytest.mark.cuda
+def test_k5_kernels_match_unsharded_on_card(k5):
+    """On a CUDA card: the halo form of the WAF kernel on each block of a
+    2x2 split equals the unsharded kernel bit for bit, f32 and f64, and
+    K5b/K5c on blocks equal K3/K1 (chip_smoke.py phase 9 does the same
+    at 192x192x41)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from regcm_tpu_torch.kernels import pbl_tridiag as k1
+    from regcm_tpu_torch.kernels import tridiag_w as k3
+    from regcm_tpu_torch.kernels import waf_advect as k4
+    waf, dtrdx, dtrdz, tw, pb = k5
+    nf, kz, iy, jx = K5_SHAPE
+    modes = ["zero"] * 4 + ["edge"] * 2 + ["zero"] * 2
+    meshes = [DomainMesh(2, 2, iy, jx, rank=r) for r in range(4)]
+    for dtype in (torch.float64, torch.float32):
+        g = [torch.as_tensor(a, dtype=dtype, device="cuda") for a in waf]
+        want = k4.waf_advect(*g, dtrdx, dtrdz).cpu().numpy()
+        blocks = [k4.waf_advect_halo(
+            *[extend_block(a, m.y0, m.x0, m.ly, m.lx, 2, mode)
+              for a, mode in zip(g, modes)], dtrdx, dtrdz, iy, jx, m.y0,
+            m.x0).cpu().numpy() for m in meshes]
+        np.testing.assert_array_equal(assemble(blocks, 2, 2), want)
+        for mod, name, arrs in ((k3, "tridiag_w", tw),
+                                (k1, "pbl_tridiag", pb)):
+            a = [torch.as_tensor(x, dtype=dtype, device="cuda")
+                 for x in arrs]
+            want = getattr(mod, name)(*a).cpu().numpy()
+            got = [getattr(mod, name + "_sharded")(
+                m, *[m.local(x) for x in a]).cpu().numpy() for m in meshes]
+            np.testing.assert_array_equal(assemble(got, 2, 2), want)
+
+
+def test_gather_to_one_rank(group22):
+    """mesh.gather(t, dst=0) rebuilds the global array on rank 0 alone."""
+    np.testing.assert_array_equal(group22[0]["gathered"],
+                                  R.field((3, IY, JX), seed=1))
+    assert all(r["gathered"] is None for r in group22[1:])
+
+
+def test_init_from_env_joins_a_torchrun_group(tmp_path):
+    """A process given torchrun's environment joins its group (one rank
+    here, gloo on the CPU) and gets its block's mesh."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    code = ("from regcm_tpu_torch.parallel.launch import init_from_env\n"
+            "import torch.distributed as dist\n"
+            "r = init_from_env(1, 1, 'gloo', 'cpu')\n"
+            "m = r.mesh(8, 12)\n"
+            "print(r.rank, r.world, r.device, m.ly, m.lx, m.backend)\n"
+            "dist.destroy_process_group()\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, RANK="0", WORLD_SIZE="1", MASTER_ADDR="localhost",
+               MASTER_PORT=str(port), PYTHONPATH=root)
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=tmp_path,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["0", "1", "cpu", "8", "12", "gloo"]
+
+
+def test_dryrun_moloch_matches_jax(dryrun_jax_started, group22):
+    """The 2x2 trajectory against the JAX package: 1e-9 relative in
+    every field."""
+    want = dryrun_jax_started.result()
+    for field in R.MOLOCH_FIELDS:
+        got = group22[0]["dryrun"][field]
+        assert _rel(got, want[field]) <= 1e-9, field
