@@ -12,9 +12,10 @@ Phases (any failure raises and the script exits nonzero):
   2. build the four hand-written CUDA kernels from regcm_tpu_torch/csrc,
      one nvcc per source, all started together;
   3. each kernel against its plain PyTorch version on the card, f64 and
-     f32, at a small ragged shape and at the MOLOCH 192x192x41 shape,
-     with the kernel and plain times (CUDA events) beside each kernel's
-     bound at the MOLOCH shape (and at the test_001 shape for K1, K2);
+     f32, at a small ragged shape and at the MOLOCH 192x192x41 shape
+     (K2 and K4 also at EDGE_SHAPES), with the kernel and plain times
+     (CUDA events) beside each kernel's bound at the MOLOCH shape (and
+     at the test_001 shape for K1, K2);
   4. the hydrostatic path: Model(RegCMConfig()) at test_001 size
      (34x48x18, dt 150 s, f32) for 24 steps through K1 and K2 (launch
      counters checked), then the ms/step of 24 further steps;
@@ -33,12 +34,13 @@ Phases (any failure raises and the script exits nonzero):
      block halo-extended from the global tensors as the CPU tests do,
      each block's result assembled and held to the unsharded kernel bit
      for bit and to the plain version, the per-block time beside its
-     bound;
+     bound; then K5a on an uneven 3x2 cut of the small K4 shape, held to
+     K4 bit for bit;
  10. the decomposed MOLOCH flagship: 2x2 ranks at 192x192x41 f32 (gloo
      with host-staged halos on the card(s); with four or more cards
-     also nccl, one card a rank), 12 steps against phase 6's single-card
-     run within its own roundoff spread, the ms/step, halo exchanges and
-     bytes a step and each rank's K1-K5 launches;
+     also nccl, one card a rank), 12 steps held bit for bit to phase
+     6's single-card run, the ms/step, halo exchanges and bytes a step
+     and each rank's K1-K5 launches;
  11. decomposed MOLOCH in f64 at 32x32x14 over phase 7's hill, the
      three-step setting of dryrun_multichip, 2x2 against one card;
 then a JSON line of the kernels and the result line.
@@ -94,6 +96,16 @@ SHAPES = {"K1": [(5, 18, 34, 48), (5, 41, 192, 192)],
           "K2": [(34 * 48, 18), (192 * 192, 41)],
           "K3": [(13, 34, 48), (40, 192, 192)],
           "K4": [(7, 14, 34, 48), (7, 41, 192, 192)]}
+# shapes that stress the redesigned kernels' layouts, checked and not
+# timed: K2 where its lanes take one level (L = 32) or two (33, 64); K4
+# on strips and rows cut by the domain's edge (iy, jx not multiples of
+# its 28-column strips and 8-row marches) with one field of two levels
+EDGE_SHAPES = {"K2": [(500, 32), (500, 33), (500, 64)],
+               "K4": [(1, 2, 37, 45)]}
+# the kernels rewritten after their first port -> the change that did it
+REDESIGNED = {"K2": 4, "K4": 4, "K5a": 4}
+# phase 9's uneven cut of the small K4 shape: block row and column edges
+UNEVEN = ((7, 14, 34, 48), (0, 11, 23, 34), (0, 20, 48))
 
 
 def nvidia_smi_line():
@@ -127,29 +139,32 @@ def time_ms(fn, reps=20):
 # -- work of each kernel at a shape: (bytes each input read once and each
 # output written once, arithmetic operations the function needs) --------
 
-# K2's operations, counted line by line from csrc/emanuel_mixing.cu: each
-# add, subtract, multiply, divide, min, max, abs and comparison counts
-# one; selects, index tests and bit operations none; a term of i alone or
-# of j alone is counted once per level, not per pair. Keys: pairs that
-# take each branch (emanuel_mixing_plain's counts); "pair" is every pair,
+# K2's operations, counted line by line from the function itself, the
+# plain version emanuel_mixing_plain (regcm_tpu_torch/kernels/
+# emanuel_mixing.py; line numbers below are that file's): each add,
+# subtract, multiply, divide, min, max, abs and comparison counts one;
+# selects, index tests and bit operations none; a term of i alone or of
+# j alone is counted once per level, not per pair. Keys: pairs that take
+# each branch (emanuel_mixing_plain's counts); "pair" is every pair,
 # "level" every (column, level).
 K2_OPS = {
-    # pass 1 (:118-140): anum 4, denom 2, fix01 and the divide 3, altem 6,
-    # redo test 3, validity 2, clip 2; amp1_e and ad from one row-suffix
-    # and two prefix sums of ment, 2 (not the kernel's L^3 loops)
+    # anum 4, denom 2 (:75-76), fix01 and the divide 3 (:77-78), altem 6
+    # (:79), redo test 3 (:81), validity 2 (:90), clip 2 (:100); amp1_e
+    # and ad from one row-suffix and two prefix sums of ment, 2 (:171-179)
     "pair": 24,
-    "redo": 15,       # :125-129: anum2 4, denom2 4, divide 1, altem 6
-    # pass 2 (:162, :179-183) clip 2, weight 6, asij 1; pass 3a (:192-199)
-    # 7; pass 3b (:212-233) entrained q, u, v 12, elij 1, summands 6;
-    # column sums of the q, u, v summands 3
+    "redo": 15,       # :82-87: anum2 4, denom2 4, divide 1, altem 6
+    # clip 2 (:100), weight 6 (:153), asij 1 (:156); ment and its
+    # normalisation 7 (:97, :155-161); entrained q, u, v 12 (:93-95),
+    # elij 1 (:96), summands 6 and their column sums 3 (:185-187)
     "valid": 38,
-    "valid_gt": 7,    # j > i: smid, c_cond 2; awat 2, its product and
-                      # subtraction 2; wdtrain's column sum 1
-    "valid_le": 3,    # j <= i: smid, sjmax, sjmin (:175-177)
-    "c_cond": 2,      # use_min test, running min (:169, :173)
-    "use_min": 4,     # sjmax, sjmin (:171-172)
-    # bf2 7, cwat 2, the level terms of anum and redo 4, the row terms
-    # of denom 3, scrit 12, asij and fallback 3, g * wd 1
+    "valid_gt": 7,    # j > i: smid, c_cond 2 (:128, :131); awat 2 (:167),
+                      # its product and subtraction 2; wdtrain's sum 1
+    "valid_le": 3,    # j <= i: smid, sjmax, sjmin (:147-149)
+    "c_cond": 2,      # running min, use_min test (:133-135)
+    "use_min": 4,     # sjmax, sjmin (:141-146)
+    # bf2 7 (:74), cwat 2 (:80), the level terms of anum and redo 4, the
+    # row terms of denom 3, scrit 12 (:117-122), asij and fallback 3
+    # (:156-162), g * wd 1 (:169)
     "level": 32,
 }
 
@@ -270,7 +285,7 @@ def compare_kernels(dev, mods):
             name = NAMES[k]
             kern = getattr(mod, name)
             plain = getattr(mod, name + "_plain")
-            for n, shape in enumerate(SHAPES[k]):
+            for n, shape in enumerate(SHAPES[k] + EDGE_SHAPES.get(k, [])):
                 args = make[k](shape, dtype, dev)
                 got = kern(*args)
                 counts = {}        # K2's branch counts on these inputs
@@ -287,7 +302,7 @@ def compare_kernels(dev, mods):
                 if not rel <= TOL[dname][k]:
                     raise AssertionError(f"{k} {dname} {shape} disagrees: "
                                          f"{rel}")
-                if dname == "float32":
+                if dname == "float32" and n < len(SHAPES[k]):
                     b_ms, b_by, byt, ops = bound(k, shape, 4, counts)
                     st = dict(max_abs_err=ab,
                               ms=time_ms(lambda: kern(*args)),
@@ -479,6 +494,43 @@ def compare_decomposed(dev, mods):
     return stats
 
 
+def compare_uneven(dev, k4):
+    """Phase 9, second part: K5a on blocks of unequal size, the small K4
+    shape cut at UNEVEN's row and column edges, each block extended by
+    ``extend_block`` and held to the unsharded K4 bit for bit."""
+    import torch
+    from regcm_tpu_torch.parallel.halo import extend_block
+    shape, ys, xs = UNEVEN
+    modes = ["zero"] * 4 + ["edge"] * 2 + ["zero"] * 2
+    for dtype in (torch.float64, torch.float32):
+        args = k4_inputs(shape, dtype, dev)
+        ops, (dtrdx, dtrdz) = args[:8], args[8:]
+        iy, jx = shape[-2:]
+        want = k4.waf_advect(*args)
+        rows = []
+        for y0, y1 in zip(ys[:-1], ys[1:]):
+            row = []
+            for x0, x1 in zip(xs[:-1], xs[1:]):
+                ext = [extend_block(a, y0, x0, y1 - y0, x1 - x0, 2, mode)
+                       for a, mode in zip(ops, modes)]
+                row.append(k4.waf_advect_halo(*ext, dtrdx, dtrdz, iy, jx,
+                                              y0, x0))
+            rows.append(torch.cat(row, dim=-1))
+        got = torch.cat(rows, dim=-2)
+        torch.cuda.synchronize()
+        same = torch.equal(got, want)
+        sizes = [(y1 - y0, x1 - x0) for y0, y1 in zip(ys[:-1], ys[1:])
+                 for x0, x1 in zip(xs[:-1], xs[1:])]
+        print(f"K5a {NAMES['K5a']} {str(dtype).split('.')[-1]} uneven "
+              f"{len(ys) - 1}x{len(xs) - 1} blocks {sizes} of {shape}: "
+              f"{'bit-identical' if same else 'DIFFERENT'} to the unsharded "
+              f"K4")
+        if not same:
+            raise AssertionError(f"K5a {dtype} on the uneven split differs "
+                                 f"from K4 by "
+                                 f"{float((got - want).abs().max())}")
+
+
 def dryrun(cfg, grid, device, mesh=None, steps=3):
     """dryrun_multichip's MOLOCH setting: three full-physics f64 steps
     from the 0.2 K perturbed rest state, every alarm on step 0, surface
@@ -567,29 +619,12 @@ def decomposed_rank(rank, time_steps):
 
 def run_decomposed(dev, smi, single12):
     """Phases 10 and 11: the 2x2 groups of ``decomposed_rank`` on every
-    backend the host allows, held to the single card's
-    step-12 fields ``single12`` within its own roundoff spread (a 1e-7
-    relative change of T, PERF.md section 7) and to its f64 dryrun;
-    returns each backend's rank results."""
+    backend the host allows, held bit for bit to the single card's
+    step-12 fields ``single12`` and to its f64 dryrun; returns each
+    backend's rank results."""
     import torch
     from regcm_tpu_torch.core.grid import build_grid
-    from regcm_tpu_torch.driver import Model
-    from regcm_tpu_torch.dynamics.moloch import MolochCore
     from regcm_tpu_torch.parallel.launch import spawn
-    fcfg = flagship_cfg()
-    fgrid = build_grid(fcfg)
-    fs0 = MolochCore(fgrid, fcfg, device=dev, dtype=torch.float32
-                     ).initial_state(perturb=0.3, seed=1)
-    rng = np.random.default_rng(0)
-    fs1 = fs0._replace(t=fs0.t * (1.0 + 1e-7 * torch.as_tensor(
-        rng.standard_normal(tuple(fs0.t.shape)), dtype=torch.float32,
-        device=dev)))
-    model = Model(fcfg, grid=fgrid, device=dev, dtype=torch.float32,
-                  initial_state=fs1)
-    model.run(DECOMP_STEPS)
-    pert12 = model.decoupled()
-    del model, fs0, fs1
-    torch.cuda.empty_cache()
     # phase 11's single-card reference
     hcfg = hill_cfg(32, 32)
     hgrid = build_grid(hcfg, ht=hill(32, 32))
@@ -630,15 +665,17 @@ def run_decomposed(dev, smi, single12):
         dec = res[0]["dec"]
         for f in ("ps", "t", "qv", "u", "v", "w"):
             err = rel_rms(dec[f], single12[f])
-            spread = rel_rms(pert12[f], single12[f])
+            same = np.array_equal(dec[f], single12[f])
             print(f"  MOLOCH 192x192x41 f32 step {DECOMP_STEPS}, {backend} "
-                  f"2x2 vs one card, {f}: rel-RMS {err:.3e} (the single "
-                  f"card's spread under a 1e-7 change of T {spread:.3e}, "
-                  f"bound 4x)")
-            if not (np.all(np.isfinite(dec[f])) and err <= 4.0 * spread):
+                  f"2x2 vs one card, {f}: "
+                  f"{'bit-identical' if same else 'DIFFERENT'}, rel-RMS "
+                  f"{err:.3e}")
+            # every operation of a column is the same whatever its block
+            # (the kernels' halo forms test the domain on global indices)
+            if not same:
                 raise AssertionError(f"decomposed flagship ({backend}) "
-                                     f"leaves the single card's spread in "
-                                     f"{f}: {err} vs {spread}")
+                                     f"differs from one card in {f}: "
+                                     f"rel-RMS {err}")
         ms = res[0]["ms_per_step"]
         last = DECOMP_STEPS + TIME_STEPS - 1
         print(f"  decomposed MOLOCH ms/step (f32, 192x192x41 on 2x2 ranks, "
@@ -893,6 +930,7 @@ def main():
     # -- 9. the decomposed kernels on 2x2 blocks, one process
     k5_stats = compare_decomposed(dev, mods)
     stats.update(k5_stats)
+    compare_uneven(dev, k4)
 
     # -- 10, 11. the decomposed MOLOCH runs
     decomp = run_decomposed(dev, smi, single12)
@@ -920,6 +958,8 @@ def main():
             max_abs_err=st["max_abs_err"], ms=st["ms"],
             plain_ms=st["plain_ms"], bound_ms=st["bound_ms"],
             bound_by=st["bound_by"], library_ms=None, shape=st["shape"])
+        if k in REDESIGNED:
+            row["redesigned"] = REDESIGNED[k]
         if k in BASE:
             row["launches_ranks"] = {b: [r["launches"][k] for r in res]
                                      for b, res in decomp.items()}

@@ -1,6 +1,6 @@
 // Emanuel (1991) buoyancy-sorting mixing matrices, reduced to the eight
 // per-level terms the tendency stage consumes (cupeman,
-// mod_cu_em.F90:723-840 and :975-1100), one convective column per block.
+// mod_cu_em.F90:723-840 and :975-1100), one convective column per warp.
 //
 // Replaces the TPU kernel regcm_tpu/dynamics/pallas_kernels.py
 // emanuel_mixing (body regcm_tpu/physics/cumulus/emanuel.py _mixing_body
@@ -8,19 +8,51 @@
 //
 // Bound: memory. A column reads 13 level profiles and writes 8, while
 // the plain form materialises about ten (ncol, L, L) matrices in HBM;
-// the work per (i, j) pair is a few dozen flops, so keeping the L x L
-// matrices out of device memory is what matters.
-// Layout: block = one column, thread i = draught row i of the matrices.
-// The column's level profiles are staged in shared memory once; every
-// thread then walks its row over the levels j in order, which yields the
-// exclusive running minimum of the normalisation loop (smin,
-// mod_cu_em.F90:798-821) and the row sums (nent, asij, bsum) directly.
-// The validity of each (i, j) pair is kept as one bit of a 64-bit mask
-// per row. Five L x L products per column (ment and the four summands of
-// wdtrain_mix, sum_q, sum_u, sum_v) live in dynamic shared memory; after
-// one __syncthreads, thread j reduces column j over i, and the two
-// triangular sums amp1_e / ad. Nothing L x L touches HBM.
+// the work per (i, j) pair is a few dozen flops (at 36864 columns of 41
+// levels ~2.1 G operations, 32 us at 67 TFLOP/s, against 38.6 us for
+// the bytes). So nothing L x L may touch device memory, and the pair
+// work must run on busy lanes with nothing serial beyond it.
+//
+// Layout: one warp walks the draught rows i of its column in order; its
+// lanes run over the levels j, lane l holding j = l and j = l + 32 (the
+// second slot only when 32 < L <= 64). Nothing L x L is kept anywhere:
+// each row's (i, j) pairs live in the lanes' registers while the row is
+// processed.
+//   - The column's profiles sit in the warp's slice of shared memory
+//     (14 x 64 values), read by lane j as level j and broadcast as row i;
+//     registers hold only the row's pair state and the lane's sums, so a
+//     thread fits in 64 registers and an SM runs 32 warps.
+//   - The row quantities come from warp operations: nent from
+//     __ballot_sync/__popc of the validity bits, asij and bsum from
+//     __shfl_xor_sync butterflies (every lane gets the same bits).
+//   - The exclusive running minimum of the normalisation loop (smin,
+//     mod_cu_em.F90:798-821) is a warp min-scan over the c_cond
+//     candidates, exact in any order, skipped in a slot with no
+//     candidate (the minimum is then 1 throughout); sij at j+1 and j-1
+//     come from shuffles.
+//   - The column sums wd, sq, su, sv and the triangular sums amp1_e(j)
+//     = sum_{r<=j} suf_r(j+1) and ad(j) = sum_{r<j} suf_r(j), with
+//     suf_r(c) = sum_{c'>=c} ment(r, c') a warp suffix scan of row r,
+//     accumulate in lane j's registers as i advances (O(L^2) a column).
+//   - Work with nothing to add is skipped, warp-uniformly: a row outside
+//     the cloud has no valid pair and ment = 0 throughout, so the warp
+//     only stores its diagonal (mentii = 0, qentii = q_i); the second
+//     slot's pairs are skipped when the cloud top and the row both lie
+//     below level 32 (no valid pair, no diagonal there).
+// wd, sq, su, sv add the rows in the plain version's order; asij, bsum
+// and the triangular sums are taken in another order, within roundoff.
+// Timed on the card (NVIDIA H100 80GB HBM3, 700 W): the divisions of
+// the pair stage and the number of warps an SM holds set the time, not
+// the bytes.
+// Built with -fmad=false: the validity thresholds (sij > 0, sij < 0.9,
+// redo) must round as the plain version does.
 #include <cuda_runtime.h>
+
+namespace {
+
+constexpr int WPB = 2;                 // warps (columns) a block
+constexpr int MIN_BLOCKS = 16;         // 64 registers: 32 warps an SM
+constexpr unsigned FULL = 0xffffffffu;
 
 struct Consts {
     double rwat, cpd, cpv, egrav;
@@ -39,11 +71,23 @@ __device__ __forceinline__ T fix01(T d) {
     return (d < T(0) ? -d : d) < T(0.01) ? T(0.01) : d;
 }
 
-enum { P_H, P_Q, P_QS, P_T, P_LV, P_U, P_V, P_DPH, P_BF2, P_CWAT, NPROF };
+// sum over the warp; every lane gets the same bits
+template <typename T>
+__device__ __forceinline__ T warp_sum(T x) {
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) x = x + __shfl_xor_sync(FULL, x, d);
+    return x;
+}
+
+// the row values of the column, one copy per warp in shared memory
+enum { R_H, R_HP, R_Q, R_QTI, R_QS, R_LV, R_M, R_CLW, R_U, R_V, R_T, R_DPH,
+       R_BF2, R_CWAT, NROW };
 enum { O_WD, O_AMP1, O_AD, O_MENTII, O_QENTII, O_SUMQ, O_SUMU, O_SUMV };
 
-template <typename T>
-__global__ void emanuel_mixing_kernel(
+// NS levels a lane: j = lane + 32 s, s < NS
+template <typename T, int NS>
+__global__ void __launch_bounds__(WPB * 32, MIN_BLOCKS)
+emanuel_mixing_kernel(
     const T* __restrict__ h, const T* __restrict__ hp,
     const T* __restrict__ q, const T* __restrict__ qs,
     const T* __restrict__ t, const T* __restrict__ lv,
@@ -54,92 +98,105 @@ __global__ void emanuel_mixing_kernel(
     const T* __restrict__ vnk, const int* __restrict__ icb,
     const int* __restrict__ ict, const unsigned char* __restrict__ cloud,
     T* __restrict__ out, int ncol, int L, Consts k) {
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    T* prof = reinterpret_cast<T*>(smem_raw);       // NPROF x L
-    T* Mm = prof + NPROF * L;                        // ment
-    T* Wm = Mm + L * L;    // wgt (pass 2) -> wdtrain_mix summand
-    T* Qm = Wm + L * L;    // clipped sij_f (pass 1) -> sum_q summand
-    T* Um = Qm + L * L;    // raw sij (pass 1) -> sum_u summand
-    T* Vm = Um + L * L;    // altem (pass 1) -> sum_v summand
-
-    const int col = blockIdx.x;
-    const int i = threadIdx.x;
+    __shared__ T rows[WPB][NROW][32 * NS];
+    __shared__ bool crow[WPB][32 * NS];
+    const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int col = blockIdx.x * WPB + w;
+    if (col >= ncol) return;                 // a whole warp
     const long long off = (long long)col * L;
+    const long long pl = (long long)ncol * L;
     const T rwat = T(k.rwat), cpd = T(k.cpd);
     const T cpvmcpd = T(k.cpv - k.cpd), cpdmcpv = T(k.cpd - k.cpv);
+    T (*rv)[32 * NS] = rows[w];
 
-    if (i < L) {
-        const long long o = off + i;
-        const T lvi = lv[o], ti = t[o], qsi = qs[o];
-        prof[P_H * L + i] = h[o];
-        prof[P_Q * L + i] = q[o];
-        prof[P_QS * L + i] = qsi;
-        prof[P_T * L + i] = ti;
-        prof[P_LV * L + i] = lvi;
-        prof[P_U * L + i] = u[o];
-        prof[P_V * L + i] = v[o];
-        prof[P_DPH * L + i] = dph[o];
-        prof[P_BF2 * L + i] = T(1) + lvi * lvi * qsi / (rwat * ti * ti * cpd);
-        prof[P_CWAT * L + i] = clw[o] * (T(1) - ep[o]);
-    }
-    __syncthreads();
-
-    if (i < L) {
-        const long long o = off + i;
-        const T h_i = h[o], hp_i = hp[o], q_i = q[o], qti_i = qti[o];
-        const T qs_i = qs[o], lv_i = lv[o], m_i = m[o], clw_i = clw[o];
-        const T u_i = u[o], v_i = v[o];
-        const bool cloud_i = cloud[o] != 0;
-        const int icb_c = icb[col], ict_c = ict[col];
-        const T unk_c = unk[col], vnk_c = vnk[col];
-        const T* ph = prof + P_H * L;
-        const T* pq = prof + P_Q * L;
-        const T* pqs = prof + P_QS * L;
-        const T* pt = prof + P_T * L;
-        const T* plv = prof + P_LV * L;
-        const T* pu = prof + P_U * L;
-        const T* pv = prof + P_V * L;
-        const T* pdph = prof + P_DPH * L;
-        const T* pbf2 = prof + P_BF2 * L;
-        const T* pcwat = prof + P_CWAT * L;
-        T* Mrow = Mm + i * L;
-        T* Wrow = Wm + i * L;
-        T* Qrow = Qm + i * L;
-        T* Urow = Um + i * L;
-        T* Vrow = Vm + i * L;
-
-        // pass 1: mixing fractions sij (with the redo branch), altem,
-        // validity; sij_f (clipped, 0 outside cloud rows / [icb, ict])
-        unsigned long long vmask = 0ull;
-        int nent = 0;
-        for (int j = 0; j < L; ++j) {
-            const T bf2 = pbf2[j], cwat = pcwat[j], t_j = pt[j];
-            const T q_j = pq[j], qs_j = pqs[j], lv_j = plv[j];
-            const T anum = ph[j] - hp_i + cpvmcpd * t_j * (qti_i - q_j);
-            const T denom = h_i - hp_i + cpdmcpv * (q_i - qti_i) * t_j;
-            T sij = (i == j) ? T(1) : anum / fix01(denom);
-            T altem = (sij * q_i + (T(1) - sij) * qti_i - qs_j) / bf2;
-            const bool redo = ((sij < T(0)) || (sij > T(1))
-                               || (altem > cwat)) && (j > i);
-            if (redo) {
-                const T anum2 = anum - lv_j * (qti_i - qs_j - cwat * bf2);
-                const T denom2 = fix01(denom + lv_j * (q_i - qti_i));
-                sij = anum2 / denom2;
-                altem = sij * q_i + (T(1) - sij) * qti_i - qs_j
-                    - (bf2 - T(1)) * cwat;
-            }
-            const bool jrange = (j >= icb_c) && (j <= ict_c);
-            const bool valid = (sij > T(0)) && (sij < T(0.9)) && cloud_i
-                && jrange;
-            if (valid) {
-                vmask |= 1ull << j;
-                ++nent;
-            }
-            Urow[j] = sij;
-            Vrow[j] = altem;
-            Qrow[j] = (cloud_i && jrange) ? clampv(sij, T(0), T(1)) : T(0);
+    // the column's levels, as rows (i) and as levels (j) alike
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+        const int j = lane + 32 * s;
+        if (j < L) {
+            const long long o = off + j;
+            const T lvo = lv[o], qso = qs[o], to = t[o], clwo = clw[o];
+            rv[R_H][j] = h[o];
+            rv[R_HP][j] = hp[o];
+            rv[R_Q][j] = q[o];
+            rv[R_QTI][j] = qti[o];
+            rv[R_QS][j] = qso;
+            rv[R_LV][j] = lvo;
+            rv[R_M][j] = m[o];
+            rv[R_CLW][j] = clwo;
+            rv[R_U][j] = u[o];
+            rv[R_V][j] = v[o];
+            rv[R_T][j] = to;
+            rv[R_DPH][j] = dph[o];
+            rv[R_BF2][j] = T(1) + lvo * lvo * qso / (rwat * to * to * cpd);
+            rv[R_CWAT][j] = clwo * (T(1) - ep[o]);
+            crow[w][j] = cloud[o] != 0;
         }
-        const bool noent = (nent == 0) && cloud_i;
+    }
+    __syncwarp();
+    const int icb_c = icb[col], ict_c = ict[col];
+    const T unk_c = unk[col], vnk_c = vnk[col];
+
+    T wd[NS], sq[NS], su[NS], sv[NS], amp1[NS], ad[NS];
+#pragma unroll
+    for (int s = 0; s < NS; ++s)
+        wd[s] = sq[s] = su[s] = sv[s] = amp1[s] = ad[s] = T(0);
+
+    for (int i = 0; i < L; ++i) {
+        const T q_i = rv[R_Q][i];
+        if (!crow[w][i]) {      // no valid pair, ment(i, .) = 0
+            if (lane == (i & 31)) {
+                out[O_MENTII * pl + off + i] = T(0);
+                out[O_QENTII * pl + off + i] = q_i;
+            }
+            continue;
+        }
+        const T h_i = rv[R_H][i], hp_i = rv[R_HP][i], qti_i = rv[R_QTI][i];
+        const T qs_i = rv[R_QS][i], lv_i = rv[R_LV][i], m_i = rv[R_M][i];
+        const T clw_i = rv[R_CLW][i], u_i = rv[R_U][i], v_i = rv[R_V][i];
+
+        // the second level slot holds no valid pair and no diagonal when
+        // the cloud top and the row are below it: its ment is 0 throughout
+        const bool act1 = ict_c >= 32 || i >= 32;
+        // mixing fractions sij (with the redo branch), altem, validity;
+        // sij_f (clipped, 0 outside [icb, ict])
+        T U[NS], V[NS], Q[NS];
+        bool val[NS];
+        int nent = 0;
+#pragma unroll
+        for (int s = 0; s < NS; ++s) {
+            const int j = lane + 32 * s;
+            U[s] = V[s] = Q[s] = T(0);
+            val[s] = false;
+            if (j < L && (s == 0 || act1)) {
+                const T q_j = rv[R_Q][j], t_j = rv[R_T][j];
+                const T qs_j = rv[R_QS][j], lv_j = rv[R_LV][j];
+                const T bf2 = rv[R_BF2][j], cwat = rv[R_CWAT][j];
+                const T anum = rv[R_H][j] - hp_i
+                    + cpvmcpd * t_j * (qti_i - q_j);
+                const T denom = h_i - hp_i
+                    + cpdmcpv * (q_i - qti_i) * t_j;
+                T sij = (i == j) ? T(1) : anum / fix01(denom);
+                T altem = (sij * q_i + (T(1) - sij) * qti_i - qs_j) / bf2;
+                const bool redo = ((sij < T(0)) || (sij > T(1))
+                                   || (altem > cwat)) && (j > i);
+                if (redo) {
+                    const T anum2 = anum - lv_j * (qti_i - qs_j
+                                                   - cwat * bf2);
+                    const T denom2 = fix01(denom + lv_j * (q_i - qti_i));
+                    sij = anum2 / denom2;
+                    altem = sij * q_i + (T(1) - sij) * qti_i - qs_j
+                        - (bf2 - T(1)) * cwat;
+                }
+                const bool jrange = (j >= icb_c) && (j <= ict_c);
+                val[s] = (sij > T(0)) && (sij < T(0.9)) && jrange;
+                U[s] = sij;
+                V[s] = altem;
+                Q[s] = jrange ? clampv(sij, T(0), T(1)) : T(0);
+            }
+            nent += __popc(__ballot_sync(FULL, val[s]));
+        }
+        const bool noent = nent == 0;
         const bool has_ent = nent > 0;
 
         // critical mixing fraction of row i (:790-797)
@@ -153,70 +210,128 @@ __global__ void emanuel_mixing_kernel(
             scrit = dmax(scrit, T(0));
         }
 
-        // pass 2: equal-probability weights of the valid pairs, with the
-        // running smin over accepted j > i pairs (:798-821)
-        T prefmin = T(1);
-        T asij = T(0);
-        for (int j = 0; j < L; ++j) {
-            if (!((vmask >> j) & 1ull)) continue;
-            const T sij = clampv(Urow[j], T(0), T(1));
-            const T sijp1 = (j + 1 < L) ? Qrow[j + 1] : T(0);
-            const T sijm1 = (j > 0) ? Qrow[j - 1] : T(0);
-            T smid, sjmax, sjmin;
-            if (j > i) {
-                const T smid_gt = dmin(sij, scrit);
-                const bool c_cond = sijp1 < smid_gt;
-                const bool use_min = c_cond && (smid_gt < prefmin);
-                smid = smid_gt;
-                sjmax = use_min ? dmin(dmin(sijp1, sij), scrit) : smid_gt;
-                sjmin = use_min ? dmin(dmax(sijm1, sij), scrit) : smid_gt;
-                if (c_cond) prefmin = dmin(prefmin, smid_gt);
-            } else {
-                smid = dmax(sij, scrit);
-                sjmax = dmax(sijp1, scrit);
-                sjmin = dmax(sijm1, scrit);
-            }
-            const T delp = sjmax - smid, delm = sjmin - smid;
-            const T wgt = ((delp < T(0) ? -delp : delp)
-                           + (delm < T(0) ? -delm : delm)) * pdph[j];
-            Wrow[j] = wgt;
-            asij = asij + wgt;
+        // sij_f at j+1 and j-1 (0 beyond the column)
+        T qp[NS], qm[NS];
+        const T q1first = NS == 2 ? __shfl_sync(FULL, Q[NS - 1], 0) : T(0);
+        const T q0last = __shfl_sync(FULL, Q[0], 31);
+#pragma unroll
+        for (int s = 0; s < NS; ++s) {
+            qp[s] = __shfl_down_sync(FULL, Q[s], 1);
+            qm[s] = __shfl_up_sync(FULL, Q[s], 1);
         }
-        asij = dmax(asij, T(1.0e-21));
+        if (lane == 31) {
+            qp[0] = q1first;
+            qp[NS - 1] = T(0);
+        }
+        if (lane == 0) {
+            qm[0] = T(0);
+            qm[NS - 1] = NS == 2 ? q0last : T(0);
+        }
 
-        // pass 3a: normalised ment and its row sum (:822-829)
-        T bsum = T(0);
-        for (int j = 0; j < L; ++j) {
-            T ment;
-            if ((vmask >> j) & 1ull) {
-                const T ment0 = m_i / (T(1) - clampv(Urow[j], T(0),
-                                                     T(0.899)));
-                ment = has_ent ? (ment0 * Wrow[j]) / asij : ment0;
-            } else {
-                ment = (j == i && noent) ? m_i : T(0);
+        // the running smin over accepted j > i pairs (:798-821): an
+        // exclusive min-scan over j of the c_cond candidates
+        T cand[NS], pre[NS];
+        bool ccond[NS];
+#pragma unroll
+        for (int s = 0; s < NS; ++s) {
+            const int j = lane + 32 * s;
+            ccond[s] = false;
+            cand[s] = T(1);
+            if (val[s] && j > i) {
+                const T smid_gt = dmin(clampv(U[s], T(0), T(1)), scrit);
+                ccond[s] = qp[s] < smid_gt;
+                if (ccond[s]) cand[s] = smid_gt;
             }
-            Mrow[j] = ment;
-            bsum = bsum + ment;
+            T x = cand[s];
+            if (__any_sync(FULL, ccond[s])) {    // else 1 throughout
+#pragma unroll
+                for (int d = 1; d < 32; d <<= 1) {
+                    const T y = __shfl_up_sync(FULL, x, d);
+                    if (lane >= d) x = dmin(x, y);
+                }
+            }
+            pre[s] = x;                      // inclusive, within slot s
         }
+        {
+            const T tot0 = __shfl_sync(FULL, pre[0], 31);
+#pragma unroll
+            for (int s = 0; s < NS; ++s) {
+                T e = __shfl_up_sync(FULL, pre[s], 1);
+                if (lane == 0) e = T(1);
+                pre[s] = s == 1 ? dmin(e, tot0) : e;    // exclusive
+            }
+        }
+
+        // equal-probability weights of the valid pairs
+        T wgt[NS];
+        T wsum = T(0);
+#pragma unroll
+        for (int s = 0; s < NS; ++s) {
+            const int j = lane + 32 * s;
+            wgt[s] = T(0);
+            if (val[s]) {
+                const T sij = clampv(U[s], T(0), T(1));
+                T smid, sjmax, sjmin;
+                if (j > i) {
+                    const T smid_gt = dmin(sij, scrit);
+                    const bool use_min = ccond[s] && (smid_gt < pre[s]);
+                    smid = smid_gt;
+                    sjmax = use_min ? dmin(dmin(qp[s], sij), scrit)
+                                    : smid_gt;
+                    sjmin = use_min ? dmin(dmax(qm[s], sij), scrit)
+                                    : smid_gt;
+                } else {
+                    smid = dmax(sij, scrit);
+                    sjmax = dmax(qp[s], scrit);
+                    sjmin = dmax(qm[s], scrit);
+                }
+                const T delp = sjmax - smid, delm = sjmin - smid;
+                wgt[s] = ((delp < T(0) ? -delp : delp)
+                          + (delm < T(0) ? -delm : delm)) * rv[R_DPH][j];
+            }
+            wsum = wsum + wgt[s];
+        }
+        const T asij = dmax(warp_sum(wsum), T(1.0e-21));
+
+        // normalised ment and its row sum (:822-829)
+        T ment[NS];
+        T msum = T(0);
+#pragma unroll
+        for (int s = 0; s < NS; ++s) {
+            const int j = lane + 32 * s;
+            ment[s] = T(0);
+            if (val[s]) {
+                const T ment0 = m_i / (T(1) - clampv(U[s], T(0),
+                                                     T(0.899)));
+                ment[s] = has_ent ? (ment0 * wgt[s]) / asij : ment0;
+            } else if (j == i && noent) {
+                ment[s] = m_i;
+            }
+            msum = msum + ment[s];
+        }
+        const T bsum = warp_sum(msum);
         // post-normalisation fallback (:830-847)
-        const bool fb = has_ent && (bsum < T(1.0e-18)) && cloud_i;
-        if (fb) Mrow[i] = m_i;
+        const bool fb = has_ent && (bsum < T(1.0e-18));
         const bool diag_over = noent || fb;
 
-        // pass 3b: entrained properties and the row's summands
-        for (int j = 0; j < L; ++j) {
-            const T ment = Mrow[j];
+        // entrained properties and the row's summands
+#pragma unroll
+        for (int s = 0; s < NS; ++s) {
+            const int j = lane + 32 * s;
+            if (fb && j == i) ment[s] = m_i;
+            if (j >= L || (s == 1 && !act1)) continue;
+            const T q_j = rv[R_Q][j], u_j = rv[R_U][j], v_j = rv[R_V][j];
             T qent, uent, vent, elij;
-            if ((vmask >> j) & 1ull) {
-                const T sij = Urow[j];
+            if (val[s]) {
+                const T sij = U[s];
                 qent = sij * q_i + (T(1) - sij) * qti_i;
                 uent = sij * u_i + (T(1) - sij) * unk_c;
                 vent = sij * v_i + (T(1) - sij) * vnk_c;
-                elij = dmax(Vrow[j], T(0));
+                elij = dmax(V[s], T(0));
             } else {
-                qent = pq[j];
-                uent = pu[j];
-                vent = pv[j];
+                qent = q_j;
+                uent = u_j;
+                vent = v_j;
                 elij = T(0);
             }
             if (j == i && diag_over) {
@@ -225,69 +340,65 @@ __global__ void emanuel_mixing_kernel(
                 vent = vnk_c;
                 elij = clw_i;
             }
-            const T awat = dmax(elij - pcwat[j], T(0));
+            const T awat = dmax(elij - rv[R_CWAT][j], T(0));
             const T awat_k = (j > i) ? awat : T(0);
-            Wrow[j] = awat_k * ment;
-            Qrow[j] = ment * (qent - awat_k - pq[j]);
-            Urow[j] = ment * (uent - pu[j]);
-            Vrow[j] = ment * (vent - pv[j]);
+            wd[s] = wd[s] + awat_k * ment[s];
+            sq[s] = sq[s] + ment[s] * (qent - awat_k - q_j);
+            su[s] = su[s] + ment[s] * (uent - u_j);
+            sv[s] = sv[s] + ment[s] * (vent - v_j);
             if (j == i) {
-                out[((long long)O_MENTII * ncol) * L + off + i] = ment;
-                out[((long long)O_QENTII * ncol) * L + off + i] = qent;
+                out[O_MENTII * pl + off + j] = ment[s];
+                out[O_QENTII * pl + off + j] = qent;
+            }
+        }
+
+        // suffix sums of the row, suf(j) = sum_{c >= j} ment(i, c)
+        T suf[NS];
+#pragma unroll
+        for (int s = 0; s < NS; ++s) {
+            T x = ment[s];
+#pragma unroll
+            for (int d = 1; d < 32; d <<= 1) {
+                const T y = __shfl_down_sync(FULL, x, d);
+                if (lane + d < 32) x = x + y;
+            }
+            suf[s] = x;
+        }
+        if (NS == 2) suf[0] = suf[0] + __shfl_sync(FULL, suf[NS - 1], 0);
+        const T s1first = NS == 2 ? __shfl_sync(FULL, suf[NS - 1], 0)
+                                  : T(0);
+#pragma unroll
+        for (int s = 0; s < NS; ++s) {
+            const int j = lane + 32 * s;
+            T next = __shfl_down_sync(FULL, suf[s], 1);   // suf(j + 1)
+            if (lane == 31) next = s + 1 < NS ? s1first : T(0);
+            if (j < L) {
+                if (i <= j) amp1[s] = amp1[s] + next;
+                if (i < j) ad[s] = ad[s] + suf[s];
             }
         }
     }
-    __syncthreads();
 
-    // column reductions over the draughts i (thread = level j)
-    if (i < L) {
-        const int j = i;
-        T wd = T(0), sq = T(0), su = T(0), sv = T(0);
-        for (int r = 0; r < L; ++r) {
-            wd = wd + Wm[r * L + j];
-            sq = sq + Qm[r * L + j];
-            su = su + Um[r * L + j];
-            sv = sv + Vm[r * L + j];
-        }
-        // amp1_e(j) = sum_{r<=j, c>j} ment(r,c); ad(j) = sum_{r<j, c>=j}
-        T amp1 = T(0), ad = T(0);
-        for (int r = 0; r < L; ++r) {
-            const T* row = Mm + r * L;
-            if (r <= j) {
-                T s = T(0);
-                for (int cc = j + 1; cc < L; ++cc) s = s + row[cc];
-                amp1 = amp1 + s;
-            }
-            if (r < j) {
-                T s = T(0);
-                for (int cc = j; cc < L; ++cc) s = s + row[cc];
-                ad = ad + s;
-            }
-        }
-        const long long pl = (long long)ncol * L;
-        out[O_WD * pl + off + j] = T(k.egrav) * wd;
-        out[O_AMP1 * pl + off + j] = amp1;
-        out[O_AD * pl + off + j] = ad;
-        out[O_SUMQ * pl + off + j] = sq;
-        out[O_SUMU * pl + off + j] = su;
-        out[O_SUMV * pl + off + j] = sv;
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+        const int j = lane + 32 * s;
+        if (j >= L) continue;
+        out[O_WD * pl + off + j] = T(k.egrav) * wd[s];
+        out[O_AMP1 * pl + off + j] = amp1[s];
+        out[O_AD * pl + off + j] = ad[s];
+        out[O_SUMQ * pl + off + j] = sq[s];
+        out[O_SUMU * pl + off + j] = su[s];
+        out[O_SUMV * pl + off + j] = sv[s];
     }
 }
 
-template <typename T>
-static int launch(const void* const* lev, const void* unk, const void* vnk,
-                  const void* icb, const void* ict, const void* cloud,
-                  void* out, int ncol, int L, Consts k, void* stream) {
-    if (ncol == 0) return 0;
-    if (L < 1 || L > 64) return (int)cudaErrorInvalidValue;
-    const int threads = ((L + 31) / 32) * 32;
-    const size_t smem = (size_t)(NPROF * L + 5 * L * L) * sizeof(T);
-    cudaError_t err = cudaFuncSetAttribute(
-        emanuel_mixing_kernel<T>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    emanuel_mixing_kernel<T><<<ncol, threads, smem,
-                               (cudaStream_t)stream>>>(
+template <typename T, int NS>
+int launch_ns(const void* const* lev, const void* unk, const void* vnk,
+              const void* icb, const void* ict, const void* cloud,
+              void* out, int ncol, int L, Consts k, void* stream) {
+    const int blocks = (ncol + WPB - 1) / WPB;
+    emanuel_mixing_kernel<T, NS><<<blocks, WPB * 32, 0,
+                                   (cudaStream_t)stream>>>(
         (const T*)lev[0], (const T*)lev[1], (const T*)lev[2],
         (const T*)lev[3], (const T*)lev[4], (const T*)lev[5],
         (const T*)lev[6], (const T*)lev[7], (const T*)lev[8],
@@ -297,6 +408,21 @@ static int launch(const void* const* lev, const void* unk, const void* vnk,
         (T*)out, ncol, L, k);
     return (int)cudaGetLastError();
 }
+
+template <typename T>
+int launch(const void* const* lev, const void* unk, const void* vnk,
+           const void* icb, const void* ict, const void* cloud, void* out,
+           int ncol, int L, Consts k, void* stream) {
+    if (ncol == 0) return 0;
+    if (L < 1 || L > 64) return (int)cudaErrorInvalidValue;
+    return L > 32
+        ? launch_ns<T, 2>(lev, unk, vnk, icb, ict, cloud, out, ncol, L, k,
+                          stream)
+        : launch_ns<T, 1>(lev, unk, vnk, icb, ict, cloud, out, ncol, L, k,
+                          stream);
+}
+
+}  // namespace
 
 #define EM_ARGS                                                           \
     const void *h, const void *hp, const void *q, const void *qs,        \

@@ -40,7 +40,7 @@ H = 2                    # halo width of the halo form
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
-_SIG = [_P] * 9 + [_I] * 9 + [_D, _D, _P]
+_SIG = [_P] * 10 + [_I] * 9 + [_D, _D, _P]
 
 
 def build():
@@ -198,17 +198,19 @@ def _check(pp, um, vm, s, fmz, fmzf, mx2, m_ci):
 
 
 def _launch(args, ly, lx, hh, iy, jx, y0, x0, dtrdx, dtrdz):
-    """Run the CUDA kernel on the checked inputs; returns (nf, kz, ly, lx)."""
+    """Run the CUDA kernels on the checked inputs; returns (nf, kz, ly, lx)."""
     pp = args[0]
     nf, kz = pp.shape[:2]
     lib = build()
     out = torch.empty((nf, kz, ly, lx), dtype=pp.dtype, device=pp.device)
+    wz = torch.empty_like(pp)         # the vertical sweep, kernel scratch
     fn = lib.waf_advect_f64 if pp.dtype == torch.float64 \
         else lib.waf_advect_f32
     with torch.cuda.device(pp.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(*(a.data_ptr() for a in args), out.data_ptr(), nf, kz, ly,
-                lx, hh, iy, jx, y0, x0, float(dtrdx), float(dtrdz), stream)
+        rc = fn(*(a.data_ptr() for a in args), out.data_ptr(), wz.data_ptr(),
+                nf, kz, ly, lx, hh, iy, jx, y0, x0, float(dtrdx),
+                float(dtrdz), stream)
     _build.check_status(rc, "waf_advect")
     return out
 

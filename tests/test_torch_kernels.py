@@ -21,6 +21,7 @@ from regcm_tpu_torch.kernels import emanuel_mixing as k2  # noqa: E402
 from regcm_tpu_torch.kernels import pbl_tridiag as k1  # noqa: E402
 from regcm_tpu_torch.kernels import tridiag_w as k3  # noqa: E402
 from regcm_tpu_torch.kernels import waf_advect as k4  # noqa: E402
+from regcm_tpu_torch.parallel.halo import extend_block  # noqa: E402
 from regcm_tpu_torch.physics.pbl import holtslag as thb  # noqa: E402
 
 T = torch.as_tensor
@@ -103,12 +104,15 @@ def _mixing_torch(levels, unk, vnk, icb, ict, cloud, fn=None):
               T(cloud))
 
 
+@pytest.mark.parametrize("L", [20, 33, 64])
 @pytest.mark.parametrize("ref", ["xla_layout_cf", "pallas_interpret"])
-def test_emanuel_mixing_plain_matches_jax(ref):
+def test_emanuel_mixing_plain_matches_jax(ref, L):
     """Plain K2 against the JAX mixing body in both layouts, f64: the
     reductions reorder sums (cumsum vs triangular matmul), so 1e-10
-    relative to each term's scale."""
-    levels, unk, vnk, icb, ict, cloud = _mixing_inputs()
+    relative to each term's scale. L = 33 and 64 are where the CUDA
+    kernel's lanes take two levels each (one up to 32), so the card
+    comparison at those sizes holds the kernel to a verified reference."""
+    levels, unk, vnk, icb, ict, cloud = _mixing_inputs(L=L)
     J = [jnp.asarray(a) for a in levels]
     L = levels[0].shape[1]
     if ref == "xla_layout_cf":
@@ -243,6 +247,24 @@ def test_waf_advect_plain_matches_jax(size, ref):
     assert _rel(got.numpy(), want) <= 1e-12
 
 
+def _waf_edge_inputs(shape, seed=11):
+    """WAF operands at any (nf, kz, iy, jx): smooth fields with noise,
+    winds and s of both signs, metric factors near 1, fmzf = 0 at the
+    top, the interior mask of the MOLOCH core."""
+    rng = np.random.default_rng(seed)
+    nf, kz, iy, jx = shape
+    sm = lambda sh: rng.normal(size=sh) + 10.0 * np.sin(
+        np.linspace(0, 3, int(np.prod(sh))).reshape(sh))
+    fmzf = 1.0 + 0.05 * rng.random((kz + 1, iy, jx))
+    fmzf[0] = 0.0
+    m_ci = np.zeros((iy, jx))
+    m_ci[1:iy - 2, 1:jx - 2] = 1.0
+    return (sm(shape), 8.0 + 0.5 * sm((kz, iy, jx)),
+            -5.0 + 0.5 * sm((kz, iy, jx)), 0.1 * sm((kz + 1, iy, jx)),
+            1.0 + 0.05 * rng.random((kz, iy, jx)), fmzf,
+            1.0 + 0.01 * rng.random((iy, jx)), m_ci)
+
+
 def test_cpu_calls_launch_no_kernel():
     k1.launches = k2.launches = k3.launches = k4.launches = 0
     c1, c2, c3, rhs = _coefs(*_tridiag_inputs(shape=(2, 6, 3, 4)),
@@ -261,9 +283,9 @@ def test_cpu_calls_launch_no_kernel():
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card():
     """On a CUDA card: each hand-written kernel against its plain
-    version at the test_001 shapes and a ragged MOLOCH shape
-    (chip_smoke.py runs the full comparison, two shapes and two
-    dtypes)."""
+    version at the test_001 shapes, a ragged MOLOCH shape and the edge
+    shapes of K2 and K4 (chip_smoke.py runs the full comparison, more
+    shapes and two dtypes)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     dev = torch.device("cuda")
@@ -295,3 +317,32 @@ def test_kernels_match_plain_on_card():
     torch.cuda.synchronize()
     assert _rel(got.cpu().numpy(), k4.waf_advect_plain(
         *dargs, 0.02, 0.003).cpu().numpy()) < 1e-12
+    # the shapes that stress the kernels' layouts: K2 with one level a
+    # lane (L = 32) and two (33, 64); K4 on tiles the domain's edge cuts
+    # (37x45, one field of two levels), and its halo form on blocks of
+    # unequal size, bit for bit
+    for L in (32, 33, 64):
+        levels, unk, vnk, icb, ict, cloud = _mixing_inputs(ncol=500, L=L)
+        dargs = [T(a).to(dev) for a in (*levels, unk, vnk, icb, ict, cloud)]
+        got = k2.emanuel_mixing(*dargs)
+        want = k2.emanuel_mixing_plain(*dargs)
+        torch.cuda.synchronize()
+        for k in k2.KEYS:
+            assert _rel(got[k].cpu().numpy(),
+                        want[k].cpu().numpy()) < 1e-10, (L, k)
+    ops = [T(a).to(dev) for a in _waf_edge_inputs((1, 2, 37, 45))]
+    got = k4.waf_advect(*ops, 0.01, 0.15)
+    torch.cuda.synchronize()
+    assert torch.equal(got, k4.waf_advect_plain(*ops, 0.01, 0.15))
+    ops = [T(a).to(dev) for a in _waf_edge_inputs((7, 14, 34, 48))]
+    whole = k4.waf_advect(*ops, 0.01, 0.15)
+    modes = ["zero"] * 4 + ["edge"] * 2 + ["zero"] * 2
+    ys, xs = (0, 11, 23, 34), (0, 20, 48)
+    rows = []
+    for y0, y1 in zip(ys[:-1], ys[1:]):
+        rows.append(torch.cat([k4.waf_advect_halo(
+            *(extend_block(a, y0, x0, y1 - y0, x1 - x0, 2, m)
+              for a, m in zip(ops, modes)), 0.01, 0.15, 34, 48, y0, x0)
+            for x0, x1 in zip(xs[:-1], xs[1:])], dim=-1))
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(rows, dim=-2), whole)
