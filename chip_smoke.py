@@ -13,9 +13,10 @@ Phases (any failure raises and the script exits nonzero):
      one nvcc per source, all started together;
   3. each kernel against its plain PyTorch version on the card, f64 and
      f32, at a small ragged shape and at the MOLOCH 192x192x41 shape
-     (K2 and K4 also at EDGE_SHAPES), with the kernel and plain times
-     (CUDA events) beside each kernel's bound at the MOLOCH shape (and
-     at the test_001 shape for K1, K2);
+     (and at EDGE_SHAPES), with the kernel and plain times through the
+     wrapper (CUDA events) and the kernel's own device time
+     (torch.profiler) beside each kernel's bound at the MOLOCH shape
+     (and at the test_001 shape for K1, K2);
   4. the hydrostatic path: Model(RegCMConfig()) at test_001 size
      (34x48x18, dt 150 s, f32) for 24 steps through K1 and K2 (launch
      counters checked), then the ms/step of 24 further steps;
@@ -99,11 +100,21 @@ SHAPES = {"K1": [(5, 18, 34, 48), (5, 41, 192, 192)],
 # shapes that stress the redesigned kernels' layouts, checked and not
 # timed: K2 where its lanes take one level (L = 32) or two (33, 64); K4
 # on strips and rows cut by the domain's edge (iy, jx not multiples of
-# its 28-column strips and 8-row marches) with one field of two levels
-EDGE_SHAPES = {"K2": [(500, 32), (500, 33), (500, 64)],
+# its 28-column strips and 8-row marches) with one field of two levels;
+# K1 and K3 on an odd plane (rows of 37x45 values break 16-byte
+# alignment, the last block of 32 columns is ragged), on one-level
+# columns and on columns of 100 levels (K3: 99 interfaces)
+EDGE_SHAPES = {"K1": [(5, 41, 37, 45), (2, 1, 5, 7), (1, 100, 16, 20)],
+               "K2": [(500, 32), (500, 33), (500, 64)],
+               "K3": [(40, 37, 45), (1, 5, 7), (99, 16, 20)],
                "K4": [(1, 2, 37, 45)]}
 # the kernels rewritten after their first port -> the change that did it
-REDESIGNED = {"K2": 4, "K4": 4, "K5a": 4}
+REDESIGNED = {"K1": 5, "K2": 4, "K3": 5, "K4": 4, "K5a": 4, "K5b": 5,
+              "K5c": 5}
+# the device kernels each wrapper launches (K5: those of its base)
+KERNELS = {"K1": ("pbl_tridiag_kernel",), "K2": ("emanuel_mixing_kernel",),
+           "K3": ("tridiag_w_kernel",),
+           "K4": ("waf_vertical", "waf_horizontal")}
 # phase 9's uneven cut of the small K4 shape: block row and column edges
 UNEVEN = ((7, 14, 34, 48), (0, 11, 23, 34), (0, 20, 48))
 
@@ -134,6 +145,31 @@ def time_ms(fn, reps=20):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def device_ms(fn, kernels, reps=20):
+    """The device time of one call's kernels: for each name in
+    ``kernels``, the mean duration of torch.profiler's CUDA kernel
+    events of that name over ``reps`` calls after a warm-up, summed over
+    the names (no host time in it)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for name in kernels:
+        ev = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and name in e.name]
+        if not ev:
+            raise AssertionError(f"the profiler saw no launch of {name}")
+        total += sum(e.time_range.elapsed_us() for e in ev) / len(ev)
+    return total / 1e3
 
 
 # -- work of each kernel at a shape: (bytes each input read once and each
@@ -306,12 +342,15 @@ def compare_kernels(dev, mods):
                     b_ms, b_by, byt, ops = bound(k, shape, 4, counts)
                     st = dict(max_abs_err=ab,
                               ms=time_ms(lambda: kern(*args)),
+                              device_ms=device_ms(lambda: kern(*args),
+                                                  KERNELS[k]),
                               plain_ms=time_ms(lambda: plain(*args)),
                               bound_ms=b_ms, bound_by=b_by, bytes=byt,
                               ops=ops, shape=list(shape))
                     stats.setdefault(k, {})["moloch" if n == 1
                                             else "small"] = st
-                    print(f"{k} f32 {shape}: kernel {st['ms']:.4f} ms, "
+                    print(f"{k} f32 {shape}: kernel {st['ms']:.4f} ms "
+                          f"(device {st['device_ms']:.4f} ms), "
                           f"plain {st['plain_ms']:.4f} ms, bound "
                           f"{b_ms:.4f} ms ({b_by}: {byt / 1e6:.1f} MB, "
                           f"{ops / 1e9:.3f} GFLOP)")
@@ -480,11 +519,13 @@ def compare_decomposed(dev, mods):
                 kern, plain = per_block[0]
                 b_ms, b_by, byt, nops = bound(k, bshape, 4)
                 st = dict(max_abs_err=ab, ms=time_ms(kern),
+                          device_ms=device_ms(kern, KERNELS[BASE[k]]),
                           plain_ms=time_ms(plain), bound_ms=b_ms,
                           bound_by=b_by, bytes=byt, ops=nops,
                           shape=list(bshape))
                 stats[k] = {"moloch": st}
-                print(f"{k} f32 block {bshape}: kernel {st['ms']:.4f} ms, "
+                print(f"{k} f32 block {bshape}: kernel {st['ms']:.4f} ms "
+                      f"(device {st['device_ms']:.4f} ms), "
                       f"plain {st['plain_ms']:.4f} ms, bound {b_ms:.4f} ms "
                       f"({b_by}: {byt / 1e6:.2f} MB, {nops / 1e9:.3f} "
                       f"GFLOP)")
@@ -940,7 +981,8 @@ def main():
             for m in sys.modules):
         raise AssertionError("the port imported jax or the JAX package")
 
-    # -- results: timings at the MOLOCH shape (K5: one 96x96 block),
+    # -- results: timings at the MOLOCH shape (K5: one 96x96 block), ms
+    # through the wrapper and device_ms the launched kernels alone;
     # launches from each kernel's path: K1-K4 from phase 6's run, K5
     # from rank 0 of phase 10's gloo run (every rank's in launches_ranks);
     # no single PyTorch call computes any of these functions, so
@@ -956,7 +998,8 @@ def main():
             launches=(ranks[0]["launches"][k] if k in BASE
                       else moloch_launches[k]),
             max_abs_err=st["max_abs_err"], ms=st["ms"],
-            plain_ms=st["plain_ms"], bound_ms=st["bound_ms"],
+            device_ms=st["device_ms"], plain_ms=st["plain_ms"],
+            bound_ms=st["bound_ms"],
             bound_by=st["bound_by"], library_ms=None, shape=st["shape"])
         if k in REDESIGNED:
             row["redesigned"] = REDESIGNED[k]

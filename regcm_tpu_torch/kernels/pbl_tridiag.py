@@ -25,8 +25,11 @@ launches = 0
 launches_sharded = 0
 
 _P = ctypes.c_void_p
-_SIG = [_P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
-        ctypes.c_longlong, _P]
+_SIG = [_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+        _P]
+# the longest column the kernel takes (csrc/pbl_tridiag.cu MAX_LEVELS:
+# the column's inputs sit in shared memory)
+MAX_LEVELS = 200
 
 
 def build():
@@ -78,19 +81,20 @@ def _solve(c1, c2, c3, rhs):
     _check(c1, c2, c3, rhs)
     if rhs.device.type == "cpu":
         return pbl_tridiag_plain(c1, c2, c3, rhs), False
+    ns, kz, iy, jx = rhs.shape
+    if kz > MAX_LEVELS:
+        raise ValueError(f"pbl_tridiag: the kernel takes columns of at most "
+                         f"MAX_LEVELS = {MAX_LEVELS} levels, got {kz}")
     if rhs.device.type != "cuda":
         raise ValueError(f"pbl_tridiag: device {rhs.device} not supported")
     lib = build()
-    ns, kz, iy, jx = rhs.shape
     out = torch.empty_like(rhs)
-    scratch = torch.empty_like(rhs)
     fn = lib.pbl_tridiag_f64 if rhs.dtype == torch.float64 \
         else lib.pbl_tridiag_f32
     with torch.cuda.device(rhs.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(c1.data_ptr(), c2.data_ptr(), c3.data_ptr(),
-                rhs.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-                ns, kz, iy * jx, stream)
+                rhs.data_ptr(), out.data_ptr(), ns, kz, iy * jx, stream)
     _build.check_status(rc, "pbl_tridiag")
     return out, True
 

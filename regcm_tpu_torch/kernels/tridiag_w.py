@@ -27,7 +27,10 @@ launches = 0
 launches_sharded = 0
 
 _P = ctypes.c_void_p
-_SIG = [_P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong, _P]
+_SIG = [_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong, _P]
+# the longest column the kernel takes (csrc/tridiag_w.cu MAX_LEVELS: the
+# column's inputs sit in shared memory)
+MAX_LEVELS = 200
 
 
 def build():
@@ -82,19 +85,20 @@ def _solve(wexpl, zm, zp, w_bot):
     _check(wexpl, zm, zp, w_bot)
     if wexpl.device.type == "cpu":
         return tridiag_w_plain(wexpl, zm, zp, w_bot), False
+    n, iy, jx = wexpl.shape
+    if n > MAX_LEVELS:
+        raise ValueError(f"tridiag_w: the kernel takes columns of at most "
+                         f"MAX_LEVELS = {MAX_LEVELS} levels, got {n}")
     if wexpl.device.type != "cuda":
         raise ValueError(f"tridiag_w: device {wexpl.device} not supported")
     lib = build()
-    n, iy, jx = wexpl.shape
     out = torch.empty_like(wexpl)
-    scratch = torch.empty_like(wexpl)
     fn = lib.tridiag_w_f64 if wexpl.dtype == torch.float64 \
         else lib.tridiag_w_f32
     with torch.cuda.device(wexpl.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(wexpl.data_ptr(), zm.data_ptr(), zp.data_ptr(),
-                w_bot.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-                n, iy * jx, stream)
+                w_bot.data_ptr(), out.data_ptr(), n, iy * jx, stream)
     _build.check_status(rc, "tridiag_w")
     return out, True
 

@@ -56,10 +56,15 @@ def _rel(a, b):
     return np.max(np.abs(a - b)) / max(np.max(np.abs(b)), 1e-300)
 
 
-def test_pbl_tridiag_plain_matches_pallas_interpret():
+@pytest.mark.parametrize("shape", [(5, 14, 16, 20), (5, 41, 37, 45),
+                                   (2, 1, 5, 7)])
+def test_pbl_tridiag_plain_matches_pallas_interpret(shape):
     """Same Thomas recurrence, same operation order: 1e-12 covers the
-    roundoff of a well-conditioned (diagonally dominant) solve."""
-    c1, c2, c3, rhs = _coefs(*_tridiag_inputs(), dt=150.0)
+    roundoff of a well-conditioned (diagonally dominant) solve. The
+    odd 37x45 plane and the one-level column are edge shapes of the CUDA
+    kernel, so the card comparison there holds it to a verified
+    reference."""
+    c1, c2, c3, rhs = _coefs(*_tridiag_inputs(shape=shape), dt=150.0)
     want = pk.pbl_tridiag(*(jnp.asarray(a) for a in (c1, c2, c3, rhs)),
                           interpret=True)
     got = k1.pbl_tridiag_plain(*(T(a) for a in (c1, c2, c3, rhs)))
@@ -184,12 +189,14 @@ def _w_scan(wexpl, zm, zp, wbot):
                         jnp.arange(kz - 1))[1]
 
 
+@pytest.mark.parametrize("shape", [(40, 24, 40), (40, 37, 45), (1, 5, 7)])
 @pytest.mark.parametrize("ref", ["pallas_interpret", "lax_scan"])
-def test_tridiag_w_plain_matches_jax(ref):
+def test_tridiag_w_plain_matches_jax(ref, shape):
     """Plain K3 against the Pallas kernel (interpret mode) and the
-    lax.scan sweeps at (40, 24, 40): the same recurrence in the same
-    order, so 1e-13 relative covers any rounding difference."""
-    args = _w_inputs()
+    lax.scan sweeps: the same recurrence in the same order, so 1e-13
+    relative covers any rounding difference. The odd 37x45 plane and the
+    one-interface column are edge shapes of the CUDA kernel."""
+    args = _w_inputs(shape=shape)
     J = [jnp.asarray(a) for a in args]
     want = pk.tridiag_w(*J, interpret=True) if ref == "pallas_interpret" \
         else _w_scan(*J)
@@ -280,12 +287,35 @@ def test_cpu_calls_launch_no_kernel():
         (0, 0, 0, 0)
 
 
+@pytest.mark.parametrize("mod", [k1, k3], ids=["pbl_tridiag", "tridiag_w"])
+def test_column_longer_than_kernel_limit_raises(mod):
+    """A column longer than the CUDA kernel's MAX_LEVELS is refused with
+    a ValueError naming the limit on any tensor that would reach the
+    kernel (a meta tensor here: the check precedes the launch), while the
+    plain version on the CPU takes any length."""
+    n = mod.MAX_LEVELS + 1
+    if mod is k1:
+        shape = (1, n, 2, 3)
+        args = [torch.ones(shape, dtype=torch.float64) for _ in range(4)]
+        args[2][:, 0] = 0.0
+        args[1] += 2.0
+    else:
+        shape = (n, 2, 3)
+        args = [torch.full(shape, 0.1, dtype=torch.float64)
+                for _ in range(3)] + [torch.ones(2, 3, dtype=torch.float64)]
+    fn = getattr(mod, mod.__name__.rsplit(".", 1)[1])
+    assert torch.isfinite(fn(*args)).all()
+    with pytest.raises(ValueError, match=f"MAX_LEVELS = {mod.MAX_LEVELS}"):
+        fn(*(a.to("meta") for a in args))
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card():
     """On a CUDA card: each hand-written kernel against its plain
     version at the test_001 shapes, a ragged MOLOCH shape and the edge
-    shapes of K2 and K4 (chip_smoke.py runs the full comparison, more
-    shapes and two dtypes)."""
+    shapes of K1-K4, and K1, K3 refusing a column longer than their
+    MAX_LEVELS (chip_smoke.py runs the full comparison, more shapes and
+    two dtypes)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     dev = torch.device("cuda")
@@ -330,6 +360,27 @@ def test_kernels_match_plain_on_card():
         for k in k2.KEYS:
             assert _rel(got[k].cpu().numpy(),
                         want[k].cpu().numpy()) < 1e-10, (L, k)
+    # K1 and K3 on an odd plane (37x45: unaligned rows, a ragged last
+    # block), on one-level columns and on columns of 100 levels
+    for shape in ((5, 41, 37, 45), (2, 1, 5, 7), (1, 100, 16, 20)):
+        args = [T(a).to(dev) for a in _coefs(*_tridiag_inputs(shape=shape),
+                                             dt=150.0)]
+        got = k1.pbl_tridiag(*args)
+        torch.cuda.synchronize()
+        assert _rel(got.cpu().numpy(), k1.pbl_tridiag_plain(
+            *args).cpu().numpy()) < 1e-12, shape
+    for shape in ((40, 37, 45), (1, 5, 7), (99, 16, 20)):
+        wargs = [T(a).to(dev) for a in _w_inputs(shape=shape)]
+        got = k3.tridiag_w(*wargs)
+        torch.cuda.synchronize()
+        assert _rel(got.cpu().numpy(), k3.tridiag_w_plain(
+            *wargs).cpu().numpy()) < 1e-12, shape
+    with pytest.raises(ValueError, match="MAX_LEVELS"):
+        k1.pbl_tridiag(*(torch.ones((1, k1.MAX_LEVELS + 1, 2, 3),
+                                    device=dev) for _ in range(4)))
+    with pytest.raises(ValueError, match="MAX_LEVELS"):
+        k3.tridiag_w(*(torch.ones((k3.MAX_LEVELS + 1, 2, 3), device=dev)
+                       for _ in range(3)), torch.ones((2, 3), device=dev))
     ops = [T(a).to(dev) for a in _waf_edge_inputs((1, 2, 37, 45))]
     got = k4.waf_advect(*ops, 0.01, 0.15)
     torch.cuda.synchronize()
