@@ -44,12 +44,32 @@ Phases (any failure raises and the script exits nonzero):
      and each rank's K1-K5 launches;
  11. decomposed MOLOCH in f64 at 32x32x14 over phase 7's hill, the
      three-step setting of dryrun_multichip, 2x2 against one card;
+ 12. the decomposed hydrostatic core in the same groups: (a) f64 at
+     dryrun_multichip's 16x16x14 settings (dynamics, and full physics
+     with every alarm at step 0), 2x2 against one card; (b) test_001
+     (34x48x18, f32) from phase 13's ICBC files for 150 steps, past the
+     6-hourly boundary update after step 144, held at steps 12 and 150
+     to phase 13's single-card run bit for bit or, where it is not, by
+     the f32 rule (four times the single card's rel-RMS spread under a
+     1e-7 change of T); the ms/step, halo exchanges and bytes a step and
+     each rank's K5c and K2 launches;
+ 13. ICBC-driven runs on one card (run before phase 12, which is held to
+     13a): (a) test_001 from a DOMAIN file of a 500 m hill and a
+     one-day ICBC file (10 m/s jet) written by the port's preprocessors,
+     init_from_icbc and run_icbc through step 150, with the ms/step of
+     the steps without radiation and of the radiation steps; (b) the
+     MOLOCH flagship (192x192x41, flat, 10 m/s jet) from a one-day ICBC
+     file through step 61 (radiation at 60): the first non-finite step
+     or that it stayed finite, ms/step over steps 24-47, the radiation
+     step and the peak device memory;
 then a JSON line of the kernels and the result line.
 """
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -117,6 +137,14 @@ KERNELS = {"K1": ("pbl_tridiag_kernel",), "K2": ("emanuel_mixing_kernel",),
            "K4": ("waf_vertical", "waf_horizontal")}
 # phase 9's uneven cut of the small K4 shape: block row and column edges
 UNEVEN = ((7, 14, 34, 48), (0, 11, 23, 34), (0, 20, 48))
+# phases 12, 13: the ICBC files cover one day (five 6-hourly records);
+# test_001 runs past the update after step 144 and is compared at
+# HYDRO_CHECK; the MOLOCH flagship runs through the radiation step 60
+ICBC_END = 1990060200
+HYDRO_ICBC_STEPS = 150
+HYDRO_CHECK = (12, HYDRO_ICBC_STEPS)
+MOLOCH_ICBC_STEPS = RAD_STEP + 1
+HYDRO_FIELDS = ("ps", "t", "qv", "u", "v")
 
 
 def nvidia_smi_line():
@@ -147,28 +175,37 @@ def time_ms(fn, reps=20):
     return t0.elapsed_time(t1) / reps
 
 
-def device_ms(fn, kernels, reps=20):
+def device_ms(fn, kernels, reps=20, tries=3):
     """The device time of one call's kernels: for each name in
     ``kernels``, the mean duration of torch.profiler's CUDA kernel
     events of that name over ``reps`` calls after a warm-up, summed over
-    the names (no host time in it)."""
+    the names (no host time in it). A trace that holds no event of a
+    name is taken again, up to ``tries`` traces (the card's tracer now
+    and then returns a trace without the kernel events of a run whose
+    results were checked just before)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = 0.0
-    for name in kernels:
-        ev = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and name in e.name]
-        if not ev:
-            raise AssertionError(f"the profiler saw no launch of {name}")
-        total += sum(e.time_range.elapsed_us() for e in ev) / len(ev)
+    for attempt in range(1, tries + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ev = {name: [e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and name in e.name] for name in kernels}
+        missing = [name for name, e in ev.items() if not e]
+        if not missing:
+            break
+        print(f"device_ms: trace {attempt} of {tries} holds no event of "
+              f"{missing}")
+    else:
+        raise AssertionError(f"the profiler saw no launch of {missing} in "
+                             f"{tries} traces")
+    total = sum(sum(e.time_range.elapsed_us() for e in evs) / len(evs)
+                for evs in ev.values())
     return total / 1e3
 
 
@@ -600,11 +637,245 @@ def dryrun(cfg, grid, device, mesh=None, steps=3):
     return {k: v.cpu().numpy() for k, v in out.items()}
 
 
-def decomposed_rank(rank, time_steps):
-    """Phases 10 and 11 on one rank of a 2x2 group: the flagship in f32
-    for DECOMP_STEPS steps (counters reset just before, read just
-    after), the whole domain's fields at the end (on rank 0), the
-    ms/step of ``time_steps`` further steps; then the f64 dryrun."""
+def hydro_dryrun(device, physics, mesh=None):
+    """dryrun_multichip's hydrostatic settings at 16x16x14 in f64, three
+    steps through HydroCore.step from the perturbed standard atmosphere
+    with a 10 m/s jet and qv lifted off the minqq floor: dynamics
+    (ipptls 0, 0.3 K, constant flags) or full physics (0.2 K, every alarm
+    at step 0, surface and cumulus after, cos(zenith) 0.4). The whole
+    domain's state fields (nonzero size) after step 3."""
+    import torch
+    from regcm_tpu_torch.config.params import RegCMConfig
+    from regcm_tpu_torch.core.grid import build_grid
+    from regcm_tpu_torch.core.state import StepFlags, bdy_from_state, sliced
+    from regcm_tpu_torch.driver import Model, standard_atmosphere_state
+    from regcm_tpu_torch.dynamics.stencil import cross2dot
+    f64 = torch.float64
+    cfg = RegCMConfig()
+    cfg.dim.iy, cfg.dim.jx, cfg.dim.kz = 16, 16, 14
+    if not physics:
+        cfg.physics.ipptls = 0
+    grid = build_grid(cfg)
+    m = Model(cfg, grid=grid, device=device, dtype=f64, mesh=mesh,
+              physics=None if physics else False)
+    s = standard_atmosphere_state(grid, cfg, "cpu", f64,
+                                  perturb=0.2 if physics else 0.3,
+                                  seed=3 if physics else 0)
+    u = 10.0 * cross2dot(s.ps_a)[None] * torch.ones_like(s.u_a)
+    qv = torch.maximum(s.qx_a[0], 1e-5 * s.ps_a[None])
+    qx = torch.cat([qv[None], s.qx_a[1:]])
+    s = s._replace(u_a=u, u_b=u, qx_a=qx, qx_b=qx, tg=s.t_a[-1] / s.ps_a
+                   if physics else s.tg)
+    s = sliced(s, mesh)
+    s = s._replace(**{k: v.to(device) for k, v in s._asdict().items()})
+    if physics:
+        s = s._replace(bats=m.state.bats)
+    s = m.core.init_split_storage(s)
+    bdy = bdy_from_state(s)
+    mu = torch.full_like(s.tg, 0.4)
+    xt, dt = 0.0, cfg.dtsec
+    for n in range(3):
+        if physics:
+            flags = StepFlags(do_rad=True, do_srf=True, do_cum=True,
+                              do_abem=True, first=True) if n == 0 \
+                else StepFlags(do_rad=False, do_srf=True, do_cum=True)
+            s, _ = m.core.step(s, bdy, xt, dt, flags, mu, (1.0343, 1361.8))
+        else:
+            s, _ = m.core.step(s, bdy, xt, dt, StepFlags(first=True))
+        xt += cfg.dtsec
+        dt = 2.0 * cfg.dtsec
+    f = {k: v for k, v in s._asdict().items() if v.numel()}
+    if mesh is not None:
+        f = {k: mesh.gather(v) for k, v in f.items()}
+    return {k: v.cpu().numpy() for k, v in f.items()}
+
+
+def hydro_icbc_cfg():
+    """test_001 (RegCMConfig()) over phase 13's one-day ICBC window."""
+    from regcm_tpu_torch.config.params import RegCMConfig
+    cfg = RegCMConfig()
+    cfg.globdat.gdate2 = ICBC_END
+    return cfg
+
+
+def write_icbc_files(directory):
+    """Phase 13's input files, written by the port's preprocessors: the
+    test_001 DOMAIN file of a 500 m hill and its one-day ICBC file, and
+    the MOLOCH flagship's (flat) one-day ICBC file, both with a 10 m/s
+    jet."""
+    from regcm_tpu_torch.preproc.icbc import generate_synthetic_icbc
+    from regcm_tpu_torch.preproc.terrain import synthetic_topo, write_domain
+    paths = {}
+    hcfg = hydro_icbc_cfg()
+    topo, lnd, mask = synthetic_topo(hcfg, kind="gauss", height=500.0)
+    paths["domain"] = os.path.join(directory, "test_001_DOMAIN000.nc")
+    write_domain(hcfg, paths["domain"], topo, lnd, mask)
+    paths["hydro"] = os.path.join(directory, "test_001_ICBC.nc")
+    generate_synthetic_icbc(hcfg, topo, paths["hydro"], jet=10.0)
+    mcfg = flagship_cfg()
+    mcfg.globdat.gdate2 = ICBC_END
+    topo, _, _ = synthetic_topo(mcfg, kind="flat")
+    paths["moloch"] = os.path.join(directory, "moloch_ICBC.nc")
+    generate_synthetic_icbc(mcfg, topo, paths["moloch"], jet=10.0)
+    return paths
+
+
+def hydro_icbc_model(paths, device, mesh=None, dtype=None):
+    """test_001 in f32 on the DOMAIN file's grid, cold-started from the
+    ICBC file (the rank's block under a mesh)."""
+    import torch
+    from regcm_tpu_torch.driver import Model
+    from regcm_tpu_torch.preproc.icbc import ICBCReader
+    from regcm_tpu_torch.preproc.terrain import build_grid_from_domain
+    cfg = hydro_icbc_cfg()
+    grid = build_grid_from_domain(cfg, paths["domain"])
+    m = Model(cfg, grid=grid, device=device, dtype=dtype or torch.float32,
+              mesh=mesh)
+    m.init_from_icbc(ICBCReader(paths["hydro"], cfg.globdat.calendar))
+    return m
+
+
+def icbc_steps(model, until, record=(), stop_non_finite=False):
+    """run_icbc one step at a time up to step ``until``: each step's
+    number, whether radiation ran and its wall ms (synchronised), the
+    decoupled fields after the steps in ``record``, and the first step
+    after which the state was not finite (None if it stayed finite; with
+    ``stop_non_finite`` the run checks each step and stops there)."""
+    steps, rec, bad = [], {}, None
+    while model.nstep < until:
+        rad = model._flags().do_rad
+        _, wall = model.run_icbc(1)
+        steps.append((model.nstep - 1, rad, 1000.0 * wall))
+        if stop_non_finite and not model.check_finite():
+            bad = model.nstep
+            break
+        if model.nstep in record:
+            rec[model.nstep] = model.decoupled()
+    return steps, rec, bad
+
+
+def mean_ms(steps, lo, hi, rad):
+    """Mean ms of the steps lo..hi-1 whose radiation flag is ``rad``."""
+    ms = [t for n, r, t in steps if lo <= n < hi and r == rad]
+    return sum(ms) / len(ms), len(ms)
+
+
+def run_icbc_single(dev, smi, paths, mods):
+    """Phase 13: the ICBC-driven runs on one card; returns 13a's decoupled
+    fields at HYDRO_CHECK and its mean ms/step from step 12 on."""
+    import torch
+    # -- 13a. test_001 from the ICBC file, f32, through step 150
+    t0 = time.time()
+    model = hydro_icbc_model(paths, dev)
+    torch.cuda.synchronize()
+    print(f"ICBC test_001: {model.grid.jx}x{model.grid.iy}x{model.grid.kz}"
+          f", set-up and init_from_icbc {time.time() - t0:.1f} s")
+    reset(mods)
+    steps, rec, _ = icbc_steps(model, HYDRO_ICBC_STEPS, HYDRO_CHECK)
+    launches = read(mods)
+    print(f"ICBC test_001 path: {HYDRO_ICBC_STEPS} steps, launches "
+          f"{launches}, boundary clock {model.xbctime:.0f} s after the "
+          f"update at step 144")
+    if not model.check_finite():
+        raise AssertionError("ICBC test_001: non-finite state")
+    if launches["K1"] <= 0 or launches["K2"] <= 0:
+        raise AssertionError(f"ICBC test_001 bypassed a kernel: {launches}")
+    if model.xbctime >= 6 * 3600.0:
+        raise AssertionError("ICBC test_001: no boundary update")
+    d = rec[HYDRO_ICBC_STEPS]
+    print(f"ICBC test_001 step {HYDRO_ICBC_STEPS}: ps {d['ps'].min():.3f}.."
+          f"{d['ps'].max():.3f} hPa, T {d['t'].min():.3f}..{d['t'].max():.3f}"
+          f" K, max |u| {np.abs(d['u']).max():.3f} m/s")
+    plain, n_plain = mean_ms(steps, 1, HYDRO_ICBC_STEPS, False)
+    rad, n_rad = mean_ms(steps, 1, HYDRO_ICBC_STEPS, True)
+    print(f"ICBC test_001 ms/step (f32, 34x48x18, steps 1..149, each "
+          f"synchronised): {plain:.3f} over the {n_plain} steps without "
+          f"radiation, {rad:.3f} over the {n_rad} radiation steps, on {smi}")
+    window = [t for n, _, t in steps if n >= HYDRO_CHECK[0]]
+    del model
+    torch.cuda.empty_cache()
+
+    # -- 13b. the MOLOCH flagship from its ICBC file, f32, through step 61
+    from regcm_tpu_torch.core.grid import build_grid
+    from regcm_tpu_torch.driver import Model
+    from regcm_tpu_torch.preproc.icbc import ICBCReader
+    mcfg = flagship_cfg()
+    mcfg.globdat.gdate2 = ICBC_END
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.time()
+    model = Model(mcfg, grid=build_grid(mcfg), device=dev,
+                  dtype=torch.float32)
+    model.init_from_icbc(ICBCReader(paths["moloch"], mcfg.globdat.calendar))
+    torch.cuda.synchronize()
+    print(f"ICBC MOLOCH 192x192x41: set-up and init_from_icbc "
+          f"{time.time() - t0:.1f} s")
+    reset(mods)
+    marks = (12, 24, 36, 48, MOLOCH_ICBC_STEPS)
+    steps, mrec, bad = icbc_steps(model, MOLOCH_ICBC_STEPS, marks,
+                                  stop_non_finite=True)
+    mlaunch = read(mods)
+    print(f"ICBC MOLOCH path: {len(steps)} steps, launches {mlaunch}")
+    if min(mlaunch.values()) <= 0:
+        raise AssertionError(f"ICBC MOLOCH bypassed a kernel: {mlaunch}")
+    # a finding, not a failure: how this start evolves, and where it goes
+    # non-finite within two radiation cycles
+    for n, d in mrec.items():
+        print(f"ICBC MOLOCH step {n}: ps {d['ps'].min():.3f}.."
+              f"{d['ps'].max():.3f} hPa, wmax {np.abs(d['w']).max():.4f} "
+              f"m/s, max |u| {np.abs(d['u']).max():.3f} m/s")
+    print(f"ICBC MOLOCH 192x192x41 f32 from the ICBC start: "
+          + (f"non-finite after step {bad}" if bad is not None
+             else f"finite through step {model.nstep}"))
+    if bad is None or bad > 47:
+        ms, n = mean_ms(steps, STEPS, 2 * STEPS, False)
+        print(f"ICBC MOLOCH ms/step (f32, 192x192x41, steps {STEPS}.."
+              f"{2 * STEPS - 1}, {n} steps, each synchronised): {ms:.3f} on "
+              f"{smi}")
+    radn = [t for n, r, t in steps if r and n == RAD_STEP]
+    if radn:
+        print(f"ICBC MOLOCH radiation step (step {RAD_STEP}: radiation, "
+              f"surface, cumulus; synchronised): {radn[0]:.3f} ms on {smi}")
+    print(f"ICBC MOLOCH peak device memory (steps 0..{model.nstep}): "
+          f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
+    if bad is None:
+        later = icbc_steps(model, 2 * RAD_STEP, stop_non_finite=True)[2]
+        d = model.decoupled()
+        print(f"ICBC MOLOCH 192x192x41 f32 from the ICBC start, report "
+              f"only: " + (f"non-finite after step {later}" if later
+                           else f"finite through step {model.nstep}: ps "
+                           f"{d['ps'].min():.3f}..{d['ps'].max():.3f} hPa, "
+                           f"wmax {np.abs(d['w']).max():.4f} m/s"))
+        del d
+    del model
+    torch.cuda.empty_cache()
+    return dict(rec=rec, window_ms=sum(window) / len(window))
+
+
+def hydro_spread(dev, paths):
+    """The f32 rule's spread: phase 13a's run again with T changed by
+    1e-7 relative right after the cold start; its decoupled fields at
+    HYDRO_CHECK."""
+    import torch
+    model = hydro_icbc_model(paths, dev)
+    t = model.state.t_a
+    rng = np.random.default_rng(0)
+    noise = torch.as_tensor(rng.standard_normal(tuple(t.shape)),
+                            dtype=t.dtype, device=t.device)
+    model.state = model.state._replace(t_a=t * (1.0 + 1e-7 * noise))
+    _, rec, _ = icbc_steps(model, HYDRO_ICBC_STEPS, HYDRO_CHECK)
+    del model
+    torch.cuda.empty_cache()
+    return rec
+
+
+def decomposed_rank(rank, time_steps, paths):
+    """Phases 10-12 on one rank of a 2x2 group: the flagship in f32 for
+    DECOMP_STEPS steps (counters reset just before, read just after), the
+    whole domain's fields at the end (on rank 0), the ms/step of
+    ``time_steps`` further steps; the f64 MOLOCH dryrun; the f64
+    hydrostatic dryruns; test_001 from the ICBC files in ``paths``
+    (counters reset just before, read just after) with the whole domain's
+    fields at HYDRO_CHECK (on rank 0) and the ms/step after step 12."""
     import torch
     import torch.distributed as dist
     from regcm_tpu_torch.core.grid import build_grid
@@ -655,21 +926,54 @@ def decomposed_rank(rank, time_steps):
     hgrid = build_grid(hcfg, ht=hill(32, 32))
     d64 = dryrun(hcfg, hgrid, dev, rank.mesh(32, 32))
     out["dryrun"] = d64 if rank.rank == 0 else None
+    # -- 12a. the hydrostatic core in f64, dryrun_multichip's settings
+    hd = {ph: hydro_dryrun(dev, ph, rank.mesh(16, 16))
+          for ph in (False, True)}
+    out["hydro_dryrun"] = hd if rank.rank == 0 else None
+    # -- 12b. test_001 from the ICBC files, f32, 150 steps
+    model = hydro_icbc_model(paths, dev, rank.mesh(34, 48))
+    for m in mods.values():
+        m.launches = 0
+    k1.launches_sharded = k3.launches_sharded = k4.launches_sharded = 0
+    halo.exchanges = halo.bytes_sent = 0
+    model.run_icbc(HYDRO_CHECK[0])
+    dec = {HYDRO_CHECK[0]: model.decoupled()}
+    dist.barrier()
+    _, wall = model.run_icbc(HYDRO_ICBC_STEPS - HYDRO_CHECK[0])
+    launches = {k: m.launches for k, m in mods.items()}
+    launches.update(K5a=k4.launches_sharded, K5b=k3.launches_sharded,
+                    K5c=k1.launches_sharded)
+    walls = [None] * rank.world
+    dist.all_gather_object(walls, wall)
+    out["hydro"] = dict(
+        launches=launches, finite=model.check_finite(),
+        xbctime=model.xbctime,
+        exchanges_per_step=halo.exchanges / HYDRO_ICBC_STEPS,
+        bytes_per_step=halo.bytes_sent / HYDRO_ICBC_STEPS,
+        ms_per_step=1000.0 * max(walls)
+        / (HYDRO_ICBC_STEPS - HYDRO_CHECK[0]))
+    dec[HYDRO_ICBC_STEPS] = model.decoupled()
+    out["hydro"]["dec"] = dec if rank.rank == 0 else None
+    del model
+    torch.cuda.empty_cache()
     return out
 
 
-def run_decomposed(dev, smi, single12):
-    """Phases 10 and 11: the 2x2 groups of ``decomposed_rank`` on every
+def run_decomposed(dev, smi, single12, paths, icbc13):
+    """Phases 10-12: the 2x2 groups of ``decomposed_rank`` on every
     backend the host allows, held bit for bit to the single card's
-    step-12 fields ``single12`` and to its f64 dryrun; returns each
-    backend's rank results."""
+    step-12 fields ``single12`` and to its f64 dryruns, and test_001
+    from ICBC to phase 13a's run ``icbc13``; returns each backend's rank
+    results."""
     import torch
     from regcm_tpu_torch.core.grid import build_grid
     from regcm_tpu_torch.parallel.launch import spawn
-    # phase 11's single-card reference
+    # phases 11 and 12a's single-card references
     hcfg = hill_cfg(32, 32)
     hgrid = build_grid(hcfg, ht=hill(32, 32))
     ref64 = dryrun(hcfg, hgrid, dev)
+    href = {ph: hydro_dryrun(dev, ph) for ph in (False, True)}
+    spread = None                 # the f32 rule's spread run, if needed
     ncards = torch.cuda.device_count()
     world = GRID[0] * GRID[1]
     cards = (f"{ncards} cards: one card a rank" if ncards >= world
@@ -688,7 +992,7 @@ def run_decomposed(dev, smi, single12):
               f"({why[backend]})")
         t0 = time.time()
         res = spawn(decomposed_rank, *GRID, backend, "cuda",
-                    args=(TIME_STEPS,), timeout=900)
+                    args=(TIME_STEPS, paths), timeout=900)
         print(f"  {backend} group ran in {time.time() - t0:.1f} s")
         for r, out in enumerate(res):
             print(f"  rank {r} on {out['device']}: launches "
@@ -733,8 +1037,78 @@ def run_decomposed(dev, smi, single12):
             if not rel <= 1e-12:
                 raise AssertionError(f"decomposed f64 dryrun ({backend}) "
                                      f"disagrees in {f}: {rel}")
+        # -- 12a. the hydrostatic core, f64, 16x16x14, 2x2 against one card
+        for ph, want in href.items():
+            got = res[0]["hydro_dryrun"][ph]
+            what = "full physics" if ph else "dynamics"
+            worst = max((max_rel(got[f], w), f) for f, w in want.items())
+            same = all(np.array_equal(got[f], w) for f, w in want.items())
+            print(f"  hydrostatic 16x16x14 f64 dryrun ({what}, 3 steps), "
+                  f"{backend} 2x2 vs one card: "
+                  f"{'bit-identical' if same else 'DIFFERENT'}, worst "
+                  f"field {worst[1]} max rel err {worst[0]:.3e} (bound "
+                  f"1e-12)")
+            if not worst[0] <= 1e-12:
+                raise AssertionError(f"decomposed hydrostatic f64 dryrun "
+                                     f"({backend}, {what}) disagrees in "
+                                     f"{worst[1]}: {worst[0]}")
+        # -- 12b. test_001 from ICBC on 2x2 ranks against phase 13a
+        for r, out in enumerate(res):
+            h = out["hydro"]
+            print(f"  rank {r} hydrostatic test_001 ICBC: launches "
+                  f"{h['launches']}, {h['exchanges_per_step']:.1f} halo "
+                  f"exchanges and {h['bytes_per_step'] / 1e6:.3f} MB sent a "
+                  f"step")
+            if not h["finite"]:
+                raise AssertionError(f"rank {r}: non-finite decomposed "
+                                     f"test_001 state")
+            if h["launches"]["K5c"] <= 0 or h["launches"]["K2"] <= 0 \
+                    or h["launches"]["K1"] != 0:
+                raise AssertionError(f"rank {r} ({backend}): the "
+                                     f"decomposed test_001 path bypassed "
+                                     f"K5c or K2: {h['launches']}")
+            if h["xbctime"] >= 6 * 3600.0:
+                raise AssertionError(f"rank {r}: no boundary update")
+        dec = res[0]["hydro"]["dec"]
+        same = all(np.array_equal(dec[n][f], icbc13["rec"][n][f])
+                   for n in HYDRO_CHECK for f in HYDRO_FIELDS)
+        if not same and spread is None:
+            spread = hydro_spread(dev, paths)
+        for n in HYDRO_CHECK:
+            for f in HYDRO_FIELDS:
+                want = icbc13["rec"][n][f]
+                err = rel_rms(dec[n][f], want)
+                line = (f"  test_001 ICBC f32 step {n}, {backend} 2x2 vs one "
+                        f"card, {f}: "
+                        f"{'bit-identical' if np.array_equal(dec[n][f], want) else 'DIFFERENT'}"
+                        f", rel-RMS {err:.3e}")
+                if not same:
+                    lim = 4.0 * rel_rms(spread[n][f], want)
+                    line += f" (f32 rule: bound 4 x spread = {lim:.3e})"
+                    if not err < lim:
+                        raise AssertionError(f"decomposed test_001 "
+                                             f"({backend}) differs from one "
+                                             f"card in {f} at step {n}: "
+                                             f"{err} >= {lim}")
+                print(line)
+        print(f"  decomposed test_001 held to one card "
+              + ("bit for bit" if same else
+                 "by the f32 rule (four times the single card's rel-RMS "
+                 "spread under a 1e-7 change of T; not bit-identical)"))
+        print(f"  decomposed test_001 ms/step (f32, 34x48x18 from ICBC on "
+              f"2x2 ranks, {backend}, steps {HYDRO_CHECK[0]}.."
+              f"{HYDRO_ICBC_STEPS - 1}: radiation every 12, the boundary "
+              f"update after 144; synchronised, slowest rank): "
+              f"{res[0]['hydro']['ms_per_step']:.3f}, one card "
+              f"{icbc13['window_ms']:.3f} (phase 13a, the same steps), on "
+              f"{smi}")
         decomp[backend] = res
     return decomp
+
+
+def max_rel(got, want):
+    return float(np.max(np.abs(got - want))
+                 / max(float(np.max(np.abs(want))), 1e-300))
 
 
 def main():
@@ -973,8 +1347,19 @@ def main():
     stats.update(k5_stats)
     compare_uneven(dev, k4)
 
-    # -- 10, 11. the decomposed MOLOCH runs
-    decomp = run_decomposed(dev, smi, single12)
+    # -- 13. the ICBC-driven runs on one card (phase 12 is held to 13a)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_icbc_")
+    try:
+        t0 = time.time()
+        paths = write_icbc_files(tmp)
+        print(f"ICBC files (port's terrain and icbc, one day) written in "
+              f"{time.time() - t0:.1f} s")
+        icbc13 = run_icbc_single(dev, smi, paths, mods)
+
+        # -- 10, 11, 12. the decomposed runs
+        decomp = run_decomposed(dev, smi, single12, paths, icbc13)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     if "jax" in sys.modules or any(
             m == "regcm_tpu" or m.startswith("regcm_tpu.")
@@ -985,6 +1370,7 @@ def main():
     # through the wrapper and device_ms the launched kernels alone;
     # launches from each kernel's path: K1-K4 from phase 6's run, K5
     # from rank 0 of phase 10's gloo run (every rank's in launches_ranks);
+    # K5c and K2 also per step on each rank of phase 12's test_001 run;
     # no single PyTorch call computes any of these functions, so
     # library_ms is null
     kernels = []
@@ -1003,6 +1389,10 @@ def main():
             bound_by=st["bound_by"], library_ms=None, shape=st["shape"])
         if k in REDESIGNED:
             row["redesigned"] = REDESIGNED[k]
+        if k in ("K2", "K5c"):
+            row["launches_per_step_hydrostatic_2x2"] = {
+                b: [r["hydro"]["launches"][k] / HYDRO_ICBC_STEPS
+                    for r in res] for b, res in decomp.items()}
         if k in BASE:
             row["launches_ranks"] = {b: [r["launches"][k] for r in res]
                                      for b, res in decomp.items()}

@@ -4,7 +4,9 @@ Same field names, shapes and meaning as ``regcm_tpu/core/state.py``:
 p*-coupled leapfrog ``_a`` (time n) and ``_b`` (filtered n-1) levels,
 3-D fields (kz, iy, jx), tracers (nqx, kz, iy, jx), 2-D (iy, jx).
 ``state_from_numpy`` / ``state_to_numpy`` carry a state across from (or
-back to) the JAX package after ``jax.device_get``.
+back to) the JAX package after ``jax.device_get``; given a ``DomainMesh``,
+``state_from_numpy`` and ``bdy_from_numpy`` cut the whole domain's fields
+to the rank's block.
 """
 from __future__ import annotations
 
@@ -160,15 +162,30 @@ def tensors_from(cls, nt, device, dtype):
                   for k in cls._fields})
 
 
-def state_from_numpy(s, device="cuda", dtype=torch.float64) -> HydroState:
+def sliced(nt, mesh):
+    """The NamedTuple ``nt`` of global (..., iy, jx) arrays or tensors cut
+    to the rank's block of ``mesh`` (unchanged without a mesh; None fields
+    stay None)."""
+    if mesh is None:
+        return nt
+    return nt._replace(**{
+        k: mesh.local(v if isinstance(v, torch.Tensor) else np.asarray(v))
+        for k, v in nt._asdict().items() if v is not None})
+
+
+def state_from_numpy(s, device="cuda", dtype=torch.float64,
+                     mesh=None) -> HydroState:
     """HydroState of tensors from any NamedTuple with the same fields
-    (e.g. the JAX package's state after ``jax.device_get``)."""
-    return tensors_from(HydroState, s, device, dtype)
+    (e.g. the JAX package's state after ``jax.device_get``); with a
+    ``DomainMesh`` the global arrays are cut to the rank's block."""
+    return tensors_from(HydroState, sliced(s, mesh), device, dtype)
 
 
-def bdy_from_numpy(b, device="cuda", dtype=torch.float64) -> BdyState:
-    """BdyState of tensors from any NamedTuple with the same fields."""
-    return tensors_from(BdyState, b, device, dtype)
+def bdy_from_numpy(b, device="cuda", dtype=torch.float64,
+                   mesh=None) -> BdyState:
+    """BdyState of tensors from any NamedTuple with the same fields (cut
+    to the rank's block of ``mesh``)."""
+    return tensors_from(BdyState, sliced(b, mesh), device, dtype)
 
 
 def state_to_numpy(s: HydroState) -> dict:

@@ -6,18 +6,22 @@ the default physics suite and steps it with the reference's alarms
 (``Main/mod_regcm_interface.F90``, ``Main/mpplib/mod_timer.F90``):
 cumulus every dtcum, surface every dtsrf, radiation every dtrad and the
 LW absorptivities every dtabem. It runs on the CUDA card unless the
-caller passes ``device="cpu"``. ICBC input, restart and output are not
-ported; the boundary is held at the initial state.
+caller passes ``device="cpu"``. Without ICBC input the run starts from a
+resting standard atmosphere and holds the boundary at the initial state;
+``init_from_icbc(reader)`` cold-starts from the ICBC record at mdate1
+and ``run_icbc(n)`` steps with the boundary-input alarm every ibdyfrq
+hours (``update_boundary``), as the reference's ``bdyin`` does. Restart
+and output are not ported.
 
-``Model(cfg, mesh=DomainMesh(...))`` runs the MOLOCH core decomposed over
-a (y, x) grid of ranks, one ``Model`` in each rank's process
-(``parallel.launch``): the rank holds its block of the state, the solar
-zenith angles are computed on the whole grid and cut to it, and
-``check_finite`` and ``decoupled`` look at the whole domain.
+``Model(cfg, mesh=DomainMesh(...))`` runs either core decomposed over a
+(y, x) grid of ranks, one ``Model`` in each rank's process
+(``parallel.launch``): the rank holds its block of the state; the
+initial state, the ICBC records and the solar zenith angles are formed
+on the whole grid and cut to it; ``check_finite`` and ``decoupled`` look
+at the whole domain.
 """
 from __future__ import annotations
 
-import functools
 import time
 from typing import Dict, Optional
 
@@ -26,10 +30,12 @@ import torch
 
 from .config.params import RegCMConfig
 from .core.grid import ModelGrid, build_grid
-from .core.state import (HydroState, StepFlags, bdy_from_numpy,
-                         bdy_from_state, state_from_numpy, zeros_hydro)
+from .core.state import (BdyState, HydroState, StepFlags, bdy_from_numpy,
+                         bdy_from_state, sliced, state_from_numpy,
+                         zeros_hydro)
 from .device import resolve_device
-from .dynamics.hydrostatic import HydroCore
+from .dynamics import stencil
+from .dynamics.hydrostatic import HydroCore, fix_cross_pad
 from .dynamics.moloch import (MolochBdy, MolochCore, MolochState,
                               moloch_bdy_from_numpy, moloch_state_from_numpy)
 from .physics.surface.bats import bats_init_state
@@ -76,13 +82,18 @@ def moloch_bdy_from_state(s: MolochState) -> MolochBdy:
                      qv0=s.qx[0], qvt=z3, u0=s.u, ut=z3, v0=s.v, vt=z3)
 
 
-def _as_state(st, cls, from_numpy, device, dtype):
-    """A ``cls`` of tensors on (device, dtype) from either form: tensors
-    (the rank's block in a decomposed run), or numpy arrays such as the
-    JAX package's state after ``jax.device_get`` (the whole domain)."""
-    if isinstance(st, cls) and isinstance(st[0], torch.Tensor):
-        return cls(*(v.to(device=device, dtype=dtype) for v in st))
-    return from_numpy(st, device, dtype)
+def _as_state(st, cls, from_numpy, mesh, device, dtype):
+    """A ``cls`` of tensors on (device, dtype) from either form: numpy
+    arrays of the whole domain (such as the JAX package's state after
+    ``jax.device_get``) through ``from_numpy``, which cuts them to the
+    rank's block under a mesh; or tensors, of the rank's block or of the
+    whole domain, which a mesh then cuts."""
+    if not isinstance(st[0], torch.Tensor):
+        return from_numpy(st, device, dtype, mesh=mesh)
+    if mesh is not None and tuple(st[0].shape[-2:]) == (mesh.iy, mesh.jx):
+        st = sliced(st, mesh)
+    return cls(*(None if v is None else v.to(device=device, dtype=dtype)
+                 for v in st))
 
 
 class Model:
@@ -95,11 +106,6 @@ class Model:
             raise NotImplementedError(
                 f"coreparam idynamic={cfg.core.idynamic}: the hydrostatic "
                 "(1) and MOLOCH (3) cores are ported")
-        if mesh is not None and cfg.core.idynamic != 3:
-            raise NotImplementedError(
-                "a decomposed run (mesh=) of the hydrostatic core is not "
-                "ported yet (ROADMAP.md Queue 1, item 10a); the MOLOCH core "
-                "(idynamic=3) runs decomposed")
         pp = cfg.perturb
         if cfg.globdat.ensemble_run and any(
                 getattr(pp, f"lperturb_{n}") for n in
@@ -129,39 +135,140 @@ class Model:
             if initial_state is None:
                 initial_state = self.core.initial_state()
             self.state = _as_state(initial_state, MolochState,
-                                   functools.partial(moloch_state_from_numpy,
-                                                     mesh=mesh),
+                                   moloch_state_from_numpy, mesh,
                                    self.device, dtype)
         else:
             self.core = HydroCore(self.grid, cfg, device=self.device,
-                                  dtype=dtype, physics=physics)
-            if initial_state is None:
+                                  dtype=dtype, physics=physics, mesh=mesh)
+            if initial_state is None:   # on the whole grid, then cut
                 initial_state = standard_atmosphere_state(
-                    self.grid, cfg, self.device, dtype)
+                    self.grid, cfg, "cpu" if mesh else self.device, dtype)
             self.state = self.core.init_split_storage(
-                _as_state(initial_state, HydroState, state_from_numpy,
+                _as_state(initial_state, HydroState, state_from_numpy, mesh,
                           self.device, dtype))
         if getattr(physics, "land_scheme", "") == "bats1e":
             # initbats cold start: slmo soil water, Tg-initialised
-            # leaf/subsoil temperatures (mod_bats_common.F90)
+            # leaf/subsoil temperatures (mod_bats_common.F90); column by
+            # column, on the rank's block
             tg0 = self.state.tg.cpu().numpy()
             tg0 = np.where(tg0 > 100.0, tg0, 288.0)
-            b0 = bats_init_state(physics.bats_ss_np, self.grid.lndocn, tg0)
+            b0 = bats_init_state(physics.bats_ss_np,
+                                 self._local(self.grid.lndocn), tg0)
             self.state = self.state._replace(bats=torch.as_tensor(
                 b0, dtype=dtype, device=self.device))
         if bdy is None:
             bdy = moloch_bdy_from_state(self.state) if self.idynamic == 3 \
                 else bdy_from_state(self.state)
-        elif not isinstance(bdy[0], torch.Tensor):
-            bdy = (functools.partial(moloch_bdy_from_numpy, mesh=mesh)
-                   if self.idynamic == 3
-                   else bdy_from_numpy)(bdy, self.device, dtype)
+        elif self.idynamic == 3:
+            bdy = _as_state(bdy, MolochBdy, moloch_bdy_from_numpy, mesh,
+                            self.device, dtype)
+        else:
+            bdy = _as_state(bdy, BdyState, bdy_from_numpy, mesh,
+                            self.device, dtype)
         self.bdy = bdy
         self.start_date = Date.from_int(cfg.restart.mdate1,
                                         cfg.globdat.calendar)
         self.date = self.start_date
         self.xbctime = 0.0
         self.nstep = 0
+
+    # -- ICBC-driven runs (init/bdyin/bdyval, Main/mod_init.F90 and
+    # Main/mod_bdycod.F90:654). Every rank reads the whole record and
+    # forms the whole domain's fields on the host (the couplings below
+    # read neighbours), then keeps its block.
+    def _host(self, a):
+        """A record's field (of any byte order) as a host tensor in the
+        working dtype."""
+        return torch.as_tensor(np.asarray(a, np.float64), dtype=self.dtype)
+
+    def _block(self, t):
+        """A whole-domain host tensor as the rank's block on the device."""
+        return self._local(t).to(self.device)
+
+    def _icbc_to_state_fields(self, rec):
+        """An ICBC record coupled into the hydrostatic prognostics (p*,
+        p*-coupled u, v at dot points, T, qv), and the surface T."""
+        T = self._host
+        with stencil.topology(self.core.periodic_x, self.core.periodic_y):
+            ps = fix_cross_pad(T(rec["ps"]) / 1000.0 - self.grid.ptop)
+            psd = stencil.cross2dot(ps)
+        t = T(rec["t"]) * ps[None]
+        qv = torch.clamp(T(rec["qv"]), min=c.minqq) * ps[None]
+        u = T(rec["u"]) * psd[None]
+        v = T(rec["v"]) * psd[None]
+        return tuple(self._block(a) for a in (ps, u, v, t, qv,
+                                               T(rec["ts"])))
+
+    def _icbc_to_moloch_fields(self, rec):
+        """An ICBC sigma-level record on the MOLOCH zita levels."""
+        f = self.core.fields_from_sigma(rec["ps"], rec["t"], rec["qv"],
+                                        rec["u"], rec["v"], self.grid.sigma)
+        return {k: self._block(v) for k, v in f.items()}
+
+    def init_from_icbc(self, reader):
+        """Cold start from the ICBC record at the current date (mod_init
+        cold start), then the first boundary pair."""
+        rec, _ = reader.record_at(self.date)
+        if self.idynamic == 3:
+            f = self._icbc_to_moloch_fields(rec)
+            qx = torch.cat([f["qv"][None],
+                            torch.zeros_like(self.state.qx[1:])])
+            self.state = self.state._replace(
+                u=f["u"], v=f["v"], pai=f["pai"], t=f["t"], qx=qx,
+                tg=self._block(self._host(rec["ts"])))
+        else:
+            ps, u, v, t, qv, ts = self._icbc_to_state_fields(rec)
+            qx = torch.cat([qv[None], torch.zeros_like(self.state.qx_a[1:])])
+            self.state = self.core.init_split_storage(self.state._replace(
+                ps_a=ps, ps_b=ps, u_a=u, u_b=u, v_a=v, v_b=v, t_a=t,
+                t_b=t, qx_a=qx, qx_b=qx, tg=ts))
+        self._icbc = reader
+        self.update_boundary()
+
+    def update_boundary(self):
+        """bdyin: the records at the current date and ibdyfrq hours on
+        form the boundary values b0 and their tendency bt (held constant
+        past the file's last record)."""
+        reader = self._icbc
+        rec0, i0 = reader.record_at(self.date)
+        dtbdy = self.cfg.globdat.ibdyfrq * 3600.0
+        rec1, i1 = reader.record_at(self.date.add_seconds(dtbdy))
+        if i1 == i0:
+            dtbdy = 1.0
+        if self.idynamic == 3:
+            f0 = self._icbc_to_moloch_fields(rec0)
+            f1 = self._icbc_to_moloch_fields(rec1)
+            pairs = dict(pai0="pai", t0="t", qv0="qv", u0="u", v0="v")
+            rdt = 1.0 / dtbdy
+            tend = lambda d: d * rdt
+            cls = MolochBdy
+        else:
+            f0, f1 = (dict(zip(("ps", "u", "v", "t", "qv"),
+                               self._icbc_to_state_fields(r)))
+                      for r in (rec0, rec1))
+            pairs = dict(ps0="ps", t0="t", qv0="qv", u0="u", v0="v")
+            tend = lambda d: d / dtbdy
+            cls = BdyState
+        kw = {}
+        for b0, k in pairs.items():
+            kw[b0] = f0[k]
+            kw[b0[:-1] + "t"] = tend(f1[k] - f0[k])
+        self.bdy = cls(**kw)
+        self.xbctime = 0.0
+
+    def run_icbc(self, nsteps: int):
+        """Step ``nsteps`` times with the boundary-input alarm every
+        ibdyfrq hours; returns (last diags, wall seconds) as ``run``."""
+        dtbdy = self.cfg.globdat.ibdyfrq * 3600.0
+        t0 = time.time()
+        diags = None
+        for _ in range(nsteps):
+            diags = self.step()
+            if self.xbctime >= dtbdy:
+                self.update_boundary()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return diags, time.time() - t0
 
     def step(self):
         """Advance one step (forward-Euler dt first, then leapfrog 2·dt:
@@ -175,10 +282,8 @@ class Model:
             mu = np.ones((g.iy, g.jx))       # overhead sun everywhere
         else:
             mu = _coszrs(self.date, g.xlat, g.xlon, decl=sol.declin)
-        mu = np.asarray(mu)
-        if self.mesh is not None:
-            mu = self.mesh.local(mu)
-        mu = torch.as_tensor(mu, dtype=self.dtype, device=self.device)
+        mu = torch.as_tensor(self._local(np.asarray(mu)), dtype=self.dtype,
+                             device=self.device)
         # third slot: fractional month position (mid-month nodes)
         mpos = self.date.month + (self.date.day - 15) / 30.0
         self.state, diags = self.core.step(
@@ -188,6 +293,11 @@ class Model:
         self.xbctime += self.dtsec
         self.date = self.date.add_seconds(self.dtsec)
         return diags
+
+    def _local(self, a):
+        """The rank's block of a whole-domain (..., iy, jx) array or tensor
+        (the array itself without a mesh)."""
+        return a if self.mesh is None else self.mesh.local(a)
 
     def _solar(self):
         """Daily-cached solar forcing (solar1 on the alarm_day cadence,

@@ -10,6 +10,15 @@ the tensors' device; prognostics are p*-coupled on the Arakawa-B grid.
 Only the default configuration is ported: the hydrostatic step with
 flux-form advection, ``idiffu=1`` diffusion, ``ipgf=0`` and
 ``iboudy=5``; the other branches are refused at construction.
+
+With a ``DomainMesh`` (``HydroCore(..., mesh=...)``) the core steps one
+rank's (ly, lx) block of the domain: the 2-D constants are built on the
+whole grid and sliced, every horizontal stencil reads across block edges
+through the halo exchange of ``stencil.shift``/``shifte``, the writes
+that belong to the domain's edges (``fix_cross_pad``, ``_flow_edges``)
+happen on the ranks that hold those edges, and the diagnostics are
+reduced over the ranks. The periodic (band, CRM) topologies are not
+decomposed.
 """
 from __future__ import annotations
 
@@ -32,14 +41,39 @@ from .vmodes import make_split_coeffs
 
 def fix_cross_pad(a):
     """Re-replicate the dead padding row/col of a cross-grid field
-    (periodic axes have none)."""
-    if not (stencil.periodic_y() and stencil.periodic_x()):
-        a = a.clone()
-    if not stencil.periodic_y():
+    (periodic axes have none). Under a mesh only the ranks that hold the
+    domain's last row or column write, into their block's last one."""
+    m = stencil.mesh()
+    last_y = not stencil.periodic_y() and (m is None or m.py == m.ny - 1)
+    last_x = not stencil.periodic_x() and (m is None or m.px == m.nx - 1)
+    if not (last_y or last_x):
+        return a
+    a = a.clone()
+    if last_y:
         a[..., -1, :] = a[..., -2, :]
-    if not stencil.periodic_x():
+    if last_x:
         a[..., :, -1] = a[..., :, -2]
     return a
+
+
+def levels_dot(mat, f):
+    """out[n, y, x] = Σ_k mat[n, k]·f[k, y, x], added one level at a time
+    in level order: every column gets the same operations whatever the
+    size of the block it lies in (the order of summation of a GEMM or of
+    a reduction over levels may change with the number of columns, which
+    would cost a decomposed run its bit-identity to one rank)."""
+    out = mat[:, 0, None, None] * f[0]
+    for k in range(1, mat.shape[1]):
+        out = out + mat[:, k, None, None] * f[k]
+    return out
+
+
+def level_sum(f):
+    """Σ_k f[k, y, x] in level order (see ``levels_dot``)."""
+    out = f[0]
+    for k in range(1, f.shape[0]):
+        out = out + f[k]
+    return out
 
 
 def cpmf(qv):
@@ -75,20 +109,30 @@ class HydroCore:
 
     def __init__(self, grid: ModelGrid, cfg: RegCMConfig,
                  device="cuda", dtype=torch.float64,
-                 physics: Optional[Callable] = None):
+                 physics: Optional[Callable] = None, mesh=None):
         _refuse_options(cfg)
         device = resolve_device(device)
         self.grid = grid
         self.cfg = cfg
         self.device = device
         self.dtype = dtype
-        f = lambda x: torch.as_tensor(np.asarray(x), dtype=dtype,
-                                      device=device)
+        self.periodic_x = bool(cfg.geo.i_band or cfg.geo.i_crm)
+        self.periodic_y = bool(cfg.geo.i_crm)
+        if mesh is not None and self.periodic_x:
+            raise NotImplementedError(
+                "a decomposed run (mesh=) of the band or CRM topology "
+                "(i_band/i_crm) is not ported yet (ROADMAP.md Queue 1, "
+                "item 10d)")
+        self.mesh = mesh
+        # vertical profiles; (..., iy, jx) fields built on the whole grid
+        # and cut to the rank's block
+        f1 = lambda x: torch.as_tensor(np.asarray(x), dtype=dtype,
+                                       device=device)
+        f = f1 if mesh is None \
+            else (lambda x: f1(mesh.local(np.asarray(x))))
         g = grid
         kz = g.kz
         self.kz = kz
-        self.periodic_x = bool(cfg.geo.i_band or cfg.geo.i_crm)
-        self.periodic_y = bool(cfg.geo.i_crm)
         self.ptop = float(g.ptop)
         self.dx = float(g.ds)
         self.dtsec = cfg.dtsec
@@ -129,12 +173,12 @@ class HydroCore:
         self.e_d2 = f(d2)
 
         # vertical
-        self.twt1 = f(g.twt[:, 0])[:, None, None]
-        self.twt2 = f(g.twt[:, 1])[:, None, None]
-        self.qcon = f(g.qcon)[:, None, None]
-        self.hsig3 = f(g.hsigma)[:, None, None]
-        self.dsig3 = f(g.dsigma)[:, None, None]
-        self.sig3 = f(g.sigma)[:, None, None]
+        self.twt1 = f1(g.twt[:, 0])[:, None, None]
+        self.twt2 = f1(g.twt[:, 1])[:, None, None]
+        self.qcon = f1(g.qcon)[:, None, None]
+        self.hsig3 = f1(g.hsigma)[:, None, None]
+        self.dsig3 = f1(g.dsigma)[:, None, None]
+        self.sig3 = f1(g.sigma)[:, None, None]
 
         # nudging coefficient maps
         self.nfc = f(g.nudge_fc)
@@ -152,24 +196,23 @@ class HydroCore:
         self.sp_aam = [int(a) for a in sc.aam]
         self.sp_dtau = [float(d) for d in sc.dtau]
         self.sp_hbar = [float(h) for h in sc.hbar]
-        self.sp_an = f(sc.an)
-        self.sp_am = f(sc.am)
-        self.sp_zmatx = f(sc.zmatx)
-        self.sp_zmatxr = f(sc.zmatxr)
-        self.sp_tau = f(sc.tau_n)
+        self.sp_an = f1(sc.an)
+        self.sp_am = f1(sc.am)
+        self.sp_zmatx = f1(sc.zmatx)
+        self.sp_zmatxr = f1(sc.zmatxr)
+        self.sp_tau = f1(sc.tau_n)
         sigmah = sc.sigmah
         pdlog = np.log(sigmah * sc.pd + self.ptop)
         ceps = sigmah / (sigmah * sc.pd + self.ptop)
-        self.sp_hconst = f(sc.varpa1_n @ pdlog)
-        self.sp_hslope = f(sc.varpa1_n @ ceps)
+        self.sp_hconst = f1(sc.varpa1_n @ pdlog)
+        self.sp_hslope = f1(sc.varpa1_n @ ceps)
         self.sp_pd = float(sc.pd)
 
         # physics hook: physics(core, atms, state, bdy, flags, dt, dyn)
         self.physics = physics
         self.grid_lndocn = f(g.lndocn)
         # prescribed SST (standard-atmosphere surface T)
-        self.sst = torch.full((g.iy, g.jx), 288.0, dtype=dtype,
-                              device=device)
+        self.sst = torch.full_like(self.msfx, 288.0)
 
         # SUBEX parameters (subexparam, Main/mod_params.F90)
         sx = cfg.subex
@@ -286,8 +329,7 @@ class HydroCore:
 
         xt: seconds since the boundary b0 time; dt: leapfrog step
         (dtsec on the first step, 2·dtsec after)."""
-        g = self.grid
-        kz, iy, jx = self.kz, g.iy, g.jx
+        kz = self.kz
         ptop = self.ptop
 
         # -- surface_pressures (mod_tendency.F90:815-850)
@@ -323,7 +365,7 @@ class HydroCore:
                + (shift(vmc, 1, 1) + shift(vmc, 1, 0)
                   - shift(vmc, 0, 1) - vmc)) * rmsfx2
         div = div * self.m_c
-        pten = -torch.sum(div * self.dsig3, dim=0)
+        pten = -level_sum(div * self.dsig3)
         inc = -(pten[None] + div) * self.dsig3 * rpsa[None]
         qdot = torch.cat([torch.zeros_like(inc[:1]),
                           torch.cumsum(inc, dim=0)], dim=0)
@@ -624,6 +666,10 @@ class HydroCore:
             tmax=torch.max(torch.where(mci, tdec, 0.0)),
             psmax=torch.max(torch.where(mci, psa_n, 0.0)),
             psmin=torch.min(torch.where(mci, psa_n, 1e9)))
+        if self.mesh is not None:       # over the whole domain
+            red = self.mesh.all_reduce(torch.stack(
+                [diags["tmax"], diags["psmax"], -diags["psmin"]]))
+            diags.update(tmax=red[0], psmax=red[1], psmin=-red[2])
         return ns, diags
 
     # ------------------------------------------------------------------
@@ -631,21 +677,35 @@ class HydroCore:
         """Inflow/outflow hydrometeor edge values (mod_bdycod.F90
         :2155-2230): inflow edges take 0, outflow edges extrapolate the
         decoupled interior value recoupled with the edge p*. q may carry
-        leading species axes; periodic directions have no flow edges."""
-        iy, jx = q.shape[-2], q.shape[-1]
+        leading species axes; periodic directions have no flow edges.
+        The edges are the domain's rows 0 and iy-2 and columns 0 and jx-2:
+        under a mesh, the first and last ranks of each axis write them at
+        the same local offsets from their block's edge (a block holds at
+        least 4 rows and columns)."""
+        ly, lx = q.shape[-2], q.shape[-1]
+        m = self.mesh
+        west = m is None or m.px == 0
+        east = m is None or m.px == m.nx - 1
+        south = m is None or m.py == 0
+        north = m is None or m.py == m.ny - 1
         qdec = q / ps
         q = q.clone()        # fresh copy: the edge writes below are local
         if not self.periodic_x:
-            q[..., 0] = torch.where(ucx[:, :, 0] > 0.0, 0.0,
-                                    qdec[..., 1] * ps[:, 0])
-            q[..., jx - 2] = torch.where(ucx[:, :, jx - 2] < 0.0, 0.0,
-                                         qdec[..., jx - 3] * ps[:, jx - 2])
+            if west:
+                q[..., 0] = torch.where(ucx[:, :, 0] > 0.0, 0.0,
+                                        qdec[..., 1] * ps[:, 0])
+            if east:
+                q[..., lx - 2] = torch.where(
+                    ucx[:, :, lx - 2] < 0.0, 0.0,
+                    qdec[..., lx - 3] * ps[:, lx - 2])
         if not self.periodic_y:
-            q[..., 0, :] = torch.where(vcx[:, 0, :] > 0.0, 0.0,
-                                       qdec[..., 1, :] * ps[0, :])
-            q[..., iy - 2, :] = torch.where(
-                vcx[:, iy - 2, :] < 0.0, 0.0,
-                qdec[..., iy - 3, :] * ps[iy - 2, :])
+            if south:
+                q[..., 0, :] = torch.where(vcx[:, 0, :] > 0.0, 0.0,
+                                           qdec[..., 1, :] * ps[0, :])
+            if north:
+                q[..., ly - 2, :] = torch.where(
+                    vcx[:, ly - 2, :] < 0.0, 0.0,
+                    qdec[..., ly - 3, :] * ps[ly - 2, :])
         return q
 
     def _nudge2d(self, diff):
@@ -737,7 +797,7 @@ class HydroCore:
     # ------------------------------------------------------------------
     def _mode_geopotential(self, t, ps):
         """delh per mode (mod_split.F90:341-408)."""
-        tsum = torch.einsum("nk,kyx->nyx", self.sp_tau, t) / ps[None]
+        tsum = levels_dot(self.sp_tau, t) / ps[None]
         return (self.sp_hconst[:, None, None]
                 + self.sp_hslope[:, None, None] * (ps - self.sp_pd)[None]
                 + tsum)
@@ -811,18 +871,18 @@ class HydroCore:
         dhsum = torch.stack(dhsum_l)
 
         # corrections (mod_split.F90:418-476)
-        dps = torch.einsum("n,nyx->yx", self.sp_an, ddsum)
+        dps = levels_dot(self.sp_an[None], ddsum)[0]
         psa = psa - dps * self.m_ci
         psb = psb - self.gnu1 * dps * self.m_ci
-        dtm = torch.einsum("kn,nyx->kyx", self.sp_am, ddsum)
+        dtm = levels_dot(self.sp_am, ddsum)
         t_a = t_a + dtm * self.m_ci
         t_b = t_b + self.gnu1 * dtm * self.m_ci
         fac = psdota / (2.0 * self.dx * self.msfd)
         h = dhsum
         gx = (h + shift(h, -1, 0) - shift(h, 0, -1) - shift(h, -1, -1)) * fac
         gy = (h + shift(h, 0, -1) - shift(h, -1, 0) - shift(h, -1, -1)) * fac
-        dum = torch.einsum("kn,nyx->kyx", self.sp_zmatx, gx)
-        dvm = torch.einsum("kn,nyx->kyx", self.sp_zmatx, gy)
+        dum = levels_dot(self.sp_zmatx, gx)
+        dvm = levels_dot(self.sp_zmatx, gy)
         u_a = u_a - dum * self.m_di
         u_b = u_b - self.gnu1 * dum * self.m_di
         v_a = v_a - dvm * self.m_di
@@ -839,12 +899,16 @@ class HydroCore:
                    - shift(vv, 0, 1))) / (2.0 * self.dx
                                           * self.msfx[None] ** 2)
         ddiv = ddiv * self.m_c
-        return torch.einsum("nk,kyx->nyx", self.sp_zmatxr, ddiv)
+        return levels_dot(self.sp_zmatxr, ddiv)
 
     def decoupled(self, s: HydroState) -> Dict[str, torch.Tensor]:
-        """Physical-unit prognostics: p*-coupled fields divided by p*."""
+        """Physical-unit prognostics: p*-coupled fields divided by p*
+        (the dot-point p* with the edge replication of the non-periodic
+        topology whatever the core's, as the JAX package's
+        ``Model.decoupled``; read across the blocks of a mesh)."""
         rps = 1.0 / s.ps_a
-        rpsd = 1.0 / cross2dot(s.ps_a)
+        with stencil.topology(mesh=self.mesh):
+            rpsd = 1.0 / cross2dot(s.ps_a)
         return dict(ps=(s.ps_a + self.ptop) * 10.0,                # hPa
                     t=s.t_a * rps[None], qv=s.qx_a[IQV] * rps[None],
                     qc=s.qx_a[IQC] * rps[None],

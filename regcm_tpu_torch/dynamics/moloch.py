@@ -33,14 +33,14 @@ import torch
 
 from ..config.params import RegCMConfig
 from ..core.grid import ModelGrid
-from ..core.state import tensors_from, state_to_numpy
+from ..core.state import sliced, tensors_from, state_to_numpy
 from ..device import resolve_device
 from ..kernels.tridiag_w import tridiag_w, tridiag_w_sharded
 from ..kernels.waf_advect import (waf_advect, waf_advect_plain,
                                   waf_advect_sharded)
 from ..utils import constants as c
 from ..utils.thermo import pfwsat, wlh
-from .stencil import shift, shifte, with_topology
+from .stencil import shift, shifte, topology, with_topology
 
 T0_ZITA = 280.0
 HZITA = c.rgas * T0_ZITA / c.egrav          # Share/mod_zita.F90:32
@@ -77,6 +77,13 @@ def md_zeta_h(z, orog, a0=0.0, b0=0.0):
     zfz = np.maximum(1.0 - z / HZITA, 1e-12)
     return np.maximum(orog * gzita(z, a0) - HZITA * bzita(z, b0)
                       * np.log(zfz) - orog, 0.0)
+
+
+def _x2uvstag(ux, vx):
+    """Cross-point winds to the C-grid faces (xtouvstag)."""
+    u = 0.5 * (ux + shifte(ux, 0, -1))
+    v = 0.5 * (vx + shifte(vx, -1, 0))
+    return u, v
 
 
 class MolochState(NamedTuple):
@@ -163,28 +170,19 @@ def zeros_moloch_phys(kz: int, iy: int, jx: int, device="cuda",
                 chemdiag=full((3, 0, iy, jx)))
 
 
-def _sliced(nt, mesh):
-    """The NamedTuple ``nt`` of global (..., iy, jx) arrays cut to the
-    rank's block of ``mesh`` (unchanged without a mesh)."""
-    if mesh is None:
-        return nt
-    return nt._replace(**{k: mesh.local(np.asarray(v))
-                          for k, v in nt._asdict().items() if v is not None})
-
-
 def moloch_state_from_numpy(s, device="cuda", dtype=torch.float64,
                             mesh=None) -> MolochState:
     """MolochState of tensors from any NamedTuple with the same fields
     (e.g. the JAX package's state after ``jax.device_get``); with a
     ``DomainMesh`` the global arrays are cut to the rank's block."""
-    return tensors_from(MolochState, _sliced(s, mesh), device, dtype)
+    return tensors_from(MolochState, sliced(s, mesh), device, dtype)
 
 
 def moloch_bdy_from_numpy(b, device="cuda", dtype=torch.float64,
                           mesh=None) -> MolochBdy:
     """MolochBdy of tensors from any NamedTuple with the same fields (cut
     to the rank's block of ``mesh``)."""
-    return tensors_from(MolochBdy, _sliced(b, mesh), device, dtype)
+    return tensors_from(MolochBdy, sliced(b, mesh), device, dtype)
 
 
 # field name → numpy array (host copy), as for the hydrostatic state
@@ -251,7 +249,8 @@ class MolochCore:
         zeta_np = np.stack([md_zeta_h(zitah[k], orog, self.a0, self.b0)
                             for k in range(kz)])
         self.zeta = f(zeta_np)
-        # what initial_state needs of the whole grid, in the working dtype
+        # what initial_state and fields_from_sigma need of the whole grid,
+        # in the working dtype
         self._init_fields = tuple(
             torch.as_tensor(a, dtype=dtype) for a in (zeta_np, ht, fmzf))
         zetaf = np.stack([md_zeta_h(zitaf[k], orog, self.a0, self.b0)
@@ -431,6 +430,87 @@ class MolochCore:
         return st
 
     # ------------------------------------------------------------------
+    def fields_from_sigma(self, ps, t, qv, u, v, sigma_f):
+        """ICBC fields on sigma-p half levels → MOLOCH zita levels (the
+        mod_init idynamic=3 path: height interpolation and the hydrostatic
+        pai of ``paicompute``, Main/mod_bdycod.F90:5125).
+
+        ps in Pa (full surface pressure), t/qv/u/v (kz_src, iy, jx) on
+        sigma half levels (top→bottom), sigma_f (kz_src+1,) interfaces, all
+        of the whole domain. Returns dict(pai, t, qv, u, v) of the whole
+        domain as host tensors in the working dtype (u/v at the C-grid
+        faces). numpy in float64 up to the staggering, as in the JAX
+        package; runs once per boundary input."""
+        ps = np.asarray(ps, np.float64)
+        t = np.asarray(t, np.float64)
+        qv = np.asarray(qv, np.float64)
+        ptop = float(self.grid.ptop) * 1000.0          # Pa
+        sf = np.asarray(sigma_f, np.float64)[:, None, None]
+        pf = sf * (ps[None] - ptop) + ptop             # (kzs+1, iy, jx)
+        tv = t * (1.0 + c.ep1 * qv)
+        # hypsometric heights above ground at half levels
+        dz_lay = c.rgas * tv / c.egrav * np.log(pf[1:] / pf[:-1])
+        zf = np.zeros_like(pf)
+        zf[:-1] = np.cumsum(dz_lay[::-1], axis=0)[::-1]
+        za_src = 0.5 * (zf[:-1] + zf[1:])              # above ground
+        za_dst = self._init_fields[0].numpy()          # above ground
+        kzs = za_src.shape[0]
+        src_z = za_src[::-1]                    # ascending in height
+        dst_z = za_dst[::-1]
+        idx = np.sum(src_z[None] <= dst_z[:, None], axis=1)
+        idx = np.clip(idx, 1, kzs - 1)
+        lo, hi = idx - 1, idx
+        zlo = np.take_along_axis(src_z, lo, 0)
+        zhi = np.take_along_axis(src_z, hi, 0)
+        wgt = np.clip((dst_z - zlo) / np.maximum(zhi - zlo, 1e-9),
+                      0.0, 1.0)
+
+        def vinterp(fld):
+            # linear in height, clamped at the profile ends (every column
+            # at once)
+            src_f = np.asarray(fld, np.float64)[::-1]
+            flo = np.take_along_axis(src_f, lo, 0)
+            fhi = np.take_along_axis(src_f, hi, 0)
+            return (flo + wgt * (fhi - flo))[::-1]
+        t_m = vinterp(t)
+        qv_m = np.maximum(vinterp(qv), c.minqq)
+        u_m = vinterp(u)
+        v_m = vinterp(v)
+        pai = self.paicompute(ps, t_m, qv_m)
+        f = lambda x: torch.as_tensor(np.ascontiguousarray(x),
+                                      dtype=self.dtype)
+        with topology():                 # the whole domain, on the host
+            uf, vf = _x2uvstag(f(u_m), f(v_m))
+        return dict(pai=f(pai), t=f(t_m), qv=f(qv_m), u=uf, v=vf)
+
+    def paicompute(self, ps, t, qv):
+        """Hydrostatic Exner initialisation (paicompute,
+        Main/mod_bdycod.F90:5125-5155) on the whole domain: the lowest
+        level from ps extrapolated over the surface half layer, then the
+        upward quadratic recursion. numpy float64 in and out."""
+        kz = self.kz
+        t = np.asarray(t, np.float64)
+        qv = np.asarray(qv, np.float64)
+        _, ht, fmzf = (np.asarray(a.numpy(), np.float64)
+                       for a in self._init_fields)
+        zz1 = -c.egrav * HZITA * bzita(0.5 * self.dz, self.b0) \
+            * math.log(1.0 - 0.5 * self.dz / HZITA)
+        zdelta = ht * (gzita(0.5 * self.dz, self.a0) - 1.0) + zz1
+        tvk = t[kz - 1] * (1.0 + c.ep1 * qv[kz - 1])
+        p_low = np.asarray(ps, np.float64) \
+            * np.exp(-zdelta / (c.rgas * tvk))
+        pai = np.empty((kz,) + p_low.shape, np.float64)
+        pai[kz - 1] = (p_low / c.stdp) ** c.rovcp
+        for k in range(kz - 2, -1, -1):
+            tv1 = t[k] * (1.0 + c.ep1 * qv[k])
+            tv2 = t[k + 1] * (1.0 + c.ep1 * qv[k + 1])
+            zb = 2.0 * c.egrav * self.dz / (fmzf[k + 1] * c.cpd) \
+                + tv1 - tv2
+            zdel = np.sqrt(zb ** 2 + 4.0 * tv2 * tv1)
+            pai[k] = -pai[k + 1] / (2.0 * tv2) * (zb - zdel)
+        return pai
+
+    # ------------------------------------------------------------------
     def _sound(self, u, v, w, pai, tetav, qv, qsat, dts):
         """The nsound acoustic substeps (sound, mod_moloch.F90:708-1040);
         the implicit w solve of each goes through kernel K3."""
@@ -548,9 +628,7 @@ class MolochCore:
 
     @with_topology
     def x2uvstag(self, ux, vx):
-        u = 0.5 * (ux + shifte(ux, 0, -1))
-        v = 0.5 * (vx + shifte(vx, -1, 0))
-        return u, v
+        return _x2uvstag(ux, vx)
 
     def wstag2x(self, w):
         return 0.5 * (w[:-1] + w[1:])

@@ -63,6 +63,11 @@ def periodic_y() -> bool:
     return _PY
 
 
+def mesh():
+    """The DomainMesh of the current topology, or None."""
+    return _MESH
+
+
 def _wrap(a, dy, dx):
     """Roll the periodic axes; return the remaining (dy, dx)."""
     if _PX and dx != 0:

@@ -1,10 +1,12 @@
 """What the ranks of ``tests/test_torch_parallel.py`` run.
 
 Each function here runs in a process of a ``torch.distributed`` group
-started by ``regcm_tpu_torch.parallel.launch.spawn`` (gloo, CPU), or in
-the test process itself for the single-rank reference. This module
-imports neither ``jax`` nor the JAX package, so the ranks never load
-them.
+started by ``regcm_tpu_torch.parallel.launch.spawn`` (gloo, CPU): the
+decomposed runs of both cores and, on one rank each, the undecomposed
+references they are held to. The settings (``HYDRO``, ``ICBC``) are
+applied to either package's ``RegCMConfig``, so the JAX references in
+the test modules use them too. This module imports neither ``jax`` nor
+the JAX package, so the ranks never load them.
 """
 import numpy as np
 import torch
@@ -92,11 +94,186 @@ def model_run(mesh=None, device="cpu", dtype=torch.float64):
     return dict(dec=m.decoupled(), finite=m.check_finite())
 
 
-def two_by_two(rank, iy, jx, k5_inputs):
+# the hydrostatic settings of the JAX package's sharding gates, rebuilt
+# on RegCMConfig(): dryrun_multichip's dynamics (__graft_entry__.py
+# :104-130) and full physics with every alarm at step 0 (:136-215), and
+# tests/test_parallel.py:62-160's 18x24x14 pair; each starts from the
+# perturbed standard atmosphere with a 10 m/s jet and qv lifted off the
+# minqq floor. "record": the steps after which the state is kept.
+HYDRO = {
+    "dryrun_dyn": dict(iy=16, jx=16, ipptls=0, perturb=0.3, seed=0,
+                       physics=False, first=True, record=(3,)),
+    "dryrun_phys": dict(iy=16, jx=16, perturb=0.2, seed=3, physics=True,
+                        solar=(1.0343, 1361.8), record=(1, 3)),
+    "parallel_dyn": dict(iy=18, jx=24, ds=60.0, dt=120.0, ipptls=0,
+                         perturb=0.2, seed=3, physics=False, first=False,
+                         record=(10,)),
+    "parallel_phys": dict(iy=18, jx=24, ds=60.0, dt=120.0, ipptls=1,
+                          perturb=0.2, seed=3, physics=True, solar=None,
+                          record=(1, 4)),
+}
+
+
+def hydro_setup(cfg, name):
+    """Apply a HYDRO setting's overrides (kz 14) to ``cfg``, a
+    RegCMConfig of either package, and return it."""
+    st = HYDRO[name]
+    cfg.dim.iy, cfg.dim.jx, cfg.dim.kz = st["iy"], st["jx"], 14
+    if "ds" in st:
+        cfg.geo.ds = st["ds"]
+        cfg.time.dt = st["dt"]
+    if "ipptls" in st:
+        cfg.physics.ipptls = st["ipptls"]
+    return cfg
+
+
+def hydro_flags(name, n):
+    """The StepFlags fields of step ``n`` of a HYDRO setting: every alarm
+    on step 0 and surface and cumulus after (physics), or the dynamics
+    settings' constant flags."""
+    st = HYDRO[name]
+    if not st["physics"]:
+        return dict(first=st["first"])
+    if n == 0:
+        return dict(do_rad=True, do_srf=True, do_cum=True, do_abem=True,
+                    first=True)
+    return dict(do_rad=False, do_srf=True, do_cum=True)
+
+
+def hydro_run(name, mesh=None, device="cpu"):
+    """A HYDRO setting's trajectory through ``HydroCore.step`` (f64): the
+    whole domain's state fields after each recorded step (on every rank
+    of a mesh), zero-size fields left out. The start is built on the
+    whole grid and cut to the rank's block."""
+    from regcm_tpu_torch.config.params import RegCMConfig
+    from regcm_tpu_torch.core.grid import build_grid
+    from regcm_tpu_torch.core.state import StepFlags, bdy_from_state, sliced
+    from regcm_tpu_torch.driver import Model, standard_atmosphere_state
+    from regcm_tpu_torch.dynamics.stencil import cross2dot
+    st = HYDRO[name]
+    cfg = hydro_setup(RegCMConfig(), name)
+    grid = build_grid(cfg)
+    m = Model(cfg, grid=grid, device=device, dtype=torch.float64,
+              physics=None if st["physics"] else False, mesh=mesh)
+    s = standard_atmosphere_state(grid, cfg, "cpu", torch.float64,
+                                  perturb=st["perturb"], seed=st["seed"])
+    u = 10.0 * cross2dot(s.ps_a)[None] * torch.ones_like(s.u_a)
+    qv = torch.maximum(s.qx_a[0], 1e-5 * s.ps_a[None])
+    qx = torch.cat([qv[None], s.qx_a[1:]])
+    s = s._replace(u_a=u, u_b=u, qx_a=qx, qx_b=qx)
+    if st["physics"]:
+        s = s._replace(tg=s.t_a[-1] / s.ps_a)
+    s = sliced(s, mesh)
+    s = s._replace(**{k: v.to(device) for k, v in s._asdict().items()})
+    if st["physics"]:
+        s = s._replace(bats=m.state.bats)
+    s = m.core.init_split_storage(s)
+    bdy = bdy_from_state(s)
+    mu = torch.full_like(s.tg, 0.4)
+    xt, dt = 0.0, cfg.dtsec
+    out = {}
+    for n in range(max(st["record"])):
+        flags = StepFlags(**hydro_flags(name, n))
+        if st["physics"]:
+            s, _ = m.core.step(s, bdy, xt, dt, flags, mu, st["solar"])
+        else:
+            s, _ = m.core.step(s, bdy, xt, dt, flags)
+        xt += cfg.dtsec
+        dt = 2.0 * cfg.dtsec
+        if n + 1 in st["record"]:
+            out[n + 1] = _whole(s, mesh)
+    return out
+
+
+def _whole(nt, mesh):
+    """Field name -> the whole domain's numpy array of a NamedTuple of
+    tensors (gathered under a mesh); None and zero-size fields left
+    out."""
+    f = {k: v for k, v in nt._asdict().items()
+         if v is not None and v.numel()}
+    if mesh is not None:
+        f = {k: mesh.gather(v) for k, v in f.items()}
+    return {k: v.cpu().numpy() for k, v in f.items()}
+
+
+# the ICBC-driven runs, rebuilt on RegCMConfig(): tests/test_preproc.py
+# :82-99's pipeline (terrain, DOMAIN file, ICBC file, a 500 m hill, an
+# 8 m/s jet) and tests/test_moloch.py:104-131's MOLOCH start (the model
+# grid flat under the records of a 1500 m hill, a 10 m/s jet), each with
+# hourly boundary records over a one-day window, so that the run crosses
+# the update after step 24 (dt 150 s) or 60 (dt 60 s). The records'
+# jet strengthens by ``djet`` m/s a record, so that the boundary moves.
+# "record": the steps after which the fields are kept.
+ICBC = {
+    "hydro": dict(iy=20, jx=28, kind="gauss", height=500.0, jet=8.0,
+                  djet=1.0, record=(25,)),
+    "moloch": dict(idynamic=3, iy=20, jx=24, kz=20, ds=20.0, dt=60.0,
+                   kind="gauss", height=1500.0, jet=10.0, djet=1.0,
+                   record=(4, 61)),
+}
+
+
+def icbc_setup(cfg, kind):
+    """Apply an ICBC setting's overrides to ``cfg`` (a RegCMConfig of
+    either package) and return it."""
+    st = ICBC[kind]
+    cfg.dim.iy, cfg.dim.jx = st["iy"], st["jx"]
+    cfg.core.idynamic = st.get("idynamic", 1)
+    if "kz" in st:
+        cfg.dim.kz = st["kz"]
+        cfg.geo.ds = st["ds"]
+        cfg.time.dt = st["dt"]
+    cfg.globdat.gdate2 = 1990060200
+    cfg.globdat.ibdyfrq = 1
+    return cfg
+
+
+def icbc_run(kind, paths, mesh=None, device="cpu"):
+    """An ICBC setting driven by the port's Model from the files in
+    ``paths`` (``icbc``, and ``domain`` for the grid where the setting
+    has one): the whole domain's state and boundary after
+    ``init_from_icbc`` ("init", "bdy0"), then after each recorded step of
+    ``run_icbc`` the state, boundary, decoupled fields, step count and
+    boundary clock (on every rank of a mesh)."""
+    from regcm_tpu_torch.config.params import RegCMConfig
+    from regcm_tpu_torch.driver import Model
+    from regcm_tpu_torch.preproc.icbc import ICBCReader
+    from regcm_tpu_torch.preproc.terrain import build_grid_from_domain
+    cfg = icbc_setup(RegCMConfig(), kind)
+    grid = build_grid_from_domain(cfg, paths["domain"]) \
+        if "domain" in paths else None
+    m = Model(cfg, grid=grid, device=device, dtype=torch.float64, mesh=mesh)
+    m.init_from_icbc(ICBCReader(paths["icbc"], cfg.globdat.calendar))
+    out = dict(init=_whole(m.state, mesh), bdy0=_whole(m.bdy, mesh))
+    for n in ICBC[kind]["record"]:
+        m.run_icbc(n - m.nstep)
+        out[n] = dict(state=_whole(m.state, mesh), bdy=_whole(m.bdy, mesh),
+                      dec=m.decoupled(), finite=m.check_finite(),
+                      nstep=m.nstep, xbctime=m.xbctime)
+    return out
+
+
+# the undecomposed runs the 2x2 group is held to, each run on one rank of
+# the group (after the decomposed work) so that both sides use the same
+# CPU kernels
+SINGLE = [("icbc", "moloch"), ("icbc", "hydro"), ("dryrun", None),
+          ("model", None)] + [("hydro", name) for name in HYDRO]
+
+
+def single(kind, arg, icbc_paths):
+    if kind == "icbc":
+        return icbc_run(arg, icbc_paths[arg])
+    if kind == "hydro":
+        return hydro_run(arg)
+    return dryrun_moloch() if kind == "dryrun" else model_run()
+
+
+def two_by_two(rank, iy, jx, k5_inputs, icbc_paths):
     """Everything the 2x2 group checks, in one group: halo extensions,
     a gather to rank 0, every MOLOCH shift, K5a/b/c on the rank's
-    blocks, the dryrun trajectory with the halo counters, and the Model
-    run."""
+    blocks, the MOLOCH dryrun trajectory with the halo counters, the
+    MOLOCH Model run, the hydrostatic settings and both ICBC-driven runs;
+    then this rank's share of the undecomposed references (SINGLE)."""
     from regcm_tpu_torch.dynamics.stencil import (cross2dot, dot2cross,
                                                   shift, shifte, topology)
     from regcm_tpu_torch.kernels import pbl_tridiag as k1
@@ -130,6 +307,17 @@ def two_by_two(rank, iy, jx, k5_inputs):
     out["dryrun"] = dryrun_moloch(mesh)
     out["dryrun_halo"] = (halo.exchanges, halo.bytes_sent)
     out["model"] = model_run(mesh)
+    out["hydro"] = {}
+    for name, st in HYDRO.items():
+        halo.exchanges = 0
+        out["hydro"][name] = hydro_run(name, rank.mesh(st["iy"], st["jx"]))
+        out["hydro"][name]["exchanges"] = halo.exchanges
+    out["icbc"] = {kind: icbc_run(kind, icbc_paths[kind],
+                                  rank.mesh(st["iy"], st["jx"]))
+                   for kind, st in ICBC.items()}
+    out["single"] = {case: single(*case, icbc_paths)
+                     for n, case in enumerate(SINGLE)
+                     if n % rank.world == rank.rank}
     return out
 
 

@@ -1,6 +1,9 @@
 """The hydrostatic core of the PyTorch port against the JAX package:
 every phase of ``HydroCore.step`` on the same numpy fields at 1e-12,
 then dynamics-only trajectories (``physics=None``) from the same state."""
+import multiprocessing as mp
+from concurrent.futures import ProcessPoolExecutor
+
 import numpy as np
 import pytest
 
@@ -267,3 +270,121 @@ def test_dynamics_ten_steps_without_condensation_match_jax(field,
     after ten steps (measured ~1e-12 in u and v)."""
     jd, td = dry_dyn_runs
     assert _rel_rms(td[field], jd[field]) < 1e-10
+
+
+# The periodic topologies (tests/test_parallel.py's settings): the
+# tropical band, x-periodic (18x32x14, NORMER, clat 0, dt 120 s), and the
+# CRM, doubly periodic (16x16x14, ds 4 km, dt 20 s); from the golden
+# state with a 10 m/s westerly and the saturation adjustment off
+# (subexparam conf=0). Bounds: rel-RMS ten times the measured worst
+# field (dynamics 10 steps: band 1.1e-12, CRM 1.8e-12; full physics 4
+# steps: band 1.3e-10, CRM 3.1e-11).
+PERIODIC = {
+    "band": dict(iy=18, jx=32, i_band=1, iproj="NORMER", clat=0.0,
+                 dt=120.0, bounds=(1.1e-11, 1.3e-9)),
+    "crm": dict(iy=16, jx=16, i_crm=1, ds=4.0, dt=20.0,
+                bounds=(1.8e-11, 3.1e-10)),
+}
+
+
+def periodic_cfgs(probe):
+    """(JAX config, port config) of a PERIODIC probe."""
+    p = PERIODIC[probe]
+    out = []
+    for cls in (RegCMConfig, TConfig):
+        cfg = cls()
+        cfg.dim.iy, cfg.dim.jx, cfg.dim.kz = p["iy"], p["jx"], 14
+        cfg.geo.i_band = p.get("i_band", 0)
+        cfg.geo.i_crm = p.get("i_crm", 0)
+        if "iproj" in p:
+            cfg.geo.iproj, cfg.geo.clat = p["iproj"], p["clat"]
+        if "ds" in p:
+            cfg.geo.ds = p["ds"]
+        cfg.time.dt = p["dt"]
+        cfg.subex.conf = 0.0
+        out.append(cfg)
+    return tuple(out)
+
+
+def _periodic_start(probe):
+    """(JAX config, port config, JAX grid, port grid, the numpy state):
+    the golden state with a 10 m/s westerly on the probe's grid."""
+    jcfg, tcfg = periodic_cfgs(probe)
+    grid, tgrid = build_grid(jcfg), tbuild_grid(tcfg)
+    s0 = jstate(grid, jcfg, jnp.float64, perturb=0.3, seed=2024)
+    with jst.topology(True, bool(jcfg.geo.i_crm)):
+        psd = jst.cross2dot(s0.ps_a)
+    u = 10.0 * psd[None] * jnp.ones_like(s0.u_a)
+    return jcfg, tcfg, grid, tgrid, jax.device_get(s0._replace(u_a=u,
+                                                                u_b=u))
+
+
+def _periodic_jax(probe, physics):
+    """The JAX package on a PERIODIC probe: full physics through ``Model``
+    for 4 steps (its alarms), or dynamics for 10 steps through its core
+    with constant flags (one compile); the decoupled fields. Runs in a
+    spawned process, which has not read the conftest's settings."""
+    jax.config.update("jax_enable_x64", True)
+    from regcm_tpu.core.state import StepFlags
+    from regcm_tpu.driver import Model as JModel
+    jcfg, _, grid, _, s0 = _periodic_start(probe)
+    m = JModel(jcfg, grid=grid, dtype=jnp.float64, initial_state=s0,
+               physics=None if physics else False)
+    if physics:
+        for _ in range(4):
+            m.step()
+    else:
+        step = jax.jit(m.core.step, static_argnames=("flags",))
+        s, xt, dt = m.state, 0.0, jcfg.dtsec
+        for _ in range(10):
+            s, _ = step(s, m.bdy, xt, dt, StepFlags())
+            xt += jcfg.dtsec
+            dt = 2.0 * jcfg.dtsec
+        m.state = s
+    assert bool(jnp.all(jnp.isfinite(m.state.t_a)))
+    return {k: np.asarray(v) for k, v in m.decoupled().items()}
+
+
+def _periodic_port(probe, physics):
+    """The port on a PERIODIC probe, driven as ``_periodic_jax`` drives the
+    JAX package."""
+    from regcm_tpu_torch.core.state import StepFlags, bdy_from_state
+    from regcm_tpu_torch.driver import Model as TModel
+    _, tcfg, _, tgrid, s0 = _periodic_start(probe)
+    m = TModel(tcfg, grid=tgrid, device="cpu", dtype=torch.float64,
+               initial_state=s0, physics=None if physics else False)
+    if physics:
+        m.run(4)
+    else:
+        s, b, xt, dt = m.state, bdy_from_state(m.state), 0.0, tcfg.dtsec
+        for _ in range(10):
+            s, _ = m.core.step(s, b, xt, dt, StepFlags())
+            xt += tcfg.dtsec
+            dt = 2.0 * tcfg.dtsec
+        m.state = s
+    assert m.check_finite()
+    return m.decoupled()
+
+
+@pytest.fixture(scope="module", autouse=True)
+def periodic_jax_started():
+    """The JAX package's four probe runs (a compile of up to a minute for
+    each alarm pattern), in two spawned processes started with the
+    module, beside the other tests."""
+    with ProcessPoolExecutor(2, mp_context=mp.get_context("spawn")) as pool:
+        yield {(probe, physics): pool.submit(_periodic_jax, probe, physics)
+               for physics in (True, False) for probe in PERIODIC}
+
+
+@pytest.mark.parametrize("physics", [False, True],
+                         ids=["dynamics", "physics"])
+@pytest.mark.parametrize("probe", list(PERIODIC))
+def test_periodic_core_matches_jax(probe, physics, periodic_jax_started):
+    """The band and CRM cores on one rank against the JAX package, f64:
+    rel-RMS within the probe's bound in ps, T, qv, u and v."""
+    td = _periodic_port(probe, physics)
+    jd = periodic_jax_started[(probe, physics)].result()
+    bound = PERIODIC[probe]["bounds"][int(physics)]
+    for f in FIELDS:
+        err = _rel_rms(td[f], jd[f])
+        assert err < bound, f"{probe} {f}: rel-RMS {err:.3e}"

@@ -22,7 +22,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     "regcm_tpu_torch.kernels.emanuel_mixing",
     "regcm_tpu_torch.kernels.tridiag_w", "regcm_tpu_torch.kernels.waf_advect",
     "regcm_tpu_torch.parallel.mesh", "regcm_tpu_torch.parallel.halo",
-    "regcm_tpu_torch.parallel.launch", "tests._torch_parallel_ranks"])
+    "regcm_tpu_torch.parallel.launch", "regcm_tpu_torch.io.ncio",
+    "regcm_tpu_torch.preproc.terrain", "regcm_tpu_torch.preproc.icbc",
+    "tests._torch_parallel_ranks"])
 def test_port_imports_no_jax(module):
     """In a fresh interpreter the module pulls in neither jax nor any
     module of the JAX package (regcm_tpu or regcm_tpu.*)."""

@@ -1,15 +1,31 @@
-"""The decomposed MOLOCH path of the PyTorch port on the CPU: rank groups
-of ``torch.distributed`` (gloo) started by ``parallel.launch.spawn``,
+"""The decomposed paths of the PyTorch port on the CPU, both cores: rank
+groups of ``torch.distributed`` (gloo) started by ``parallel.launch.spawn``,
 held against the undecomposed port and against the JAX package's
-sharded kernels and MOLOCH core in f64.
+sharded kernels, MOLOCH core and hydrostatic core in f64, from a rest
+state and from ICBC files.
 
 The ranks run ``tests/_torch_parallel_ranks.py`` and never import jax;
-one 2x2 group does every 2x2 check. The group and the JAX package's
-MOLOCH trajectory (a cold compile of about a minute, in a process of its
-own so that its tracing does not share this one's interpreter lock with
-the Pallas interpret run) start when the module does, and run while the
-other tests do."""
+one 2x2 group does every 2x2 check and, after it, the undecomposed runs
+it is held to, each on one of its ranks. The group and the JAX
+package's MOLOCH and hydrostatic trajectories (cold compiles of about a
+minute each, in two processes of their own so that their tracing does
+not share this one's interpreter lock with the Pallas interpret run)
+start when the module does, and run while the other tests do.
+
+The processes this module starts run PyTorch's generic CPU kernels
+(``ATEN_CPU_CAPABILITY=default``). With the vectorised ones (AVX2,
+AVX-512) a transcendental function such as ``pow`` rounds differently in
+the vector body of an elementwise loop and in its scalar tail, so a
+column's value depends on where it falls in the flattened tensor, and a
+block of the domain can differ from the same columns of the whole in
+the last bit (first seen in the trace-gas mixing ratios of the CCM3
+longwave, ``trcmix``); the saturation adjustment then amplifies the bit
+(measured 5.6e-10 relative in qv after 4 steps at 18x24). With the
+generic kernels every element takes the same path, so the 2x2 runs are
+held to the undecomposed ones at 1e-12 (measured: bit-identical). On the
+card each element takes the same path in any case."""
 import multiprocessing as mp
+import os
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
@@ -25,6 +41,7 @@ from regcm_tpu_torch.parallel.halo import extend_block  # noqa: E402
 from regcm_tpu_torch.parallel.mesh import DomainMesh, factor2d  # noqa: E402
 
 from . import _torch_parallel_ranks as R  # noqa: E402
+from ._torch_icbc_files import write_files  # noqa: E402
 
 IY, JX = 16, 16                   # the 2x2 checks: 8x8 blocks
 K5_SHAPE = (7, 14, 16, 24)        # K5a's stack: nf, kz, iy, jx (f64)
@@ -83,21 +100,35 @@ def k5():
 @pytest.fixture(scope="module")
 def background():
     # torch on one thread here: the ranks and the JAX compile share the
-    # cores, and torch's pool at these sizes only contends with them
+    # cores, and torch's pool at these sizes only contends with them;
+    # the processes started here use the generic CPU kernels (see above)
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
+    cap = os.environ.get("ATEN_CPU_CAPABILITY")
+    os.environ["ATEN_CPU_CAPABILITY"] = "default"
     try:
         with ThreadPoolExecutor(1) as th, ProcessPoolExecutor(
-                1, mp_context=mp.get_context("spawn")) as pr:
+                2, mp_context=mp.get_context("spawn")) as pr:
             yield th, pr
     finally:
         torch.set_num_threads(threads)
+        if cap is None:
+            os.environ.pop("ATEN_CPU_CAPABILITY", None)
+        else:
+            os.environ["ATEN_CPU_CAPABILITY"] = cap
 
 
 @pytest.fixture(scope="module")
-def group22_started(background, k5):
+def icbc_paths(tmp_path_factory):
+    d = tmp_path_factory.mktemp("icbc")
+    return {kind: write_files(kind, str(d)) for kind in R.ICBC}
+
+
+@pytest.fixture(scope="module")
+def group22_started(background, k5, icbc_paths):
     return background[0].submit(launch.spawn, R.two_by_two, 2, 2, "gloo",
-                                "cpu", args=(IY, JX, k5), timeout=900)
+                                "cpu", args=(IY, JX, k5, icbc_paths),
+                                timeout=900)
 
 
 @pytest.fixture(scope="module")
@@ -134,14 +165,67 @@ def _dryrun_jax():
     return {k: np.asarray(getattr(st, k)) for k in R.MOLOCH_FIELDS}
 
 
+def _hydro_jax(names):
+    """The JAX package's hydrostatic core on HYDRO settings, one device:
+    the state after each recorded step, as ``R.hydro_run`` builds it
+    (dryrun_multichip drives the jitted ``HydroCore.step`` the same way).
+    Runs in a spawned process."""
+    jax.config.update("jax_enable_x64", True)
+    from regcm_tpu.config.params import RegCMConfig
+    from regcm_tpu.core.state import StepFlags, bdy_from_state
+    from regcm_tpu.driver import Model, standard_atmosphere_state
+    from regcm_tpu.dynamics.stencil import cross2dot
+    f64 = jnp.float64
+    out = {}
+    for name in names:
+        st = R.HYDRO[name]
+        cfg = R.hydro_setup(RegCMConfig(), name)
+        m = Model(cfg, dtype=f64, physics=None if st["physics"] else False)
+        s = standard_atmosphere_state(m.grid, cfg, f64,
+                                      perturb=st["perturb"], seed=st["seed"])
+        u = 10.0 * cross2dot(s.ps_a)[None] * jnp.ones_like(s.u_a)
+        qx = s.qx_a.at[0].set(jnp.maximum(s.qx_a[0], 1e-5 * s.ps_a[None]))
+        s = s._replace(u_a=u, u_b=u, qx_a=qx, qx_b=qx)
+        if st["physics"]:
+            s = s._replace(tg=s.t_a[-1] / s.ps_a, bats=m.state.bats)
+        s = m.core.init_split_storage(s)
+        bdy = bdy_from_state(s)
+        step = jax.jit(m.core.step, static_argnames=("flags",))
+        mu = jnp.full((cfg.dim.iy, cfg.dim.jx), 0.4, f64)
+        solar = None if st.get("solar") is None \
+            else jnp.asarray(st["solar"], f64)
+        xt, dt = 0.0, cfg.dtsec
+        out[name] = {}
+        for n in range(max(st["record"])):
+            flags = StepFlags(**R.hydro_flags(name, n))
+            if st["physics"]:
+                s, _ = step(s, bdy, xt, dt, flags, mu, solar)
+            else:
+                s, _ = step(s, bdy, xt, dt, flags)
+            xt += cfg.dtsec
+            dt = 2.0 * cfg.dtsec
+            if n + 1 in st["record"]:
+                out[name][n + 1] = {k: np.asarray(v) for k, v in
+                                    s._asdict().items() if np.size(v)}
+    return out
+
+
 @pytest.fixture(scope="module")
 def dryrun_jax_started(background):
     return background[1].submit(_dryrun_jax)
 
 
+@pytest.fixture(scope="module")
+def hydro_jax_started(background):
+    """dryrun_multichip's hydrostatic settings, beside the MOLOCH
+    trajectory."""
+    return background[1].submit(_hydro_jax, ["dryrun_dyn", "dryrun_phys"])
+
+
 @pytest.fixture(scope="module", autouse=True)
-def _start_in_background(group22_started, dryrun_jax_started):
-    """Start the 2x2 group and the JAX trajectory with the module."""
+def _start_in_background(group22_started, dryrun_jax_started,
+                         hydro_jax_started):
+    """Start the 2x2 group and the JAX trajectories with the module."""
 
 
 def test_k5a_plain_halo_form_matches_jax_and_unsharded(k5, group22_started):
@@ -264,9 +348,14 @@ def test_k5b_k5c_blocks_are_exact(name, k5, group22):
     np.testing.assert_array_equal(got, want)
 
 
+def _single(group, case):
+    """An undecomposed reference run by one of the group's ranks."""
+    return next(r["single"][case] for r in group if case in r["single"])
+
+
 @pytest.fixture(scope="module")
-def dryrun_single():
-    return R.dryrun_moloch()
+def dryrun_single(group22):
+    return _single(group22, ("dryrun", None))
 
 
 @pytest.mark.parametrize("field", R.MOLOCH_FIELDS)
@@ -291,8 +380,8 @@ def test_dryrun_diagnostics_are_global(group22, dryrun_single):
 
 
 @pytest.fixture(scope="module")
-def model_single():
-    return R.model_run()
+def model_single(group22):
+    return _single(group22, ("model", None))
 
 
 @pytest.mark.parametrize("field", ["ps", "t", "qv", "qc", "u", "v", "w"])
@@ -304,13 +393,88 @@ def test_model_mesh_matches_single_rank(field, group22, model_single):
     assert _rel(got["dec"][field], model_single["dec"][field]) <= 1e-12
 
 
-def test_model_mesh_refuses_the_hydrostatic_core():
+@pytest.mark.parametrize("topology", ["i_band", "i_crm"])
+def test_model_mesh_refuses_the_periodic_topologies(topology):
+    """The band and CRM topologies are not decomposed yet: Model(mesh=)
+    raises, naming the ROADMAP item that will lift it."""
     from regcm_tpu_torch.config.params import RegCMConfig
     from regcm_tpu_torch.driver import Model
     cfg = RegCMConfig()
+    setattr(cfg.geo, topology, 1)
     mesh = DomainMesh(2, 2, cfg.dim.iy, cfg.dim.jx, rank=0)
-    with pytest.raises(NotImplementedError, match="10a"):
-        Model(cfg, device="cpu", mesh=mesh)
+    with pytest.raises(NotImplementedError, match="item 10d"):
+        Model(cfg, device="cpu", mesh=mesh, physics=False)
+
+
+def _every_field(got, want, bound, what):
+    """Each field of ``want`` (nonzero size) against ``got``: the same
+    shape, finite, and within ``bound`` of max|want| at every point."""
+    assert set(got) == set(want), what
+    for k, w in want.items():
+        g = got[k]
+        assert g.shape == w.shape, (what, k)
+        assert np.all(np.isfinite(g)), (what, k)
+        err = _rel(g, w)
+        assert err <= bound, f"{what} {k}: max rel err {err:.3e}"
+
+
+@pytest.mark.parametrize("name", list(R.HYDRO))
+def test_hydro_mesh_matches_single_rank(name, group22):
+    """The hydrostatic core on 2x2 ranks against one rank, every state
+    field after each recorded step: dryrun_multichip's dynamics (3 steps)
+    and full physics with every alarm at step 0 (1 and 3 steps), and
+    tests/test_parallel.py's 18x24x14 dynamics (10 steps) and full
+    physics (1 and 4 steps): 1e-12 relative (measured: bit-identical);
+    every rank exchanged halos."""
+    want = _single(group22, ("hydro", name))
+    got = group22[0]["hydro"][name]
+    assert set(got) == set(want) | {"exchanges"}
+    for step, fields in want.items():
+        _every_field(got[step], fields, 1e-12, f"{name} step {step}")
+    assert all(r["hydro"][name]["exchanges"] > 0 for r in group22)
+
+
+def test_hydro_dryrun_matches_jax(hydro_jax_started, group22):
+    """dryrun_multichip's hydrostatic gates, the 2x2 run against the
+    JAX package unsharded: dynamics after 3 steps 1e-9 in ps, T, u, v;
+    full physics 1e-9 after one step and 1e-3 after three in the fields
+    that dryrun_multichip compares."""
+    want = hydro_jax_started.result()
+    got = group22[0]["hydro"]
+    for f in ("ps_a", "t_a", "u_a", "v_a"):
+        err = _rel(got["dryrun_dyn"][3][f], want["dryrun_dyn"][3][f])
+        assert err <= 1e-9, f"dynamics {f}: {err:.3e}"
+    for step, bound in ((1, 1e-9), (3, 1e-3)):
+        for f in ("ps_a", "t_a", "u_a", "v_a", "qx_a", "tg", "heatrt",
+                  "swsfc", "hfx", "bats"):
+            err = _rel(got["dryrun_phys"][step][f],
+                       want["dryrun_phys"][step][f])
+            assert err <= bound, f"physics step {step} {f}: {err:.3e}"
+
+
+@pytest.mark.parametrize("kind", list(R.ICBC))
+def test_icbc_mesh_matches_single_rank(kind, group22):
+    """Model.init_from_icbc and run_icbc on 2x2 ranks against one rank,
+    from the same DOMAIN and ICBC files: the state and the boundary
+    after the cold start, then the state, boundary and decoupled fields
+    after each recorded step (past the hourly update: step 25 of the
+    hydrostatic run, step 61 of MOLOCH's), 1e-12 relative (measured:
+    bit-identical); the step count and boundary clock the same."""
+    want = _single(group22, ("icbc", kind))
+    got = group22[0]["icbc"][kind]
+    for part in ("init", "bdy0"):
+        _every_field(got[part], want[part], 1e-12, f"{kind} {part}")
+    for step in R.ICBC[kind]["record"]:
+        g, w = got[step], want[step]
+        assert g["finite"] and w["finite"]
+        assert (g["nstep"], g["xbctime"]) == (w["nstep"], w["xbctime"])
+        for part in ("state", "bdy", "dec"):
+            _every_field(g[part], w[part], 1e-12, f"{kind} {step} {part}")
+    # the hourly update took the next pair of records (whose jet is
+    # stronger) and restarted the boundary clock
+    last = got[max(R.ICBC[kind]["record"])]
+    assert last["xbctime"] < 3600.0
+    assert not np.array_equal(last["bdy"]["u0"], got["bdy0"]["u0"])
 
 
 def test_mesh_refusals():

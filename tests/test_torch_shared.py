@@ -162,3 +162,88 @@ def test_ccm3_tables_match_jax():
     for n in names:
         _equal(getattr(jtab, n), getattr(ttab, n), n)
     _equal(jtab.o3_annual_profile(), ttab.o3_annual_profile(), "o3")
+
+
+def test_ncio_round_trip_matches_jax(tmp_path):
+    """A file written by each package's NCWriter (statics, two records,
+    then one more appended) reads back the same through either read_nc,
+    with the attributes."""
+    from regcm_tpu.io import ncio as jnc
+    from regcm_tpu_torch.io import ncio as tnc
+    rng = np.random.default_rng(0)
+    topo = rng.normal(size=(5, 7))
+    recs = [rng.normal(size=(3, 5, 7)) for _ in range(3)]
+    files = {}
+    for name, mod in (("jax", jnc), ("port", tnc)):
+        p = str(tmp_path / f"{name}.nc")
+        w = mod.NCWriter(p, dims={"kz": 3, "iy": 5, "jx": 7},
+                         attrs={"title": "round trip"})
+        w.def_static("topo", ("iy", "jx"), topo, "m", "Surface elevation")
+        w.def_time_var("t", ("kz", "iy", "jx"), "K", "Temperature")
+        for n in range(2):
+            w.write_record(6.0 * n, {"t": recs[n]})
+        w.close()
+        w = mod.NCWriter(p, dims={}, append=True)
+        w.bind_time_var("t")
+        w.write_record(12.0, {"t": recs[2]})
+        w.close()
+        files[name] = p
+    for p in files.values():
+        _equal(jnc.read_nc(p, with_attrs=True),
+               tnc.read_nc(p, with_attrs=True), p)
+    _equal(tnc.read_nc(files["jax"]), tnc.read_nc(files["port"]), "files")
+    d = tnc.read_nc(files["port"])
+    np.testing.assert_array_equal(d["time"], [0.0, 6.0, 12.0])
+    np.testing.assert_array_equal(d["t"], np.asarray(recs, np.float32))
+
+
+@pytest.mark.parametrize("kind", ["flat", "gauss", "ridge", "random"])
+def test_terrain_matches_jax(kind, tmp_path):
+    """synthetic_topo, smoothing, write_domain and build_grid_from_domain
+    of each package: the same topography, DOMAIN file and grid."""
+    from regcm_tpu.preproc import terrain as jter
+    from regcm_tpu_torch.preproc import terrain as tter
+    jcfg, tcfg = configs({"dim.iy": 20, "dim.jx": 28})
+    jt = jter.synthetic_topo(jcfg, kind=kind, height=800.0, seed=3)
+    tt = tter.synthetic_topo(tcfg, kind=kind, height=800.0, seed=3)
+    _equal(jt, tt, "synthetic_topo")
+    _equal(jter.smoothing(jt[0], 3), tter.smoothing(tt[0], 3), "smoothing")
+    pj, pt = str(tmp_path / "j_DOMAIN000.nc"), str(tmp_path / "t_DOMAIN000.nc")
+    jter.write_domain(jcfg, pj, *jt)
+    tter.write_domain(tcfg, pt, *tt)
+    _equal(jter.read_domain(pj), tter.read_domain(pt), "DOMAIN")
+    jg = jter.build_grid_from_domain(jcfg, pt)
+    tg = tter.build_grid_from_domain(tcfg, pj)
+    for f in dataclasses.fields(jg):
+        _equal(getattr(jg, f.name), getattr(tg, f.name), f.name)
+
+
+def test_icbc_matches_jax(tmp_path):
+    """synthetic_fields of each package (the port's saturation mixing
+    ratio from its own utils.thermo) are equal, and an ICBC file written
+    by either generate_synthetic_icbc gives the other's ICBCReader the
+    same records, times and record indices."""
+    from regcm_tpu.preproc import icbc as jic
+    from regcm_tpu.preproc.terrain import synthetic_topo
+    from regcm_tpu_torch.preproc import icbc as tic
+    jcfg, tcfg = configs({"dim.iy": 20, "dim.jx": 28,
+                          "globdat.gdate2": 1990060200})
+    topo = synthetic_topo(jcfg, kind="gauss", height=900.0)[0]
+    jd = jcal.Date.from_int(1990060106)
+    td = tcal.Date.from_int(1990060106)
+    _equal(jic.synthetic_fields(jcfg, topo, jd, jet=12.0),
+           tic.synthetic_fields(tcfg, topo, td, jet=12.0),
+           "synthetic_fields")
+    pj, pt = str(tmp_path / "j_ICBC.nc"), str(tmp_path / "t_ICBC.nc")
+    jic.generate_synthetic_icbc(jcfg, topo, pj, jet=12.0)
+    tic.generate_synthetic_icbc(tcfg, topo, pt, jet=12.0)
+    readers = [mod.ICBCReader(p) for mod in (jic, tic) for p in (pj, pt)]
+    assert [r.nrec() for r in readers] == [5] * 4
+    for r in readers[1:]:
+        np.testing.assert_array_equal(r.times, readers[0].times)
+    for hour in (0, 5, 6, 13, 24):
+        when = jcal.Date.from_int(1990060100).add_hours(hour)
+        when_t = tcal.Date.from_int(1990060100).add_hours(hour)
+        want = readers[0].record_at(when)
+        for r, d in zip(readers[1:], (when, when_t, when_t)):
+            _equal(want, r.record_at(d), f"record at +{hour} h")
