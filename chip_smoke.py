@@ -62,6 +62,24 @@ Phases (any failure raises and the script exits nonzero):
      file through step 61 (radiation at 60): the first non-finite step
      or that it stayed finite, ms/step over steps 24-47, the radiation
      step and the peak device memory;
+ 14. the MM5 non-hydrostatic core (idynamic=2), after phase 13 and, for
+     14c, in the decomposed group of phases 10-12: (a) Model at the
+     flagship's widths (192x192x41, ds 3 km, f32, flat, default
+     physics) with dt 15 s, half the flagship's (NH_DT says why), from
+     nh_initial_state(perturb=0.5, seed=1): 24 steps through K1 and K2
+     (launch counters checked), the ms/step of steps 24-47, a
+     torch.profiler view of 4 steps, the radiation step (step 120 at
+     dt 15 s), the peak device memory, and the first non-finite step or
+     that the run stayed finite past the radiation step; then the same
+     settings on a 48x48x41 cut for 24 steps, held to the JAX package's
+     numbers (NH_REFERENCE); (b) NH on the card against the CPU in f64
+     at 16x20x14 over phase 7's hill for 10 steps, full physics and
+     dynamics only, held as phase 5; (c) the 14a flagship on 2x2 ranks,
+     12 steps held bit for bit to 14a's step 12, the ms/step, halo
+     exchanges and bytes a step and each rank's K5c and K2 launches; (d)
+     each ported dynamics option (idiffu 2/3, iboudy 1/3/4, ipgf 1,
+     ithadv 1, isladvec with iqmsl 0/1; on the NH core idiffu 3 and
+     iboudy 4) on the card against the CPU in f64, 3 steps at 18x24x14;
 then a JSON line of the kernels and the result line.
 """
 import json
@@ -145,6 +163,31 @@ HYDRO_ICBC_STEPS = 150
 HYDRO_CHECK = (12, HYDRO_ICBC_STEPS)
 MOLOCH_ICBC_STEPS = RAD_STEP + 1
 HYDRO_FIELDS = ("ps", "t", "qv", "u", "v")
+# phase 14: the NH flagship's dt. At 30 s the acoustic solver's substeps
+# of a leapfrog step (istep = max(int(2·dtsec/dtsmax), 4) = 7 of 8.57 s)
+# exceed dtsmax = dx/cs/(1+nhxkd) = 7.86 s at 3 km, and the JAX
+# package's run goes non-finite within 12 steps; at 15 s, 4 of 7.5 s
+# (tools/nh_3km_reference.py)
+NH_DT = 15.0
+# the JAX package (float32, CPU) at the NH flagship's settings on a
+# 48x48x41 cut from nh_initial_state(perturb=0.5, seed=1): step -> (max
+# |w| m/s, max |pp| Pa, T min K, T max K), printed by
+# tools/nh_3km_reference.py (finite through step 48)
+NH_REFERENCE = {6: (2.02362, 117.1183, 215.1272, 289.1259),
+                12: (1.99391, 161.7405, 215.1756, 289.0446),
+                18: (1.56147, 177.3113, 215.1847, 288.9917),
+                24: (1.50451, 180.5096, 215.2156, 288.9692)}
+NH_FIELDS = ("t", "qv", "u", "v", "pp", "w")
+# 14d: option -> (core: 1 hydrostatic, 2 NH; physicsparam overrides, or
+# the dynparam extra "ithadv")
+OPTIONS = {"idiffu2": (1, dict(idiffu=2)), "idiffu3": (1, dict(idiffu=3)),
+           "iboudy1": (1, dict(iboudy=1)), "iboudy3": (1, dict(iboudy=3)),
+           "iboudy4": (1, dict(iboudy=4)), "ipgf1": (1, dict(ipgf=1)),
+           "ithadv1": (1, dict(ithadv=1)),
+           "isladvec_qmsl0": (1, dict(isladvec=1, iqmsl=0)),
+           "isladvec_qmsl1": (1, dict(isladvec=1, iqmsl=1)),
+           "nh_idiffu3": (2, dict(idiffu=3)),
+           "nh_iboudy4": (2, dict(iboudy=4))}
 
 
 def nvidia_smi_line():
@@ -440,7 +483,7 @@ def card_vs_cpu(runs, fields, what):
                                  f"without condensation: {dry_err}")
 
 
-def profile_steps(model, nsteps):
+def profile_steps(model, nsteps, what="MOLOCH"):
     """Device busy share and the costliest device kernels over nsteps
     steps (torch.profiler; its own overhead inflates the wall time)."""
     import torch
@@ -456,7 +499,7 @@ def profile_steps(model, nsteps):
     for e in kern:
         by_name[e.name] = by_name.get(e.name, 0.0) \
             + e.time_range.elapsed_us() / 1e3
-    print(f"profile, {nsteps} MOLOCH steps: wall {1e3 * wall:.1f} ms, "
+    print(f"profile, {nsteps} {what} steps: wall {1e3 * wall:.1f} ms, "
           f"{len(kern)} device kernels ({len(kern) / nsteps:.0f} a step), "
           f"device busy {busy_ms:.2f} ms = "
           f"{100.0 * busy_ms / (1e3 * wall):.2f}% of wall")
@@ -869,7 +912,7 @@ def hydro_spread(dev, paths):
 
 
 def decomposed_rank(rank, time_steps, paths):
-    """Phases 10-12 on one rank of a 2x2 group: the flagship in f32 for
+    """Phases 10-12 and 14c on one rank of a 2x2 group: the flagship in f32 for
     DECOMP_STEPS steps (counters reset just before, read just after), the
     whole domain's fields at the end (on rank 0), the ms/step of
     ``time_steps`` further steps; the f64 MOLOCH dryrun; the f64
@@ -956,14 +999,57 @@ def decomposed_rank(rank, time_steps, paths):
     out["hydro"]["dec"] = dec if rank.rank == 0 else None
     del model
     torch.cuda.empty_cache()
+    out["nh"] = nh_rank(rank, time_steps)
     return out
 
 
-def run_decomposed(dev, smi, single12, paths, icbc13):
-    """Phases 10-12: the 2x2 groups of ``decomposed_rank`` on every
-    backend the host allows, held bit for bit to the single card's
-    step-12 fields ``single12`` and to its f64 dryruns, and test_001
-    from ICBC to phase 13a's run ``icbc13``; returns each backend's rank
+def nh_rank(rank, time_steps):
+    """Phase 14c on one rank of the 2x2 group: the NH flagship in f32 for
+    DECOMP_STEPS steps (counters reset just before, read just after), the
+    whole domain's fields at the end (on rank 0), then the ms/step of
+    ``time_steps`` further steps."""
+    import torch
+    import torch.distributed as dist
+    from regcm_tpu_torch.core.grid import build_grid
+    from regcm_tpu_torch.kernels import emanuel_mixing as k2
+    from regcm_tpu_torch.kernels import pbl_tridiag as k1
+    from regcm_tpu_torch.kernels import tridiag_w as k3
+    from regcm_tpu_torch.kernels import waf_advect as k4
+    from regcm_tpu_torch.parallel import halo
+    mods = {"K1": k1, "K2": k2, "K3": k3, "K4": k4}
+    dev = rank.device
+    ncfg = nh_flagship_cfg()
+    ngrid = build_grid(ncfg)
+    model = nh_model(ncfg, ngrid, dev, rank.mesh(ngrid.iy, ngrid.jx))
+    reset(mods)
+    k1.launches_sharded = k3.launches_sharded = k4.launches_sharded = 0
+    halo.exchanges = halo.bytes_sent = 0
+    model.run(DECOMP_STEPS)
+    launches = read(mods)
+    launches.update(K5a=k4.launches_sharded, K5b=k3.launches_sharded,
+                    K5c=k1.launches_sharded)
+    nh = dict(launches=launches, finite=model.check_finite(),
+              exchanges_per_step=halo.exchanges / DECOMP_STEPS,
+              bytes_per_step=halo.bytes_sent / DECOMP_STEPS)
+    dec = nh_fields(model)
+    nh["dec"] = dec if rank.rank == 0 else None
+    dist.barrier()
+    _, wall = model.run(time_steps)
+    walls = [None] * rank.world
+    dist.all_gather_object(walls, wall)
+    nh["ms_per_step"] = 1000.0 * max(walls) / time_steps
+    del model
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return nh
+
+
+def run_decomposed(dev, smi, single12, paths, icbc13, nh12):
+    """Phases 10-12 and 14c: the 2x2 groups of ``decomposed_rank`` on
+    every backend the host allows, held bit for bit to the single card's
+    step-12 fields ``single12`` and to its f64 dryruns, test_001 from
+    ICBC to phase 13a's run ``icbc13``, and the NH flagship bit for bit
+    to phase 14a's step-12 fields ``nh12``; returns each backend's rank
     results."""
     import torch
     from regcm_tpu_torch.core.grid import build_grid
@@ -1102,8 +1188,263 @@ def run_decomposed(dev, smi, single12, paths, icbc13):
               f"{res[0]['hydro']['ms_per_step']:.3f}, one card "
               f"{icbc13['window_ms']:.3f} (phase 13a, the same steps), on "
               f"{smi}")
+        # -- 14c. the NH flagship on 2x2 ranks against phase 14a
+        for r, out in enumerate(res):
+            h = out["nh"]
+            print(f"  rank {r} NH flagship: launches {h['launches']}, "
+                  f"{h['exchanges_per_step']:.1f} halo exchanges and "
+                  f"{h['bytes_per_step'] / 1e6:.3f} MB sent a step")
+            if not h["finite"]:
+                raise AssertionError(f"rank {r}: non-finite decomposed NH "
+                                     f"state")
+            if h["launches"]["K5c"] <= 0 or h["launches"]["K2"] <= 0 \
+                    or h["launches"]["K1"] != 0:
+                raise AssertionError(f"rank {r} ({backend}): the "
+                                     f"decomposed NH path bypassed K5c or "
+                                     f"K2: {h['launches']}")
+        dec = res[0]["nh"]["dec"]
+        for f in NH_FIELDS:
+            same = np.array_equal(dec[f], nh12[f])
+            err = rel_rms(dec[f], nh12[f])
+            print(f"  NH 192x192x41 f32 step {DECOMP_STEPS}, {backend} 2x2 "
+                  f"vs one card, {f}: "
+                  f"{'bit-identical' if same else 'DIFFERENT'}, rel-RMS "
+                  f"{err:.3e}")
+            if not same:
+                raise AssertionError(f"decomposed NH flagship ({backend}) "
+                                     f"differs from one card in {f}: "
+                                     f"rel-RMS {err}")
+        print(f"  decomposed NH ms/step (f32, 192x192x41 dt {NH_DT} s on "
+              f"2x2 ranks, {backend}, steps {DECOMP_STEPS}.."
+              f"{DECOMP_STEPS + TIME_STEPS - 1}: cumulus at 20; "
+              f"synchronised, slowest rank): "
+              f"{res[0]['nh']['ms_per_step']:.3f} on {smi}")
         decomp[backend] = res
     return decomp
+
+
+def nh_flagship_cfg(n=None):
+    """The flagship's widths on the MM5 NH core: n x n x 41 (n FLAGSHIP
+    by default), ds 3 km, dt NH_DT, flat, default physics."""
+    cfg = flagship_cfg()
+    cfg.core.idynamic = 2
+    if n is not None:
+        cfg.dim.iy = cfg.dim.jx = n
+    cfg.time.dt = NH_DT
+    return cfg
+
+
+def nh_model(cfg, grid, device, mesh=None):
+    """Model on the NH flagship's settings in f32 from the whole grid's
+    nh_initial_state(perturb=0.5, seed=1), formed on the host (the rank's
+    block under a mesh)."""
+    import torch
+    from regcm_tpu_torch.driver import Model, nh_initial_state
+    s0 = nh_initial_state(grid, cfg, "cpu", torch.float32, perturb=0.5,
+                          seed=1)
+    return Model(cfg, grid=grid, device=device, dtype=torch.float32,
+                 initial_state=s0, mesh=mesh)
+
+
+def nh_fields(model):
+    """The decoupled fields of a NH Model with pp and w, of the whole
+    domain (gathered under a mesh)."""
+    d = model.decoupled()
+    s = model.state
+    extra = dict(pp=s.pp_a / s.ps_a[None], w=s.w_a / s.ps_a[None])
+    if model.mesh is not None:
+        extra = {k: model.mesh.gather(v) for k, v in extra.items()}
+    d.update({k: v.cpu().numpy() for k, v in extra.items()})
+    return d
+
+
+def nh_summary(d):
+    """(max |w| m/s, max |pp| Pa, T min K, T max K) of nh_fields."""
+    return (float(np.abs(d["w"]).max()), float(np.abs(d["pp"]).max()),
+            float(d["t"].min()), float(d["t"].max()))
+
+
+def run_nh_single(dev, smi, mods):
+    """Phase 14a: the NH flagship on one card; returns its step-12
+    fields (14c is held to them) and its launches a step."""
+    import torch
+    from regcm_tpu_torch.core.grid import build_grid
+    cfg = nh_flagship_cfg()
+    grid = build_grid(cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.time()
+    model = nh_model(cfg, grid, dev)
+    torch.cuda.synchronize()
+    print(f"NH model: {grid.jx}x{grid.iy}x{grid.kz}, dt {cfg.dtsec} s, ds "
+          f"{cfg.geo.ds} km, set-up {time.time() - t0:.1f} s")
+    reset(mods)
+    model.run(DECOMP_STEPS)
+    single12 = nh_fields(model)
+    model.run(STEPS - DECOMP_STEPS)
+    launches = read(mods)
+    print(f"NH path: {STEPS} steps, launches {launches}")
+    if not model.check_finite():
+        raise AssertionError("non-finite NH state after the f32 run")
+    if launches["K1"] <= 0 or launches["K2"] <= 0:
+        raise AssertionError(f"NH path bypassed a kernel: {launches}")
+    wmax, ppmax, tmin, tmax = nh_summary(nh_fields(model))
+    print(f"NH step {STEPS}: wmax {wmax:.4f} m/s, ppmax {ppmax:.3f} Pa, "
+          f"T {tmin:.3f}..{tmax:.3f} K")
+    _, wall = model.run(STEPS)
+    print(f"NH ms/step (f32, {grid.jx}x{grid.iy}x{grid.kz}, dt {NH_DT} s, "
+          f"steps {STEPS}..{2 * STEPS - 1}: cumulus and surface at 40, no "
+          f"radiation; synchronised): {1000.0 * wall / STEPS:.3f} on {smi}")
+    profile_steps(model, 4, "NH")
+    rad = int(round(cfg.time.dtrad_sec / cfg.dtsec))
+    while model.nstep < rad and model.check_finite():
+        model.run(1)
+    if not model.check_finite():
+        raise AssertionError(f"non-finite NH state after step "
+                             f"{model.nstep}, before the radiation step")
+    if not model._flags().do_rad:
+        raise AssertionError(f"no radiation alarm at step {rad}")
+    _, wall = model.run(1)
+    print(f"NH radiation step (step {rad}: radiation, surface, cumulus; "
+          f"synchronised): {1000.0 * wall:.3f} ms on {smi}")
+    print(f"NH peak device memory (steps 0..{model.nstep}): "
+          f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
+    if not model.check_finite():
+        raise AssertionError(f"non-finite NH state after the radiation "
+                             f"step {rad}")
+    wmax, ppmax, tmin, tmax = nh_summary(nh_fields(model))
+    print(f"NH {grid.jx}x{grid.iy}x{grid.kz} f32 finite through step "
+          f"{model.nstep}: wmax {wmax:.4f} m/s, ppmax {ppmax:.3f} Pa, T "
+          f"{tmin:.3f}..{tmax:.3f} K")
+    del model
+    torch.cuda.empty_cache()
+
+    # -- the same settings on a 48x48 cut, held to the JAX package's
+    # numbers (tools/nh_3km_reference.py): 1% of wmax and ppmax, 0.05 K
+    rcfg = nh_flagship_cfg(48)
+    model = nh_model(rcfg, build_grid(rcfg), dev)
+    for n in range(1, max(NH_REFERENCE) + 1):
+        model.run(1)
+        if n in NH_REFERENCE:
+            got = nh_summary(nh_fields(model))
+            want = NH_REFERENCE[n]
+            print(f"NH 48x48x41 f32 step {n}: wmax {got[0]:.5f} m/s, ppmax "
+                  f"{got[1]:.4f} Pa, T {got[2]:.4f}..{got[3]:.4f} K; JAX "
+                  f"package {want[0]:.5f}, {want[1]:.4f}, "
+                  f"{want[2]:.4f}..{want[3]:.4f}")
+            if not (abs(got[0] - want[0]) < 0.01 * want[0]
+                    and abs(got[1] - want[1]) < 0.01 * want[1]
+                    and abs(got[2] - want[2]) < 0.05
+                    and abs(got[3] - want[3]) < 0.05):
+                raise AssertionError(f"NH step {n} on the card leaves the "
+                                     f"reference: {got}")
+    del model
+    torch.cuda.empty_cache()
+    return dict(single12=single12,
+                per_step={k: v / STEPS for k, v in launches.items()})
+
+
+def nh_card_vs_cpu(dev):
+    """Phase 14b: NH on the card against the CPU in f64, 16x20x14 over
+    phase 7's hill (ds 10 km, dt 30 s), 10 steps: full physics held to
+    four times the CPU's spread (or 1e-7), the dynamics alone (no
+    saturation adjustment) to 1e-7, by card_vs_cpu."""
+    import torch
+    from regcm_tpu_torch.config.params import RegCMConfig
+    from regcm_tpu_torch.core.grid import build_grid
+    from regcm_tpu_torch.driver import Model, nh_initial_state
+    cfg, dyn = RegCMConfig(), RegCMConfig()
+    for c_ in (cfg, dyn):
+        c_.core.idynamic = 2
+        c_.dim.iy, c_.dim.jx, c_.dim.kz = 16, 20, 14
+        c_.geo.ds = 10.0
+        c_.time.dt = 30.0
+    dyn.physics.ipptls = 0
+    grid = build_grid(cfg, ht=hill(16, 20))
+    s0 = nh_initial_state(grid, cfg, "cpu", torch.float64, perturb=0.3,
+                          seed=1)
+    rng = np.random.default_rng(0)
+    s1 = s0._replace(t_a=s0.t_a * (1.0 + 1e-15 * torch.as_tensor(
+        rng.standard_normal(tuple(s0.t_a.shape)))))
+    runs = {}
+    for name, conf, device, init, phys in (
+            ("gpu", cfg, dev, s0, None), ("cpu", cfg, "cpu", s0, None),
+            ("cpu_perturbed", cfg, "cpu", s1, None),
+            ("gpu_dry", dyn, dev, s0, False), ("cpu_dry", dyn, "cpu", s0,
+                                               False)):
+        m = Model(conf, grid=grid, device=device, dtype=torch.float64,
+                  initial_state=init, physics=phys)
+        m.run(CHECK_STEPS)
+        if not m.check_finite():
+            raise AssertionError(f"non-finite NH state ({name})")
+        runs[name] = nh_fields(m)
+    card_vs_cpu(runs, NH_FIELDS, "NH")
+
+
+def option_run(option, device):
+    """Phase 14d: three f64 dynamics steps with one option, 18x24x14
+    over the hill: the hydrostatic core (ds 60 km, dt 120 s) from the
+    0.2 K perturbed standard atmosphere with a 10 m/s westerly, or the
+    NH core (ds 10 km, dt 30 s) from nh_initial_state(perturb=0.3); the
+    state's prognostics."""
+    import torch
+    from regcm_tpu_torch.config.params import RegCMConfig
+    from regcm_tpu_torch.core.grid import build_grid
+    from regcm_tpu_torch.core.state import StepFlags, bdy_from_state
+    from regcm_tpu_torch.driver import (nh_initial_state,
+                                        standard_atmosphere_state)
+    from regcm_tpu_torch.dynamics.hydrostatic import HydroCore
+    from regcm_tpu_torch.dynamics.stencil import cross2dot
+    core_kind, opts = OPTIONS[option]
+    cfg = RegCMConfig()
+    cfg.core.idynamic = core_kind
+    cfg.dim.iy, cfg.dim.jx, cfg.dim.kz = 18, 24, 14
+    cfg.geo.ds, cfg.time.dt = (60.0, 120.0) if core_kind == 1 \
+        else (10.0, 30.0)
+    cfg.physics.ipptls = 0
+    for k, v in opts.items():
+        if k == "ithadv":
+            cfg.dyn.extras[k] = v
+        else:
+            setattr(cfg.physics, k, v)
+    grid = build_grid(cfg, ht=hill(18, 24))
+    f64 = torch.float64
+    if core_kind == 1:
+        s = standard_atmosphere_state(grid, cfg, "cpu", f64, perturb=0.2,
+                                      seed=3)
+        u = 10.0 * cross2dot(s.ps_a)[None] * torch.ones_like(s.u_a)
+        qx = torch.cat([torch.maximum(s.qx_a[0], 1e-5 * s.ps_a[None])[None],
+                        s.qx_a[1:]])
+        s = s._replace(u_a=u, u_b=u, qx_a=qx, qx_b=qx)
+    else:
+        s = nh_initial_state(grid, cfg, "cpu", f64, perturb=0.3, seed=1)
+    core = HydroCore(grid, cfg, device=device, dtype=f64)
+    s = s._replace(**{k: v.to(device) for k, v in s._asdict().items()})
+    if core_kind == 1:
+        s = core.init_split_storage(s)
+    step = core.step if core_kind == 1 else core.step_nh
+    bdy = bdy_from_state(s)
+    xt, dt = 0.0, cfg.dtsec
+    for _ in range(3):
+        s, _ = step(s, bdy, xt, dt, StepFlags())
+        xt += cfg.dtsec
+        dt = 2.0 * cfg.dtsec
+    names = ("u_a", "v_a", "t_a", "qx_a") + (("pp_a", "w_a")
+                                             if core_kind == 2 else ())
+    return {k: getattr(s, k).cpu().numpy() for k in names}
+
+
+def options_card_vs_cpu(dev):
+    """Phase 14d: each option on the card against the CPU, max relative
+    error of every prognostic below 1e-10."""
+    for option in OPTIONS:
+        gpu, cpu = option_run(option, dev), option_run(option, "cpu")
+        worst = max((max_rel(gpu[k], w), k) for k, w in cpu.items())
+        print(f"option {option}: 3 steps f64 18x24x14, card vs CPU worst "
+              f"{worst[1]} max rel err {worst[0]:.3e} (bound 1e-10)")
+        if not worst[0] <= 1e-10 or not all(
+                np.all(np.isfinite(v)) for v in gpu.values()):
+            raise AssertionError(f"option {option}: card and CPU disagree "
+                                 f"in {worst[1]}: {worst[0]}")
 
 
 def max_rel(got, want):
@@ -1356,8 +1697,14 @@ def main():
               f"{time.time() - t0:.1f} s")
         icbc13 = run_icbc_single(dev, smi, paths, mods)
 
-        # -- 10, 11, 12. the decomposed runs
-        decomp = run_decomposed(dev, smi, single12, paths, icbc13)
+        # -- 14a, 14b, 14d. the NH core on one card
+        nh14 = run_nh_single(dev, smi, mods)
+        nh_card_vs_cpu(dev)
+        options_card_vs_cpu(dev)
+
+        # -- 10, 11, 12, 14c. the decomposed runs
+        decomp = run_decomposed(dev, smi, single12, paths, icbc13,
+                                nh14["single12"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1393,6 +1740,11 @@ def main():
             row["launches_per_step_hydrostatic_2x2"] = {
                 b: [r["hydro"]["launches"][k] / HYDRO_ICBC_STEPS
                     for r in res] for b, res in decomp.items()}
+            row["launches_per_step_nh_2x2"] = {
+                b: [r["nh"]["launches"][k] / DECOMP_STEPS for r in res]
+                for b, res in decomp.items()}
+        if k in ("K1", "K2"):
+            row["launches_per_step_nh"] = nh14["per_step"][k]
         if k in BASE:
             row["launches_ranks"] = {b: [r["launches"][k] for r in res]
                                      for b, res in decomp.items()}

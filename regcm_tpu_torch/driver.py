@@ -1,19 +1,21 @@
 """Model driver, torch twin of ``regcm_tpu/driver.py`` for the main path.
 
 ``Model(cfg, device=..., dtype=...).run(n)`` initialises the dynamical
-core that ``cfg.core.idynamic`` names (1: hydrostatic, 3: MOLOCH) with
+core that ``cfg.core.idynamic`` names (1: hydrostatic, 2: MM5
+non-hydrostatic, 3: MOLOCH) with
 the default physics suite and steps it with the reference's alarms
 (``Main/mod_regcm_interface.F90``, ``Main/mpplib/mod_timer.F90``):
 cumulus every dtcum, surface every dtsrf, radiation every dtrad and the
 LW absorptivities every dtabem. It runs on the CUDA card unless the
 caller passes ``device="cpu"``. Without ICBC input the run starts from a
-resting standard atmosphere and holds the boundary at the initial state;
+resting standard atmosphere (the NH core: from its reference atmosphere,
+``nh_initial_state``) and holds the boundary at the initial state;
 ``init_from_icbc(reader)`` cold-starts from the ICBC record at mdate1
 and ``run_icbc(n)`` steps with the boundary-input alarm every ibdyfrq
 hours (``update_boundary``), as the reference's ``bdyin`` does. Restart
 and output are not ported.
 
-``Model(cfg, mesh=DomainMesh(...))`` runs either core decomposed over a
+``Model(cfg, mesh=DomainMesh(...))`` runs any of the cores decomposed over a
 (y, x) grid of ranks, one ``Model`` in each rank's process
 (``parallel.launch``): the rank holds its block of the state; the
 initial state, the ICBC records and the solar zenith angles are formed
@@ -38,6 +40,7 @@ from .dynamics import stencil
 from .dynamics.hydrostatic import HydroCore, fix_cross_pad
 from .dynamics.moloch import (MolochBdy, MolochCore, MolochState,
                               moloch_bdy_from_numpy, moloch_state_from_numpy)
+from .dynamics.sound import make_base_state
 from .physics.surface.bats import bats_init_state
 from .utils import constants as c
 from .utils.calendar import Date
@@ -75,6 +78,33 @@ def standard_atmosphere_state(grid: ModelGrid, cfg: RegCMConfig,
                       tg=f(t[-1]))
 
 
+def nh_initial_state(grid: ModelGrid, cfg: RegCMConfig, device="cuda",
+                     dtype=torch.float64, perturb: float = 0.0,
+                     seed: int = 0) -> HydroState:
+    """Cold start of the MM5 NH core (idynamic=2) on the whole grid: T the
+    reference atmosphere's t0, pp = w = 0 (the nhinterp base-state
+    contract, a rest state of the NH equations), qv 30% of saturation
+    capped at 0.01, with an optional white-noise T perturbation drawn
+    from ``numpy.random.default_rng(seed)``."""
+    device = resolve_device(device)
+    base = make_base_state(grid, float(grid.ptop),
+                           logp_lrate=cfg.nonhydro.logp_lrate)
+    ps = base.ps0
+    t0 = base.t0
+    if perturb > 0.0:
+        rng = np.random.default_rng(seed)
+        t0 = t0 + perturb * rng.standard_normal(t0.shape) \
+            * grid.m_cross_int[None]
+    qv = np.minimum(0.3 * pfwsat(torch.as_tensor(t0),
+                                 torch.as_tensor(base.pr0)).numpy(), 0.01)
+    s = zeros_hydro(grid.kz, grid.iy, grid.jx, device=device, dtype=dtype)
+    f = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    qx = torch.stack([f(qv * ps[None]), torch.zeros_like(f(qv))])
+    return s._replace(ps_a=f(ps), ps_b=f(ps), t_a=f(t0 * ps[None]),
+                      t_b=f(t0 * ps[None]), qx_a=qx, qx_b=qx.clone(),
+                      tg=f(t0[-1]))
+
+
 def moloch_bdy_from_state(s: MolochState) -> MolochBdy:
     """Fixed MOLOCH boundary values equal to the current state."""
     z3 = torch.zeros_like(s.t)
@@ -102,10 +132,10 @@ class Model:
     def __init__(self, cfg: RegCMConfig, grid: Optional[ModelGrid] = None,
                  device="cuda", dtype=torch.float64, physics=None,
                  initial_state=None, bdy=None, mesh=None):
-        if cfg.core.idynamic not in (1, 3):
-            raise NotImplementedError(
-                f"coreparam idynamic={cfg.core.idynamic}: the hydrostatic "
-                "(1) and MOLOCH (3) cores are ported")
+        if cfg.core.idynamic not in (1, 2, 3):
+            raise ValueError(
+                f"coreparam idynamic={cfg.core.idynamic} is not a core "
+                "(1 hydrostatic, 2 MM5 non-hydrostatic, 3 MOLOCH)")
         pp = cfg.perturb
         if cfg.globdat.ensemble_run and any(
                 getattr(pp, f"lperturb_{n}") for n in
@@ -141,11 +171,14 @@ class Model:
             self.core = HydroCore(self.grid, cfg, device=self.device,
                                   dtype=dtype, physics=physics, mesh=mesh)
             if initial_state is None:   # on the whole grid, then cut
-                initial_state = standard_atmosphere_state(
-                    self.grid, cfg, "cpu" if mesh else self.device, dtype)
-            self.state = self.core.init_split_storage(
-                _as_state(initial_state, HydroState, state_from_numpy, mesh,
-                          self.device, dtype))
+                start = nh_initial_state if self.idynamic == 2 \
+                    else standard_atmosphere_state
+                initial_state = start(self.grid, cfg,
+                                      "cpu" if mesh else self.device, dtype)
+            self.state = _as_state(initial_state, HydroState,
+                                   state_from_numpy, mesh, self.device, dtype)
+            if self.idynamic == 1:
+                self.state = self.core.init_split_storage(self.state)
         if getattr(physics, "land_scheme", "") == "bats1e":
             # initbats cold start: slmo soil water, Tg-initialised
             # leaf/subsoil temperatures (mod_bats_common.F90); column by
@@ -219,9 +252,14 @@ class Model:
         else:
             ps, u, v, t, qv, ts = self._icbc_to_state_fields(rec)
             qx = torch.cat([qv[None], torch.zeros_like(self.state.qx_a[1:])])
-            self.state = self.core.init_split_storage(self.state._replace(
+            # the NH core as the JAX package starts it: the record's p*
+            # taken for the base state's, pp and w as they were (the
+            # reference's nhinterp is not modelled)
+            self.state = self.state._replace(
                 ps_a=ps, ps_b=ps, u_a=u, u_b=u, v_a=v, v_b=v, t_a=t,
-                t_b=t, qx_a=qx, qx_b=qx, tg=ts))
+                t_b=t, qx_a=qx, qx_b=qx, tg=ts)
+            if self.idynamic == 1:
+                self.state = self.core.init_split_storage(self.state)
         self._icbc = reader
         self.update_boundary()
 
@@ -272,7 +310,8 @@ class Model:
 
     def step(self):
         """Advance one step (forward-Euler dt first, then leapfrog 2·dt:
-        mod_tendency.F90:610-616; MOLOCH is forward in time with dt)."""
+        mod_tendency.F90:610-616; MOLOCH is forward in time with dt). The
+        NH core steps through ``HydroCore.step_nh``."""
         dt = self.dtsec if (self.nstep == 0 or self.idynamic == 3) \
             else 2.0 * self.dtsec
         flags = self._flags()
@@ -286,9 +325,9 @@ class Model:
                              device=self.device)
         # third slot: fractional month position (mid-month nodes)
         mpos = self.date.month + (self.date.day - 15) / 30.0
-        self.state, diags = self.core.step(
-            self.state, self.bdy, self.xbctime, dt, flags, mu,
-            (sol.eccf, sol.solcon, mpos))
+        step = self.core.step_nh if self.idynamic == 2 else self.core.step
+        self.state, diags = step(self.state, self.bdy, self.xbctime, dt,
+                                 flags, mu, (sol.eccf, sol.solcon, mpos))
         self.nstep += 1
         self.xbctime += self.dtsec
         self.date = self.date.add_seconds(self.dtsec)

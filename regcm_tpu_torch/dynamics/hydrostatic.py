@@ -1,15 +1,23 @@
-"""Hydrostatic dynamical core (idynamic=1), torch twin of
-``regcm_tpu/dynamics/hydrostatic.py``.
+"""The sigma-p dynamical cores, torch twin of
+``regcm_tpu/dynamics/hydrostatic.py``: the hydrostatic core (idynamic=1,
+``HydroCore.step``) and the MM5 non-hydrostatic core (idynamic=2,
+``HydroCore.step_nh``).
 
 The reference's leapfrog split-explicit hydrostatic core
 (``Main/mod_tendency.F90:212`` ``tend`` and its phases, with
 ``mod_advection``, ``mod_diffusion``, ``mod_timefilter``, ``mod_split``
-and the ``mod_bdycod`` relaxation). ``HydroCore.step`` runs eagerly on
-the tensors' device; prognostics are p*-coupled on the Arakawa-B grid.
+and the ``mod_bdycod`` relaxation), and its NH branches with the
+semi-implicit acoustic solver of ``dynamics/sound.py`` in place of the
+split-explicit modes. Both steps run eagerly on the tensors' device;
+prognostics are p*-coupled on the Arakawa-B grid.
 
-Only the default configuration is ported: the hydrostatic step with
-flux-form advection, ``idiffu=1`` diffusion, ``ipgf=0`` and
-``iboudy=5``; the other branches are refused at construction.
+The dynamics options of the JAX package are ported: diffusion
+``idiffu`` 1-3, ``ipgf`` 0/1, theta advection ``ithadv=1``, the
+semi-Lagrangian moisture advection ``isladvec=1`` (``sladvection.py``),
+the lateral boundary schemes ``iboudy`` 0-5 (3 and 4 with the
+inflow/outflow qv edges, 4 the sponge) and the NH core's upper Rayleigh
+damping (``ifrayd``). Chemistry and the UW TCM's prognostic TKE are
+refused at construction.
 
 With a ``DomainMesh`` (``HydroCore(..., mesh=...)``) the core steps one
 rank's (ly, lx) block of the domain: the 2-D constants are built on the
@@ -17,8 +25,8 @@ whole grid and sliced, every horizontal stencil reads across block edges
 through the halo exchange of ``stencil.shift``/``shifte``, the writes
 that belong to the domain's edges (``fix_cross_pad``, ``_flow_edges``)
 happen on the ranks that hold those edges, and the diagnostics are
-reduced over the ranks. The periodic (band, CRM) topologies are not
-decomposed.
+reduced over the ranks. The periodic (band, CRM) topologies and the
+semi-Lagrangian advection are not decomposed.
 """
 from __future__ import annotations
 
@@ -34,7 +42,10 @@ from ..device import resolve_device
 from ..utils import constants as c
 from ..utils.thermo import pfwsat, wlh
 from . import stencil
-from .stencil import (shift, shifte, cross2dot, dot2cross,
+from .sladvection import sl_weights, slhadv
+from .sound import NHBaseState, make_base_state, sound, \
+    upper_radiation_tables
+from .stencil import (shift, shifte, cross2dot, dot2cross, halo_pad,
                       with_topology)
 from .vmodes import make_split_coeffs
 
@@ -54,6 +65,11 @@ def fix_cross_pad(a):
     if last_x:
         a[..., :, -1] = a[..., :, -2]
     return a
+
+
+# the perturbation PGF's reference profile (ipgf=1, mod_tendency.F90:1886)
+T00PG, P00PG = 287.0, 101.325
+PGFAA1 = 6.5e-3 * c.rgas * c.regrav
 
 
 def levels_dot(mat, f):
@@ -81,22 +97,26 @@ def cpmf(qv):
     return c.cpd * (1.0 + 0.80 * qv)
 
 
-def _refuse_options(cfg: RegCMConfig):
-    """Raise for every hydrostatic-core option this port leaves out."""
+def _refuse_options(cfg: RegCMConfig, mesh):
+    """Raise for every sigma-p core option this port leaves out."""
     p = cfg.physics
-    ex = cfg.dyn.extras
+    if int(getattr(p, "idiffu", 1)) not in (1, 2, 3):
+        raise ValueError(
+            f"physicsparam idiffu={p.idiffu} is not a diffusion scheme (1 "
+            "split-order, 2 9-point 4th-order, 3 6th-order monotonic)")
+    if int(p.iboudy) not in range(6):
+        raise ValueError(f"physicsparam iboudy={p.iboudy} is not a "
+                         "lateral boundary scheme (0-5)")
     refused = [
-        (cfg.core.idynamic != 1,
-         f"coreparam idynamic={cfg.core.idynamic} (only the hydrostatic "
-         "core, idynamic=1, is ported)"),
-        (int(p.isladvec) != 0, "semi-Lagrangian advection (isladvec=1)"),
-        (int(getattr(p, "idiffu", 1)) != 1,
-         f"idiffu={getattr(p, 'idiffu', 1)} (only idiffu=1)"),
-        (int(p.ipgf) != 0, f"ipgf={p.ipgf} (only ipgf=0)"),
-        (int(p.iboudy) != 5, f"iboudy={p.iboudy} (only iboudy=5)"),
+        (cfg.core.idynamic not in (1, 2),
+         f"coreparam idynamic={cfg.core.idynamic} in HydroCore (1: "
+         "hydrostatic, 2: MM5 non-hydrostatic; MOLOCH is MolochCore)"),
         (int(p.ichem) != 0, "chemistry (ichem=1)"),
         (int(p.ibltyp) == 2, "UW TCM prognostic TKE (ibltyp=2)"),
-        (int(ex.get("ithadv", 0)) != 0, "theta advection (ithadv=1)"),
+        (mesh is not None and cfg.core.idynamic == 1
+         and int(p.isladvec) == 1,
+         "a decomposed run (mesh=) of the semi-Lagrangian advection "
+         "(isladvec=1) yet (ROADMAP.md Queue 1, item 10e)"),
     ]
     for bad, what in refused:
         if bad:
@@ -110,7 +130,7 @@ class HydroCore:
     def __init__(self, grid: ModelGrid, cfg: RegCMConfig,
                  device="cuda", dtype=torch.float64,
                  physics: Optional[Callable] = None, mesh=None):
-        _refuse_options(cfg)
+        _refuse_options(cfg, mesh)
         device = resolve_device(device)
         self.grid = grid
         self.cfg = cfg
@@ -146,6 +166,20 @@ class HydroCore:
         self.q_rel_extrema = float(ex.get("q_rel_extrema", 0.20))
         uoffc = float(ex.get("uoffc", 0.25))
         self.ul_adv = uoffc * 0.5 * cfg.dtsec / self.dx
+        p = cfg.physics
+        self.idiffu = int(getattr(p, "idiffu", 1))
+        # idiffu=3's constant coefficient (initialize_diffusion,
+        # Main/mod_diffusion.F90:154: 0.12·0.015625/(2·dt))
+        self.diff6 = 0.12 * 0.015625 / (2.0 * cfg.dtsec)
+        self.ipgf = int(p.ipgf)
+        # temperature advection form (0: T flux advection and omega
+        # heating, 1: theta advection)
+        self.ithadv = int(cfg.dyn.extras.get("ithadv", 0))
+        # semi-Lagrangian moisture advection (Main/mod_sladvection.F90)
+        self.isladvec = int(p.isladvec)
+        self.iqmsl = int(p.iqmsl)
+        self.iboudy = int(p.iboudy)
+        self.idynamic = cfg.core.idynamic
 
         # 2-D constants
         self.msfx = f(g.msfx)
@@ -227,6 +261,26 @@ class HydroCore:
         self.conf = sx.conf
         self.gnu1 = cfg.dyn.gnu1
         self.gnu2 = cfg.dyn.gnu2
+        if self.iboudy == 4:      # sponge weights (mod_bdycod.F90:237)
+            self.spwc = f(g.extras["sponge_wc"])
+            self.spwd = f(g.extras["sponge_wd"])
+        if self.idynamic == 2:
+            # the NH reference atmosphere, built on the whole grid
+            self.base = NHBaseState(*map(f, make_base_state(
+                g, self.ptop, logp_lrate=cfg.nonhydro.logp_lrate)))
+            # upper-level Rayleigh damping toward the boundary values
+            # (ifrayd/rayndamp/rayalpha0/rayhd; Main/mod_bdycod.F90:5115)
+            dx = cfg.dyn.extras
+            self.ifrayd = int(dx.get("ifrayd", 1))
+            self.rayndamp = int(dx.get("rayndamp", 5))
+            self.rayalpha0 = float(dx.get("rayalpha0", 3.0e-4))
+            self.rayhd = float(dx.get("rayhd", 1.0e4))
+            # the radiative top's tables and its count of interior
+            # points, from the whole grid
+            geom, xkleff = upper_radiation_tables(g.msfx, self.dx)
+            self.upr_geom = f1(geom)
+            self.upr_xkleff = f1(xkleff)
+            self.upr_npts = max(float(np.sum(g.m_cross_int)), 1.0)
 
     # ------------------------------------------------------------------
     # phases (pure functions of tensors (kz, iy, jx) or (iy, jx))
@@ -420,29 +474,18 @@ class HydroCore:
                 atms["mpos"] = solar[2]
 
         # -- new_pressure (mod_tendency.F90:1428-1460)
-        ps_bdy_diff = (bdy.ps0 + (xt + dt) * bdy.pst) - psb
-        pten_n = pten + self._nudge2d(ps_bdy_diff)
+        if self.iboudy == 4:
+            # sponge2d: blend toward the boundary tendency
+            # (mod_bdycod.F90:2726)
+            pten_n = self.spwc * pten + (1.0 - self.spwc) * bdy.pst
+        else:
+            ps_bdy_diff = (bdy.ps0 + (xt + dt) * bdy.pst) - psb
+            pten_n = pten + self._nudge2d(ps_bdy_diff)
         psc = fix_cross_pad(psb + pten_n * dt)
         rpsc = 1.0 / psc
 
         # -- calc_coeff (Main/mod_diffusion.F90:148-255)
-        dudx = (shift(ubd3, 1, 1) + shift(ubd3, 0, 1) - shift(ubd3, 1, 0)
-                - ubd3)
-        dvdx = (shift(vbd3, 1, 1) + shift(vbd3, 0, 1) - shift(vbd3, 1, 0)
-                - vbd3)
-        dudy = (shift(ubd3, 1, 0) + shift(ubd3, 1, 1) - ubd3
-                - shift(ubd3, 0, 1))
-        dvdy = (shift(vbd3, 1, 0) + shift(vbd3, 1, 1) - vbd3
-                - shift(vbd3, 0, 1))
-        duv = torch.sqrt((dudx - dvdy) ** 2 + (dvdx + dudy) ** 2)
-        xkc_raw = torch.clamp(self.hgfact[None] + self.dydc * duv,
-                              max=self.xkhmax) * self.m_c
-        xkc_raw = fix_cross_pad(xkc_raw)
-        xkd = 0.25 * (xkc_raw + shifte(xkc_raw, -1, -1)
-                      + shifte(xkc_raw, 0, -1) + shifte(xkc_raw, -1, 0))
-        rdxsq = 1.0 / (self.dx * self.dx)
-        xkc = xkc_raw * rdxsq * psb[None]
-        xkd = xkd * rdxsq * psdotb[None]
+        xkc, xkd = self._calc_coeff(ubd3, vbd3, psb, psdotb)
 
         # -- advection (mod_tendency.F90:1270-1426)
         uavg1 = shift(umc, 1, 0) + umc
@@ -452,21 +495,43 @@ class HydroCore:
 
         udyn, vdyn = self._advection_uv(umc, vmc, ud, vd, uc, vc, qdot)
 
-        # plain T flux advection (ithadv=0) + vadv3d with exner-weighted
-        # interface interpolation (mod_advection.F90:730-790)
-        tdyn0 = self._hadv_scalar(tdec, uavg1, uavg2, vavg1, vavg2, ps=psa)
-        tdyn0 = self._stability_guard(tdyn0, tdec * psa[None], psa, "abs")
-        pfs = (self.sig3 * psa[None] + ptop) * 1000.0
-        phs = (self.hsig3 * psa[None] + ptop) * 1000.0
-        ta = s.t_a
-        fT = qdot[1:kz] * (
-            self.twt1[1:] * ta[1:] * (pfs[1:kz] / phs[1:]) ** c.c287
-            + self.twt2[1:] * ta[:-1] * (pfs[1:kz] / phs[:-1]) ** c.c287)
-        tdyn0 = tdyn0 + self._vadv_flux(fT)
-        # qv: hadv on decoupled + vadv on coupled
-        qvhadv = self._hadv_scalar(qvdec, uavg1, uavg2, vavg1, vavg2,
-                                   ps=psa)
-        qvhadv = self._stability_guard(qvhadv, qvdec, psa, "rel")
+        if self.ithadv == 1:
+            # theta advection (ithadv=1, mod_tendency.F90:1352-1366)
+            pr_a = (self.hsig3 * psa[None] + ptop) * 1000.0
+            th = tdec * (c.stdp / pr_a) ** c.rovcp
+            tha = th * psa[None]
+            thten = self._hadv_scalar(th, uavg1, uavg2, vavg1, vavg2,
+                                      ps=psa)
+            thten = self._stability_guard(thten, tha, psa, "abs")
+            fth = qdot[1:kz] * (self.twt1[1:] * tha[1:]
+                                + self.twt2[1:] * tha[:-1])
+            thten = thten + self._vadv_flux(fth)
+        else:
+            # plain T flux advection (ithadv=0) + vadv3d with
+            # exner-weighted interface interpolation
+            # (mod_advection.F90:730-790)
+            tdyn0 = self._hadv_scalar(tdec, uavg1, uavg2, vavg1, vavg2,
+                                      ps=psa)
+            tdyn0 = self._stability_guard(tdyn0, tdec * psa[None], psa,
+                                          "abs")
+            pfs = (self.sig3 * psa[None] + ptop) * 1000.0
+            phs = (self.hsig3 * psa[None] + ptop) * 1000.0
+            ta = s.t_a
+            fT = qdot[1:kz] * (
+                self.twt1[1:] * ta[1:] * (pfs[1:kz] / phs[1:]) ** c.c287
+                + self.twt2[1:] * ta[:-1] * (pfs[1:kz] / phs[:-1]) ** c.c287)
+            tdyn0 = tdyn0 + self._vadv_flux(fT)
+        # qv: hadv on decoupled (or the semi-Lagrangian form on the
+        # coupled b level, mod_tendency.F90:1283,1361-1380) + vadv on
+        # coupled
+        if self.isladvec == 1:
+            slw = sl_weights(ud, vd, self.msfx, self.dx, dt, *psa.shape)
+            qvhadv = slhadv(s.qx_b[IQV], slw, dt,
+                            qmsl=self.iqmsl == 1) * self.m_ci
+        else:
+            qvhadv = self._hadv_scalar(qvdec, uavg1, uavg2, vavg1, vavg2,
+                                       ps=psa)
+            qvhadv = self._stability_guard(qvhadv, qvdec, psa, "rel")
         qva = s.qx_a[IQV]
         ok = ((qva[1:] > c.minqq * psa[None])
               & (qva[:-1] > c.minqq * psa[None]))
@@ -476,8 +541,13 @@ class HydroCore:
         qv_vadv = self._vadv_flux(qdot[1:kz] * fgq)
         qvten = qvhadv + qv_vadv
         # hydrometeors: hadv + vadv4d with the upstream sign guard
-        qhten = self._hadv_scalar(qhdec, uavg1, uavg2, vavg1, vavg2, ps=psa)
-        qhten = self._stability_guard(qhten, qhdec, psa, "rel")
+        if self.isladvec == 1:
+            qhten = slhadv(s.qx_b[1:], slw, dt,
+                           qmsl=self.iqmsl == 1) * self.m_ci
+        else:
+            qhten = self._hadv_scalar(qhdec, uavg1, uavg2, vavg1, vavg2,
+                                      ps=psa)
+            qhten = self._stability_guard(qhten, qhdec, psa, "rel")
         qha = s.qx_a[1:]
         fi = self.twt1[1:] * qha[:, 1:] + self.twt2[1:] * qha[:, :-1]
         thr = c.minqq * c.minqq * psa[None]
@@ -492,10 +562,16 @@ class HydroCore:
         udyn = udyn + self.coriol[None] * vc * self.m_di
         vdyn = vdyn - self.coriol[None] * uc * self.m_di
 
-        # -- omega heating (mod_tendency.F90:1568-1576)
-        rovcpm = c.rgas / cpmf(qvdec)
-        tdyn = tdyn0 + (omega * rovcpm * tv
-                        / (ptop * rpsa[None] + self.hsig3)) * self.m_ci
+        if self.ithadv == 1:
+            # -- adiabatic theta term (mod_tendency.F90:1597-1604)
+            thten = thten + th * div
+            tdyn = s.t_a * thten / torch.where(tha == 0.0, 1.0, tha) \
+                * self.m_ci
+        else:
+            # -- omega heating (mod_tendency.F90:1568-1576)
+            rovcpm = c.rgas / cpmf(qvdec)
+            tdyn = tdyn0 + (omega * rovcpm * tv
+                            / (ptop * rpsa[None] + self.hsig3)) * self.m_ci
 
         # -- boundary nudging (nudge3d, Main/mod_bdycod.F90:4218)
         xtd = xt + dt
@@ -543,16 +619,30 @@ class HydroCore:
             tten = tten + dtc
             qvten_t = qvten_t + dqv
             qhten_t = torch.cat([(qhten_t[0] + dqc)[None], qhten_t[1:]])
+        if self.iboudy == 4:
+            # sponge on the total tendencies (mod_tendency.F90:1481-1483):
+            # ften <- w·ften + (1-w)·bt, the hydrometeors' bt zero
+            wc3 = self.spwc[None]
+            tten = wc3 * tten + (1.0 - wc3) * bdy.tt
+            qvten_t = wc3 * qvten_t + (1.0 - wc3) * bdy.qvt
+            qhten_t = wc3 * qhten_t
 
         # -- forecast t, qx at tau+1 (mod_tendency.F90:380-420)
         tc = s.t_b + dt * tten * self.m_ci
         qvc = self._negfix(s.qx_b[IQV] + dt * qvten_t * self.m_ci)
         qhc = self._negfix(s.qx_b[1:] + dt * qhten_t * self.m_ci)
 
-        # -- PGF, full-field form ipgf=0 (mod_tendency.F90:1886-2120)
+        # -- PGF (mod_tendency.F90:1886-2120): ipgf 0 the full-field
+        # form, ipgf 1 the perturbation form, which removes a reference
+        # profile t00pg·((σp*+ptop)/p00pg)^pgfaa1 from the virtual
+        # temperature in both parts of the force
         td = s.t_a * (1.0 + c.ep1 * qvdec)
         tvfac = 1.0 / (1.0 + qcdec / (1.0 + qvdec))
         ptrps = ptop * rpsa[None]
+        if self.ipgf == 1:
+            tref3 = T00PG * ((self.hsig3 * psa[None] + ptop)
+                             / P00PG) ** PGFAA1
+            td = td - psa[None] * tref3        # ttld (:1901)
         logfac = torch.log((self.hsig3 + ptrps)
                            / torch.cat([self.hsig3[1:] + ptrps,
                                         1.0 + ptrps[:1]], dim=0))
@@ -561,6 +651,10 @@ class HydroCore:
                     * tvfac[:-1])
         phi_kz = self.ht - c.rgas * (td[kz - 1] * rpsa
                                      * tvfac[kz - 1]) * logfac[kz - 1]
+        if self.ipgf == 1:
+            # the reference profile's geopotential (:2046-2047)
+            phi_kz = phi_kz + c.rgas * T00PG / PGFAA1 \
+                * ((psa + ptop) / P00PG) ** PGFAA1
         incs = -c.rgas * tvavg_up * logfac[:-1]
         phi = torch.cat([torch.flip(torch.cumsum(torch.flip(incs, [0]),
                                                  dim=0), [0])
@@ -571,6 +665,9 @@ class HydroCore:
         hpsy2m = 0.5 * (shift(psa, -1, 0) + shift(psa, -1, -1))
         tvdot4 = 0.25 * (shift(tv, -1, -1) + shift(tv, 0, -1)
                          + shift(tv, -1, 0) + tv)
+        if self.ipgf == 1:
+            tvdot4 = tvdot4 - T00PG * (
+                (self.hsig3 * psdota[None] + ptop) / P00PG) ** PGFAA1
         rtbar = c.rgas * psdota[None] * tvdot4
         dmsf = 1.0 / (self.dx * self.msfd)
         udyn = udyn - rtbar * (
@@ -589,8 +686,14 @@ class HydroCore:
             phi + shift(phi, 0, -1) - shift(phi, -1, 0)
             - shift(phi, -1, -1)) * dmsf2[None] * self.m_di
 
-        uten = (udyn + uphy) * self.m_di
-        vten = (vdyn + vphy) * self.m_di
+        uten = udyn + uphy
+        vten = vdyn + vphy
+        if self.iboudy == 4:
+            wd3 = self.spwd[None]
+            uten = wd3 * uten + (1.0 - wd3) * bdy.ut
+            vten = wd3 * vten + (1.0 - wd3) * bdy.vt
+        uten = uten * self.m_di
+        vten = vten * self.m_di
 
         # -- time filters (mod_timefilter.F90)
         mci = self.m_ci > 0.5
@@ -651,9 +754,13 @@ class HydroCore:
         v_a_n = torch.where(edm, bdy.v0 + xt2 * bdy.vt, v_a_n)
         psa_n = fix_cross_pad(psa_n)
         psb_n = fix_cross_pad(psb_n)
-        # hydrometeor inflow/outflow edges (bdyflow, mod_bdycod.F90:2155)
-        qh_a_n = self._flow_edges(qh_a_n, psa_n, dot2cross(u_a_n),
-                                  dot2cross(v_a_n))
+        # inflow/outflow edges (mod_bdycod.F90:1809+): the hydrometeors
+        # always (bdyflow), qv with iboudy 3 or 4
+        ucx = dot2cross(u_a_n)
+        vcx = dot2cross(v_a_n)
+        qh_a_n = self._flow_edges(qh_a_n, psa_n, ucx, vcx)
+        if self.iboudy in (3, 4):
+            qv_a_n = self._flow_edges(qv_a_n, psa_n, ucx, vcx, qext=qv_a_n)
 
         ns = s._replace(
             ps_a=psa_n, ps_b=psb_n, u_a=u_a_n, u_b=u_b_n,
@@ -673,15 +780,401 @@ class HydroCore:
         return ns, diags
 
     # ------------------------------------------------------------------
-    def _flow_edges(self, q, ps, ucx, vcx):
-        """Inflow/outflow hydrometeor edge values (mod_bdycod.F90
-        :2155-2230): inflow edges take 0, outflow edges extrapolate the
-        decoupled interior value recoupled with the edge p*. q may carry
-        leading species axes; periodic directions have no flow edges.
-        The edges are the domain's rows 0 and iy-2 and columns 0 and jx-2:
-        under a mesh, the first and last ranks of each axis write them at
-        the same local offsets from their block's edge (a block holds at
-        least 4 rows and columns)."""
+    @with_topology
+    def step_nh(self, s: HydroState, bdy: BdyState, xt: float, dt: float,
+                flags: StepFlags = StepFlags(), coszrs=None, solar=None
+                ) -> Tuple[HydroState, Dict[str, torch.Tensor]]:
+        """One MM5 non-hydrostatic step (idynamic=2): the NH branches of
+        tend (mod_tendency.F90 decouple/compute_omega/adiabatic) and the
+        semi-implicit acoustic solver (Main/mod_sound.F90) in place of the
+        split-explicit modes. p* is the constant reference ps0−ptop; pp
+        and w are prognostic. Arguments as ``step``."""
+        base = self.base
+        kz = self.kz
+        ptop = self.ptop
+
+        psa = s.ps_a          # the constant base.ps0
+        psb = s.ps_b
+        rpsa = 1.0 / psa
+        rpsb = 1.0 / psb
+        psdota = cross2dot(psa)
+        rpsda = 1.0 / psdota
+
+        # -- decouple (mod_tendency decouple, NH parts :1040-1075)
+        uc, vc = s.u_a, s.v_a
+        umc = uc * self.msfd
+        vmc = vc * self.msfd
+        ud = uc * rpsda
+        vd = vc * rpsda
+        ub_bdy = (bdy.u0 + xt * bdy.ut) * rpsda
+        vb_bdy = (bdy.v0 + xt * bdy.vt) * rpsda
+        ud = torch.where(self.e_d2 > 0.5, ub_bdy, ud)
+        vd = torch.where(self.e_d2 > 0.5, vb_bdy, vd)
+        umd = ud * self.msfd
+        vmd = vd * self.msfd
+        tdec = s.t_a * rpsa
+        qvdec = torch.clamp(s.qx_a[IQV] * rpsa, min=c.minqq)
+        qhdec = torch.clamp(s.qx_a[1:] * rpsa, min=0.0)
+        qcdec = qhdec[0]
+        tv = tdec * (1.0 + c.ep1 * qvdec)
+        ppdec = s.pp_a * rpsa[None]
+        wdec = s.w_a * rpsa[None]
+        pr1 = base.pr0 + ppdec
+        rho1 = pr1 / (c.rgas * torch.clamp(tv, min=100.0))
+        # buoyancy factor (atmx%pr, mod_tendency.F90:1068-1071)
+        bfac = (tv - base.t0 - ppdec / (c.cpd * base.rho0)) \
+            / torch.clamp(tdec, min=100.0)
+
+        # -- compute_omega, NH (:1157-1195)
+        ucc4 = umd + shift(umd, 0, 1) + shift(umd, 1, 0) + shift(umd, 1, 1)
+        vcc4 = vmd + shift(vmd, 0, 1) + shift(vmd, 1, 0) + shift(vmd, 1, 1)
+        qdot_i = (-base.rhof0[1:kz] * c.egrav * wdec[1:kz]
+                  / (base.psfull[None] - ptop * 1000.0)
+                  - self.sig3[1:kz] * (
+                      base.dpsdxm[None] * (self.twt1[1:] * ucc4[1:]
+                                           + self.twt2[1:] * ucc4[:-1])
+                      + base.dpsdym[None] * (self.twt1[1:] * vcc4[1:]
+                                             + self.twt2[1:] * vcc4[:-1])))
+        zt = torch.zeros_like(qdot_i[:1])
+        qdot = torch.cat([zt, qdot_i, zt], dim=0)
+        rmsfx2 = 1.0 / (2.0 * self.dx * self.msfx ** 2)
+        divh = ((shift(umc, 1, 1) + shift(umc, 0, 1)
+                 - shift(umc, 1, 0) - umc)
+                + (shift(vmc, 1, 1) + shift(vmc, 1, 0)
+                   - shift(vmc, 0, 1) - vmc)) * rmsfx2
+        div = (divh + (qdot[1:] - qdot[:kz]) * psa[None] / self.dsig3) \
+            * self.m_c
+        omega = -0.5 * c.egrav * base.rho0 * rpsb[None] \
+            * (s.w_b[:kz] + s.w_b[1:]) * rpsb[None]
+
+        # -- mkslice equivalents for the physics (time level b)
+        psdotb = cross2dot(psb)
+        ubd3 = s.u_b / psdotb
+        vbd3 = s.v_b / psdotb
+        tb3 = s.t_b * rpsb
+        qvb3 = torch.clamp(s.qx_b[IQV] * rpsb, min=c.minqq)
+        qhb3 = torch.clamp(s.qx_b[1:] * rpsb, min=0.0)
+        qcb3 = qhb3[0]
+        ppb3 = s.pp_b * rpsb[None]
+        pb3 = base.pr0 + ppb3
+        pf3 = torch.cat([base.pf0[:1],
+                         base.pf0[1:kz] + 0.5 * (ppb3[:-1] + ppb3[1:]),
+                         base.psfull[None] + ppb3[kz - 1:kz]], dim=0)
+        ps2d = base.psfull + ppb3[kz - 1]
+        tvb3 = tb3 * (1.0 + c.ep1 * qvb3 - qcb3)
+        rhob3 = pb3 / (c.rgas * torch.clamp(tb3, min=100.0))
+        qsb3 = pfwsat(torch.clamp(tb3, min=100.0), pb3)
+        rhb3 = torch.clamp(qvb3 / qsb3, self.rhmin, self.rhmax)
+        dzq = (pf3[1:] - pf3[:-1]) / (rhob3 * c.egrav)
+        zq = torch.cat([torch.flip(torch.cumsum(torch.flip(dzq, [0]),
+                                                dim=0), [0]),
+                        torch.zeros_like(dzq[:1])], dim=0)
+        za = 0.5 * (zq[:-1] + zq[1:])
+        if coszrs is None:
+            coszrs = torch.zeros_like(psb)
+        atms = dict(ubd3=ubd3, vbd3=vbd3, ubx3=dot2cross(ubd3),
+                    vbx3=dot2cross(vbd3), tb3=tb3, qvb3=qvb3, qcb3=qcb3,
+                    qhb3=qhb3, tvb3=tvb3, pb3=pb3, pf3=pf3, ps2d=ps2d,
+                    rhob3=rhob3, qsb3=qsb3, rhb3=rhb3, za=za, zq=zq,
+                    dzq=dzq, psb=psb, psa=psa, omega_pa=omega, qdot=qdot,
+                    rpsb=rpsb, coszrs=coszrs)
+        if solar is not None:
+            atms["eccf"], atms["solcon"] = solar[0], solar[1]
+            if len(solar) > 2:
+                atms["mpos"] = solar[2]
+
+        # -- diffusion coefficients, the NH variant
+        wb3dec = s.w_b * rpsb[None]
+        xkc, xkd = self._calc_coeff(ubd3, vbd3, psb, psdotb,
+                                    dwdz=wb3dec[:kz] - wb3dec[1:])
+        xkcf = torch.cat([xkc[:1], xkc], dim=0)
+
+        # -- advection
+        uavg1 = shift(umc, 1, 0) + umc
+        uavg2 = shift(umc, 1, 1) + shift(umc, 0, 1)
+        vavg1 = shift(vmc, 0, 1) + vmc
+        vavg2 = shift(vmc, 1, 1) + shift(vmc, 1, 0)
+        udyn, vdyn = self._advection_uv(umc, vmc, ud, vd, uc, vc, qdot)
+        # T (ithadv=0, NH: exner-weighted interfaces on p0)
+        tdyn0 = self._hadv_scalar(tdec, uavg1, uavg2, vavg1, vavg2, ps=psa)
+        tdyn0 = self._stability_guard(tdyn0, tdec * psa[None], psa, "abs")
+        dq_t = s.t_a * base.pr0 ** (-c.c287)
+        fT = base.pf0[1:kz] ** c.c287 * qdot[1:kz] * (
+            self.twt1[1:] * dq_t[1:] + self.twt2[1:] * dq_t[:-1])
+        tdyn0 = tdyn0 + self._vadv_flux(fT)
+        # qv and the hydrometeors (the hydrostatic forms)
+        qvhadv = self._hadv_scalar(qvdec, uavg1, uavg2, vavg1, vavg2,
+                                   ps=psa)
+        qvhadv = self._stability_guard(qvhadv, qvdec, psa, "rel")
+        qva = s.qx_a[IQV]
+        ok = ((qva[1:] > c.minqq * psa[None])
+              & (qva[:-1] > c.minqq * psa[None]))
+        fgq = torch.where(ok, qva[1:] * (qva[:-1]
+                                         / torch.clamp(qva[1:], min=1e-30))
+                          ** self.qcon[1:], 0.0)
+        qv_vadv = self._vadv_flux(qdot[1:kz] * fgq)
+        qvten = qvhadv + qv_vadv
+        qhten = self._hadv_scalar(qhdec, uavg1, uavg2, vavg1, vavg2, ps=psa)
+        qhten = self._stability_guard(qhten, qhdec, psa, "rel")
+        qha = s.qx_a[1:]
+        fi = self.twt1[1:] * qha[:, 1:] + self.twt2[1:] * qha[:, :-1]
+        thr = c.minqq * c.minqq * psa[None]
+        fqh = torch.where(qdot[1:kz] > 0.0,
+                          torch.where(qha[:, :-1] > thr, qdot[1:kz] * fi,
+                                      0.0),
+                          torch.where(qha[:, 1:] > thr, qdot[1:kz] * fi,
+                                      0.0))
+        qhten = qhten + self._vadv_flux(fqh)
+        # pp (hadv ind=0 on the decoupled, vadv ind=0 on the coupled)
+        ppdyn = self._hadv_scalar(ppdec, uavg1, uavg2, vavg1, vavg2)
+        fpp = qdot[1:kz] * (self.twt1[1:] * s.pp_a[1:]
+                            + self.twt2[1:] * s.pp_a[:-1])
+        ppdyn = ppdyn + self._vadv_flux(fpp)
+        # w on the interior interfaces (hadv ind=1 with the winds
+        # interpolated to the interfaces; vadv nk=kzp1 ind=0 with
+        # half-level fluxes, Main/mod_advection.F90:754-766)
+        ua1_i = self.twt1[1:] * uavg1[1:] + self.twt2[1:] * uavg1[:-1]
+        ua2_i = self.twt1[1:] * uavg2[1:] + self.twt2[1:] * uavg2[:-1]
+        va1_i = self.twt1[1:] * vavg1[1:] + self.twt2[1:] * vavg1[:-1]
+        va2_i = self.twt1[1:] * vavg2[1:] + self.twt2[1:] * vavg2[:-1]
+        wd_i = wdec[1:kz]
+        fx1 = shift(wd_i, 0, -1) + wd_i
+        fx2 = wd_i + shift(wd_i, 0, 1)
+        fy1 = shift(wd_i, -1, 0) + wd_i
+        fy2 = wd_i + shift(wd_i, 1, 0)
+        wdyn_i = -self.xmapf[None] * (ua2_i * fx2 - ua1_i * fx1
+                                      + va2_i * fy2 - va1_i * fy1) \
+            * self.m_ci
+        fx0 = 0.5 * (qdot[:kz] + qdot[1:]) * (s.w_a[:kz] + s.w_a[1:])
+        wdyn_i = wdyn_i + (fx0[:-1] - fx0[1:]) \
+            * (1.0 / (self.dsig3[1:] + self.dsig3[:-1]))
+
+        # -- Coriolis (the NH curvature terms :1838-1876, the horizontal
+        # Coriolis part)
+        udyn = udyn + self.coriol[None] * vc * self.m_di
+        vdyn = vdyn - self.coriol[None] * uc * self.m_di
+
+        # -- adiabatic, NH (:1568-1680)
+        cpm = cpmf(qvdec)
+        scr1 = 0.5 * c.egrav * base.rho0 * (s.w_a[:kz] + s.w_a[1:]) \
+            * rpsa[None]
+        tdyn = tdyn0 + (tdec * div
+                        - (scr1 * psa[None] + ppdyn
+                           + ppdec * div) / (rho1 * cpm)) * self.m_ci
+        ppdyn = ppdyn + ppdec * div * self.m_ci
+        qvten = qvten + qvdec * div * self.m_ci
+        qhten = qhten + qhdec * div * self.m_ci
+        # w buoyancy, curvature and divergence terms (:1620-1660) and the
+        # water loading
+        rofac_i = (self.dsig3[:-1] * base.rho0[1:]
+                   + self.dsig3[1:] * base.rho0[:-1]) \
+            / (self.dsig3[:-1] * rho1[1:] + self.dsig3[1:] * rho1[:-1])
+        ucc4c = uc + shift(uc, 0, 1) + shift(uc, 1, 0) + shift(uc, 1, 1)
+        vcc4c = vc + shift(vc, 0, 1) + shift(vc, 1, 0) + shift(vc, 1, 1)
+        uaq = 0.25 * (self.twt1[1:] * ucc4c[1:]
+                      + self.twt2[1:] * ucc4c[:-1])
+        vaq = 0.25 * (self.twt1[1:] * vcc4c[1:]
+                      + self.twt2[1:] * vcc4c[:-1])
+        wbuoy = ((self.twt2[1:] * bfac[:-1] + self.twt1[1:] * bfac[1:])
+                 * rofac_i * c.egrav * psa[None]
+                 + (uaq ** 2 + vaq ** 2) * c.rearthrad * rpsa[None]
+                 + wdec[1:kz] * (self.twt1[1:] * div[1:]
+                                 + self.twt2[1:] * div[:-1]))
+        wbuoy = wbuoy - c.egrav * psa[None] * (
+            self.twt2[1:] * qcdec[:-1] + self.twt1[1:] * qcdec[1:])
+        wdyn_i = wdyn_i + wbuoy * self.m_ci
+
+        # -- boundary nudging (T, qv, u, v as the hydrostatic core; pp and
+        # w toward 0)
+        xtd = xt + dt
+        tdyn = tdyn + self._nudge3(
+            (bdy.t0 + xtd * bdy.tt) - s.t_b, self.nfc, self.ngc)
+        qvten = qvten + self._nudge3(
+            (bdy.qv0 + xtd * bdy.qvt) - s.qx_b[IQV], self.nfc, self.ngc)
+        udyn = udyn + self._nudge3(
+            (bdy.u0 + xtd * bdy.ut) - s.u_b, self.nfd, self.ngd, dot=True)
+        vdyn = vdyn + self._nudge3(
+            (bdy.v0 + xtd * bdy.vt) - s.v_b, self.nfd, self.ngd, dot=True)
+        ppdyn = ppdyn + self._nudge3(-s.pp_b, self.nfc, self.ngc)
+        wdyn_i = wdyn_i + self._nudge3(-s.w_b[1:kz], self.nfc[:kz - 1],
+                                       self.ngc[:kz - 1])
+        wdyn = torch.cat([zt, wdyn_i, zt], dim=0)
+
+        # -- physics
+        tphy = torch.zeros_like(tdyn)
+        qvphy = torch.zeros_like(qvten)
+        qhphy = torch.zeros_like(qhten)
+        uphy = torch.zeros_like(udyn)
+        vphy = torch.zeros_like(vdyn)
+        sfupd: Dict[str, torch.Tensor] = {}
+        cldfra = torch.zeros_like(tdyn)
+        heatrt = s.heatrt
+        if self.physics is not None:
+            (tphy, qvphy, qhphy, uphy, vphy, cldfra,
+             heatrt, sfupd) = self.physics(
+                 self, atms, s, bdy, flags, dt,
+                 dyn=dict(tdyn=tdyn, qvdyn=qvten, qvhadv=qvhadv,
+                          qv_vadv=qv_vadv))
+        tphy = tphy + psb[None] * heatrt * self.m_ci
+        # pp heating tendency (xgamma·p0·Q/(cp·T0), the NH radiation
+        # coupling)
+        ppphy = (1.0 / (1.0 - c.rovcp)) * base.pr0 * heatrt \
+            / torch.clamp(base.t0, min=100.0) * psb[None] * c.rcpd
+
+        # -- diffusion
+        udyn = udyn + self._diffu_dot(ubd3, xkd)
+        vdyn = vdyn + self._diffu_dot(vbd3, xkd)
+        tdyn = tdyn + self._diffu_cross(tb3, xkc)
+        qvten = qvten + self._diffu_cross(qvb3, xkc)
+        qhten = qhten + self._diffu_cross(qhb3, xkc)
+        ppdyn = ppdyn + self._diffu_cross(ppb3, xkc)
+        wdyn = wdyn + self._diffu_cross(wb3dec, xkcf)
+
+        tten = tdyn + tphy
+        qvten_t = qvten + qvphy
+        qhten_t = qhten + qhphy
+        ppten_t = ppdyn + ppphy
+        wten_t = wdyn
+        uten = udyn + uphy
+        vten = vdyn + vphy
+        if self.cfg.physics.ipptls == 1:
+            dtc, dqv, dqc = self._condtq(s, tten, qvten_t, qhten_t[0],
+                                         psb, rpsb, cldfra, dt)
+            tten = tten + dtc
+            qvten_t = qvten_t + dqv
+            qhten_t = torch.cat([(qhten_t[0] + dqc)[None], qhten_t[1:]])
+        if self.iboudy == 4:
+            # sponge on the total tendencies (mod_tendency.F90:1481-1499);
+            # the pp and w boundary values are 0
+            wc3 = self.spwc[None]
+            wd3 = self.spwd[None]
+            tten = wc3 * tten + (1.0 - wc3) * bdy.tt
+            qvten_t = wc3 * qvten_t + (1.0 - wc3) * bdy.qvt
+            qhten_t = wc3 * qhten_t
+            uten = wd3 * uten + (1.0 - wd3) * bdy.ut
+            vten = wd3 * vten + (1.0 - wd3) * bdy.vt
+            ppten_t = wc3 * ppten_t
+            wten_t = wc3 * wten_t
+        if self.ifrayd == 1:
+            # upper-level Rayleigh damping toward the boundary values
+            # (mod_tendency.F90:356-364, 465-477; tau at
+            # mod_bdycod.F90:5115-5123) on the top min(kz, rayndamp)
+            # levels; pp and w relax toward 0
+            nr = min(kz, self.rayndamp)
+            xt2 = xt + dt
+            tau_c = self._rayleigh_tau(za, nr)
+            tten = tten + tau_c * ((bdy.t0 + xt2 * bdy.tt) - s.t_b)
+            qvten_t = qvten_t + tau_c * (
+                (bdy.qv0 + xt2 * bdy.qvt) - s.qx_b[IQV])
+            # dot-point heights: the 4-point average (raydampuv :4966)
+            tau_d = self._rayleigh_tau(cross2dot(za), nr)
+            uten = uten + tau_d * ((bdy.u0 + xt2 * bdy.ut) - s.u_b)
+            vten = vten + tau_d * ((bdy.v0 + xt2 * bdy.vt) - s.v_b)
+            ppten_t = ppten_t - tau_c * s.pp_b
+            wten_t = wten_t - self._rayleigh_tau(zq, nr) * s.w_b
+
+        # -- forecast t and qx, then their filters
+        mci = self.m_ci > 0.5
+        mdi = self.m_di > 0.5
+        tc = s.t_b + dt * tten * self.m_ci
+        qvc = self._negfix(s.qx_b[IQV] + dt * qvten_t * self.m_ci)
+        qhc = self._negfix(s.qx_b[1:] + dt * qhten_t * self.m_ci)
+        dtf = self.gnu1 * (tc + s.t_b - 2.0 * s.t_a)
+        t_b_n = torch.where(mci, s.t_a + dtf, s.t_b)
+        t_a_n = torch.where(mci, tc, s.t_a)
+        beta = 0.53
+        dq = self.gnu1 * (qvc + s.qx_b[IQV] - 2.0 * s.qx_a[IQV])
+        qv_b_n = torch.where(mci, torch.maximum(s.qx_a[IQV] + beta * dq,
+                                                c.minqq * psa),
+                             s.qx_b[IQV])
+        qv_a_n = torch.where(mci, torch.maximum(qvc + (beta - 1.0) * dq,
+                                                c.minqq * psb),
+                             s.qx_a[IQV])
+        dqcf = self.gnu2 * (qhc + s.qx_b[1:] - 2.0 * s.qx_a[1:])
+        qh_b_n = torch.where(mci, torch.clamp(s.qx_a[1:] + beta * dqcf,
+                                              min=0.0), s.qx_b[1:])
+        qh_a_n = torch.where(mci, torch.clamp(qhc + (beta - 1.0) * dqcf,
+                                              min=0.0), s.qx_a[1:])
+
+        # -- the acoustic solver: new u, v, pp, w and the dp' heating of T
+        u_c, v_c, pp_c, w_c, t_a_n, t_b_n = sound(
+            self, base, s._replace(t_a=t_a_n, t_b=t_b_n), uten, vten,
+            ppten_t, wten_t, tb3, qvb3, dt)
+        # Asselin filters of the solver's output (mod_sound.F90:690-716)
+        duf = self.gnu1 * (u_c + s.u_b - 2.0 * s.u_a)
+        u_b_n = torch.where(mdi, s.u_a + duf, s.u_b)
+        u_a_n = torch.where(mdi, u_c, s.u_a)
+        dvf = self.gnu1 * (v_c + s.v_b - 2.0 * s.v_a)
+        v_b_n = torch.where(mdi, s.v_a + dvf, s.v_b)
+        v_a_n = torch.where(mdi, v_c, s.v_a)
+        dpf = self.gnu1 * (pp_c + s.pp_b - 2.0 * s.pp_a)
+        pp_b_n = torch.where(mci, s.pp_a + dpf, s.pp_b)
+        pp_a_n = torch.where(mci, pp_c, s.pp_a)
+        dwf = self.gnu2 * (w_c + s.w_b - 2.0 * s.w_a)
+        w_b_n = torch.where(mci, s.w_a + dwf, s.w_b)
+        w_a_n = torch.where(mci, w_c, s.w_a)
+
+        # -- bdyval
+        xt2 = xt + dt
+        ecm = self.e_call > 0.5
+        edm = self.e_dall > 0.5
+        t_b_n = torch.where(ecm, t_a_n, t_b_n)
+        qv_b_n = torch.where(ecm, qv_a_n, qv_b_n)
+        qh_b_n = torch.where(ecm, qh_a_n, qh_b_n)
+        u_b_n = torch.where(edm, u_a_n, u_b_n)
+        v_b_n = torch.where(edm, v_a_n, v_b_n)
+        pp_b_n = torch.where(ecm, pp_a_n, pp_b_n)
+        w_b_n = torch.where(ecm, w_a_n, w_b_n)
+        t_a_n = torch.where(ecm, bdy.t0 + xt2 * bdy.tt, t_a_n)
+        qv_a_n = torch.where(ecm, bdy.qv0 + xt2 * bdy.qvt, qv_a_n)
+        u_a_n = torch.where(edm, bdy.u0 + xt2 * bdy.ut, u_a_n)
+        v_a_n = torch.where(edm, bdy.v0 + xt2 * bdy.vt, v_a_n)
+        # inflow/outflow edges (mod_bdycod.F90:1809+)
+        ucx = dot2cross(u_a_n)
+        vcx = dot2cross(v_a_n)
+        qh_a_n = self._flow_edges(qh_a_n, psa, ucx, vcx)
+        if self.iboudy in (3, 4):
+            qv_a_n = self._flow_edges(qv_a_n, psa, ucx, vcx, qext=qv_a_n)
+
+        ns = s._replace(
+            u_a=u_a_n, u_b=u_b_n, v_a=v_a_n, v_b=v_b_n,
+            t_a=t_a_n, t_b=t_b_n,
+            qx_a=torch.cat([qv_a_n[None], qh_a_n]),
+            qx_b=torch.cat([qv_b_n[None], qh_b_n]),
+            pp_a=pp_a_n, pp_b=pp_b_n, w_a=w_a_n, w_b=w_b_n,
+            heatrt=heatrt, **sfupd)
+        diags = dict(
+            wmax=torch.max(torch.abs(w_a_n * rpsb[None])),
+            ppmax=torch.max(torch.abs(pp_a_n * rpsb[None])),
+            tmax=torch.max(torch.where(mci, tdec, 0.0)))
+        if self.mesh is not None:       # over the whole domain
+            red = self.mesh.all_reduce(torch.stack(
+                [diags["wmax"], diags["ppmax"], diags["tmax"]]))
+            diags.update(wmax=red[0], ppmax=red[1], tmax=red[2])
+        return ns, diags
+
+    def _rayleigh_tau(self, z, nr):
+        """The Rayleigh damping rate at heights z (levels, y, x) on the
+        top nr levels (mod_bdycod.F90:5115-5123): rayalpha0·sin²(π/2·(1 −
+        (ztop − z)/rayhd)) within rayhd of the column's top level ztop."""
+        zmax = z[0:1]
+        tau = self.rayalpha0 * torch.sin(
+            0.5 * np.pi * (1.0 - (zmax - z) / self.rayhd)) ** 2
+        tau = torch.where(z > zmax - self.rayhd, tau, 0.0)
+        return torch.cat([tau[:nr], torch.zeros_like(tau[nr:])], dim=0)
+
+    # ------------------------------------------------------------------
+    def _flow_edges(self, q, ps, ucx, vcx, qext=None):
+        """Inflow/outflow edge values (mod_bdycod.F90:1809-1948 for qv
+        with iboudy 3/4, :2155-2230 for the hydrometeors): inflow edges
+        take the external value ``qext`` (0 for the hydrometeors,
+        qext=None), outflow edges extrapolate the decoupled interior
+        value recoupled with the edge p*. q may carry leading species
+        axes; periodic directions have no flow edges. The edges are the
+        domain's rows 0 and iy-2 and columns 0 and jx-2: under a mesh, the
+        first and last ranks of each axis write them at the same local
+        offsets from their block's edge (a block holds at least 4 rows
+        and columns)."""
         ly, lx = q.shape[-2], q.shape[-1]
         m = self.mesh
         west = m is None or m.px == 0
@@ -690,21 +1183,25 @@ class HydroCore:
         north = m is None or m.py == m.ny - 1
         qdec = q / ps
         q = q.clone()        # fresh copy: the edge writes below are local
+        ext = (lambda sl: 0.0) if qext is None else (lambda sl: qext[sl])
         if not self.periodic_x:
             if west:
-                q[..., 0] = torch.where(ucx[:, :, 0] > 0.0, 0.0,
+                q[..., 0] = torch.where(ucx[:, :, 0] > 0.0,
+                                        ext((Ellipsis, 0)),
                                         qdec[..., 1] * ps[:, 0])
             if east:
                 q[..., lx - 2] = torch.where(
-                    ucx[:, :, lx - 2] < 0.0, 0.0,
+                    ucx[:, :, lx - 2] < 0.0, ext((Ellipsis, lx - 2)),
                     qdec[..., lx - 3] * ps[:, lx - 2])
         if not self.periodic_y:
             if south:
-                q[..., 0, :] = torch.where(vcx[:, 0, :] > 0.0, 0.0,
+                q[..., 0, :] = torch.where(vcx[:, 0, :] > 0.0,
+                                           ext((Ellipsis, 0, slice(None))),
                                            qdec[..., 1, :] * ps[0, :])
             if north:
                 q[..., ly - 2, :] = torch.where(
-                    vcx[:, ly - 2, :] < 0.0, 0.0,
+                    vcx[:, ly - 2, :] < 0.0,
+                    ext((Ellipsis, ly - 2, slice(None))),
                     qdec[..., ly - 3, :] * ps[ly - 2, :])
         return q
 
@@ -721,11 +1218,83 @@ class HydroCore:
         m = self.m_di if dot else self.m_ci
         return (fmap * diff - gmap * lap) * m
 
+    def _calc_coeff(self, ubd3, vbd3, psb, psdotb, dwdz=None):
+        """Horizontal diffusion coefficients at cross and dot points
+        (calc_coeff, Main/mod_diffusion.F90:148-255), coupled by p*: the
+        deformation-dependent form (the NH variant with the dw/dz term
+        ``dwdz`` and twice the cap), or idiffu=3's constant
+        6th-order coefficient (diff_6th_coef·p*, :174-183)."""
+        if self.idiffu == 3:
+            shape = (self.kz,) + tuple(psb.shape)
+            return ((self.diff6 * psb)[None].expand(shape),
+                    (self.diff6 * psdotb)[None].expand(shape))
+        dudx = (shift(ubd3, 1, 1) + shift(ubd3, 0, 1) - shift(ubd3, 1, 0)
+                - ubd3)
+        dvdx = (shift(vbd3, 1, 1) + shift(vbd3, 0, 1) - shift(vbd3, 1, 0)
+                - vbd3)
+        dudy = (shift(ubd3, 1, 0) + shift(ubd3, 1, 1) - ubd3
+                - shift(ubd3, 0, 1))
+        dvdy = (shift(vbd3, 1, 0) + shift(vbd3, 1, 1) - vbd3
+                - shift(vbd3, 0, 1))
+        if dwdz is None:
+            duv = torch.sqrt((dudx - dvdy) ** 2 + (dvdx + dudy) ** 2)
+            cap = self.xkhmax
+        else:
+            duv = torch.sqrt(torch.clamp(
+                (dudx - dvdy) ** 2 + (dvdx + dudy) ** 2 - dwdz ** 2,
+                min=0.0))
+            cap = 2.0 * self.xkhmax
+        xkc_raw = torch.clamp(self.hgfact[None] + self.dydc * duv,
+                              max=cap) * self.m_c
+        xkc_raw = fix_cross_pad(xkc_raw)
+        xkd = 0.25 * (xkc_raw + shifte(xkc_raw, -1, -1)
+                      + shifte(xkc_raw, 0, -1) + shifte(xkc_raw, -1, 0))
+        rdxsq = 1.0 / (self.dx * self.dx)
+        return xkc_raw * rdxsq * psb[None], xkd * rdxsq * psdotb[None]
+
+    def _diffu6(self, fflux, flim, xk, m):
+        """idiffu=3 6th-order monotonic hyperdiffusion (the diffu_*
+        idiffu==3 branches, Main/mod_diffusion.F90:412-519,602-660;
+        WRF's Knievel et al. 2007 scheme): interface fluxes
+        10·Δ1 − 5·Δ2 + Δ3, zeroed where the flux runs up the gradient of
+        ``flim`` (the cross version limits on f/mpd while fluxing f, as
+        the reference does), with the edges replicated. As the JAX
+        package does, over the whole interior: the reference's own loops
+        visit a single row and column (``do j = jdi2, jdi2``, :421/:611)."""
+        ny, nx = fflux.shape[-2], fflux.shape[-1]
+        ffp = halo_pad(fflux, 3)
+        flp = halo_pad(flim, 3)
+
+        def one_axis(dy, dx):
+            def cut(a, n):
+                y0 = 3 + n * dy
+                x0 = 3 + n * dx
+                return a[..., y0:y0 + ny, x0:x0 + nx]
+            sh = lambda n: cut(ffp, n)
+            sl = lambda n: cut(flp, n)
+            fp1 = (10.0 * (sh(1) - sh(0)) - 5.0 * (sh(2) - sh(-1))
+                   + (sh(3) - sh(-2)))
+            fp1 = torch.where(fp1 * (sl(1) - sl(0)) <= 0.0, 0.0, fp1)
+            fp0 = (10.0 * (sh(0) - sh(-1)) - 5.0 * (sh(1) - sh(-2))
+                   + (sh(2) - sh(-3)))
+            fp0 = torch.where(fp0 * (sl(0) - sl(-1)) <= 0.0, 0.0, fp0)
+            return fp1 - fp0
+        return xk * (one_axis(0, 1) + one_axis(1, 0)) * m
+
     def _diffu_cross(self, fdec, xkc):
-        """diffu_x3d idiffu=1 (Main/mod_diffusion.F90:539-660):
-        4th-order interior, 2nd-order on the first interior ring."""
+        """diffu_x3d (Main/mod_diffusion.F90:539-660): idiffu=1
+        4th-order interior and 2nd-order on the first interior ring;
+        idiffu=2 one 9-point 4th-order operator (:592-601); idiffu=3
+        6th-order monotonic (_diffu6)."""
+        if self.idiffu == 3:
+            return self._diffu6(fdec, fdec / self.msfd, xkc, self.m_ci)
         s1 = (shift(fdec, 0, 1) + shift(fdec, 0, -1)
               + shift(fdec, 1, 0) + shift(fdec, -1, 0))
+        if self.idiffu == 2:
+            sd = (shift(fdec, 1, 1) + shift(fdec, -1, -1)
+                  + shift(fdec, -1, 1) + shift(fdec, 1, -1))
+            return xkc * ((4.0 / 6.0) * s1 + (1.0 / 6.0) * sd
+                          - (20.0 / 6.0) * fdec) * self.m_ci
         s2 = (shift(fdec, 0, 2) + shift(fdec, 0, -2)
               + shift(fdec, 2, 0) + shift(fdec, -2, 0))
         four = -xkc * (s2 - 4.0 * s1 + 12.0 * fdec)
@@ -734,10 +1303,19 @@ class HydroCore:
         return four * self.m_ci2 + two * ring
 
     def _diffu_dot(self, fdec, xkd):
-        """diffu_d idiffu=1 (Main/mod_diffusion.F90:280-440) on f/msfd."""
+        """diffu_d (Main/mod_diffusion.F90:280-440) on f/msfd: idiffu=2
+        the 9-point 4th-order operator (:386-411), idiffu=3 6th-order
+        monotonic (:412-519)."""
         fm = fdec / self.msfd
+        if self.idiffu == 3:
+            return self._diffu6(fm, fm, xkd, self.m_di)
         s1 = (shift(fm, 0, 1) + shift(fm, 0, -1)
               + shift(fm, 1, 0) + shift(fm, -1, 0))
+        if self.idiffu == 2:
+            sd = (shift(fm, 1, 1) + shift(fm, -1, -1)
+                  + shift(fm, -1, 1) + shift(fm, 1, -1))
+            return xkd * ((4.0 / 6.0) * s1 + (1.0 / 6.0) * sd
+                          - (20.0 / 6.0) * fm) * self.m_di
         s2 = (shift(fm, 0, 2) + shift(fm, 0, -2)
               + shift(fm, 2, 0) + shift(fm, -2, 0))
         four = -xkd * (s2 - 4.0 * s1 + 12.0 * fm)

@@ -18,7 +18,7 @@ import functools
 
 import torch
 
-from ..parallel.halo import halo_expand
+from ..parallel.halo import halo_expand, halo_expand2d
 
 # Topology flags: the reference's set_nproc builds an x-periodic (band,
 # i_band=1) or doubly periodic (CRM, i_crm=1) topology
@@ -130,6 +130,20 @@ def shifte(a, dy: int, dx: int):
         ix = torch.clamp(torch.arange(nx, device=a.device) + dx, 0, nx - 1)
         a = a.index_select(-1, ix)
     return a
+
+
+def halo_pad(a, h: int, wrap: bool = True):
+    """``a`` (..., ly, lx) extended by h on each side: the edge values
+    replicated at a domain edge, wrapped around a periodic axis (with
+    ``wrap``), the neighbouring ranks' values under a mesh."""
+    if _MESH is not None:
+        return halo_expand2d(a, _MESH, h, "edge")
+    ny, nx = a.shape[-2], a.shape[-1]
+
+    def index(n, periodic):
+        i = torch.arange(-h, n + h, device=a.device)
+        return i % n if periodic and wrap else torch.clamp(i, 0, n - 1)
+    return a.index_select(-2, index(ny, _PY)).index_select(-1, index(nx, _PX))
 
 
 def kshift(a, dk: int, fill=0.0):

@@ -44,8 +44,8 @@ SUPPORTED = dict(
     irrtm={0},                     # CCM3
     lakemod={0}, islab_ocean={0}, idcsst={0}, iseaice={0},
 )
-# the dynamical-core options (idynamic, iboudy, idiffu, ipgf, isladvec,
-# ichem) are refused by HydroCore
+# the dynamical cores refuse what they leave out (HydroCore: chemistry,
+# the UW TCM's TKE, a decomposed semi-Lagrangian run; MolochCore its own)
 
 
 def validate_physics(cfg):

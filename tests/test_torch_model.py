@@ -160,21 +160,35 @@ def test_standard_atmosphere_state_matches_jax():
 
 
 def test_model_refuses_unported_options():
+    """Every option the port leaves out raises at model build; the
+    decomposed runs (mesh=) also refuse the semi-Lagrangian advection
+    (ROADMAP item 10e) and the periodic topologies (item 10d)."""
     from regcm_tpu_torch.driver import Model
+    from regcm_tpu_torch.parallel.mesh import DomainMesh
 
-    for section, name, val in (("core", "idynamic", 2),
-                               ("physics", "icup_lnd", 2),
-                               ("physics", "ibltyp", 3),
-                               ("physics", "ipptls", 2),
-                               ("physics", "iocnflx", 1),
-                               ("physics", "ichem", 1),
-                               ("physics", "isladvec", 1),
-                               ("physics", "idiffu", 3),
-                               ("dim", "nsg", 2)):
+    for overrides in ((("core", "idynamic", 4),),
+                      (("physics", "icup_lnd", 2),),
+                      (("physics", "ibltyp", 3),),
+                      (("physics", "ibltyp", 2),),
+                      (("physics", "ipptls", 2),),
+                      (("physics", "iocnflx", 1),),
+                      (("physics", "ichem", 1),),
+                      (("physics", "ichem", 1), ("core", "idynamic", 2)),
+                      (("physics", "idiffu", 4),),
+                      (("physics", "iboudy", 6),),
+                      (("dim", "nsg", 2),)):
         _, cfg = golden_cfgs()
-        setattr(getattr(cfg, section), name, val)
+        for section, name, val in overrides:
+            setattr(getattr(cfg, section), name, val)
         with pytest.raises((ValueError, NotImplementedError)):
             Model(cfg, device="cpu")
+    for section, name, item in (("physics", "isladvec", "10e"),
+                                ("geo", "i_band", "10d")):
+        _, cfg = golden_cfgs()
+        setattr(getattr(cfg, section), name, 1)
+        mesh = DomainMesh(2, 2, cfg.dim.iy, cfg.dim.jx, rank=0)
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
+            Model(cfg, device="cpu", mesh=mesh, physics=False)
 
 
 def test_state_round_trip_through_numpy():

@@ -320,7 +320,7 @@ def test_moloch_refusals():
                                ("physics", "ibltyp", 2),
                                ("physics", "ichem", 1),
                                ("geo", "i_band", 1),
-                               ("core", "idynamic", 2)):
+                               ("geo", "i_crm", 1)):
         _, cfg = moloch_cfgs()
         setattr(getattr(cfg, section), name, val)
         with pytest.raises((ValueError, NotImplementedError)):

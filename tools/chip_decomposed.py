@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""The decomposed phases of ``chip_smoke.py`` (10-12) alone, with only what
-they are held to: the single card's first 12 MOLOCH flagship steps (phase
-6) and the ICBC-driven runs (phase 13).
+"""The decomposed phases of ``chip_smoke.py`` (10-12, 14c) alone, with only
+what they are held to: the single card's first 12 MOLOCH flagship steps
+(phase 6), the ICBC-driven runs (phase 13) and the NH flagship on one card
+(phase 14a).
 
 For a host with four or more cards, where phases 10-12 run under gloo and
 under nccl (a card a rank): it spares the four-card call the phases that
@@ -60,7 +61,9 @@ def main():
     try:
         paths = cs.write_icbc_files(tmp)
         icbc13 = cs.run_icbc_single(dev, smi, paths, mods)   # phase 13
-        cs.run_decomposed(dev, smi, single12, paths, icbc13)  # 10-12
+        nh14 = cs.run_nh_single(dev, smi, mods)              # phase 14a
+        cs.run_decomposed(dev, smi, single12, paths, icbc13,
+                          nh14["single12"])                  # 10-12, 14c
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
