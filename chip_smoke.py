@@ -80,6 +80,21 @@ Phases (any failure raises and the script exits nonzero):
      each ported dynamics option (idiffu 2/3, iboudy 1/3/4, ipgf 1,
      ithadv 1, isladvec with iqmsl 0/1; on the NH core idiffu 3 and
      iboudy 4) on the card against the CPU in f64, 3 steps at 18x24x14;
+ 15. the second physics set, after phase 14 and, for 15e, in the
+     decomposed group: (a) configuration A (Emanuel over land, Tiedtke
+     over water, the UW TCM, Nogherotto-Tompkins) on test_001 from phase
+     13's ICBC files (f32) through step 150, with the ms/step of plain,
+     cumulus and radiation steps, K2's launches and the device kernels of
+     a cumulus step; (b) configuration B (no deep convection,
+     Nogherotto-Tompkins, Holtslag) on MOLOCH at 192x192x41 (f32): 24
+     steps through K1, K3 and K4 at nf = 10 (counters checked), the
+     ms/step of steps 24-47, the peak memory and the first non-finite
+     step, then a 48x48x41 cut for 12 steps held to the JAX package's
+     numbers (B_REFERENCE); (c) each new scheme and each icldfrac on the
+     card against the CPU in f64 at 16x20x14; (d) K4 and K5a (2x2
+     blocks) at nf = 10 against their plain versions and K5a against K4
+     bit for bit, with device time and bound; (e) A on 2x2 ranks (gloo)
+     held to (a) bit for bit at step 12;
 then a JSON line of the kernels and the result line.
 """
 import json
@@ -188,6 +203,24 @@ OPTIONS = {"idiffu2": (1, dict(idiffu=2)), "idiffu3": (1, dict(idiffu=3)),
            "isladvec_qmsl1": (1, dict(isladvec=1, iqmsl=1)),
            "nh_idiffu3": (2, dict(idiffu=3)),
            "nh_iboudy4": (2, dict(iboudy=4))}
+
+
+# phase 15: configuration A (Emanuel over land, Tiedtke over water, the
+# UW TCM, Nogherotto-Tompkins) and B (no deep convection,
+# Nogherotto-Tompkins, Holtslag)
+SCHEME_A = dict(icup_lnd=4, icup_ocn=5, ibltyp=2, ipptls=2, icldfrac=0)
+SCHEME_B = dict(icup_lnd=0, icup_ocn=0, ibltyp=1, ipptls=2, icldfrac=0)
+B_STEPS = 24
+NF10 = 10          # B's WAF stack: θv, π, ux, vx, wx and five species
+# the JAX package (float32, CPU) with B's physics on a 48x48x41 MOLOCH
+# cut from initial_state(perturb=0.3, seed=1) moistened as moisten()
+# does it: step -> (ps min hPa, ps
+# max hPa, max |w| m/s, max qc, qr, qi, qs kg/kg), printed by
+# tools/moloch_3km_schemes_reference.py
+B_REFERENCE = {6: (1011.5966, 1014.1085, 0.33896, 1.000000e-04, 0.0,
+                   3.463735e-05, 8.895323e-10),
+               12: (1010.7578, 1014.9992, 0.43865, 1.000000e-04, 0.0,
+                    4.049361e-05, 1.046149e-09)}
 
 
 def nvidia_smi_line():
@@ -763,14 +796,15 @@ def write_icbc_files(directory):
     return paths
 
 
-def hydro_icbc_model(paths, device, mesh=None, dtype=None):
+def hydro_icbc_model(paths, device, mesh=None, dtype=None, physics=None):
     """test_001 in f32 on the DOMAIN file's grid, cold-started from the
-    ICBC file (the rank's block under a mesh)."""
+    ICBC file (the rank's block under a mesh), with the physicsparam
+    overrides ``physics``."""
     import torch
     from regcm_tpu_torch.driver import Model
     from regcm_tpu_torch.preproc.icbc import ICBCReader
     from regcm_tpu_torch.preproc.terrain import build_grid_from_domain
-    cfg = hydro_icbc_cfg()
+    cfg = with_physics(hydro_icbc_cfg(), physics or {})
     grid = build_grid_from_domain(cfg, paths["domain"])
     m = Model(cfg, grid=grid, device=device, dtype=dtype or torch.float32,
               mesh=mesh)
@@ -1000,6 +1034,7 @@ def decomposed_rank(rank, time_steps, paths):
     del model
     torch.cuda.empty_cache()
     out["nh"] = nh_rank(rank, time_steps)
+    out["schemes"] = schemes_rank(rank, paths)
     return out
 
 
@@ -1044,7 +1079,7 @@ def nh_rank(rank, time_steps):
     return nh
 
 
-def run_decomposed(dev, smi, single12, paths, icbc13, nh12):
+def run_decomposed(dev, smi, single12, paths, icbc13, nh12, a15):
     """Phases 10-12 and 14c: the 2x2 groups of ``decomposed_rank`` on
     every backend the host allows, held bit for bit to the single card's
     step-12 fields ``single12`` and to its f64 dryruns, test_001 from
@@ -1219,6 +1254,29 @@ def run_decomposed(dev, smi, single12, paths, icbc13, nh12):
               f"{DECOMP_STEPS + TIME_STEPS - 1}: cumulus at 20; "
               f"synchronised, slowest rank): "
               f"{res[0]['nh']['ms_per_step']:.3f} on {smi}")
+        # -- 15e. configuration A on 2x2 ranks against phase 15a
+        for r, out in enumerate(res):
+            h = out["schemes"]
+            print(f"  rank {r} configuration A: launches {h['launches']}")
+            if not h["finite"]:
+                raise AssertionError(f"rank {r}: non-finite decomposed "
+                                     f"configuration A")
+            if h["launches"]["K2"] <= 0:
+                raise AssertionError(f"rank {r} ({backend}): the "
+                                     f"decomposed configuration A "
+                                     f"bypassed K2: {h['launches']}")
+        dec = res[0]["schemes"]["dec"]
+        n = HYDRO_CHECK[0]
+        for f in HYDRO_FIELDS:
+            same = np.array_equal(dec[f], a15[n][f])
+            print(f"  configuration A f32 step {n}, {backend} 2x2 vs one "
+                  f"card (15a), {f}: "
+                  f"{'bit-identical' if same else 'DIFFERENT'}, rel-RMS "
+                  f"{rel_rms(dec[f], a15[n][f]):.3e}")
+            if not same:
+                raise AssertionError(f"decomposed configuration A "
+                                     f"({backend}) differs from one card in "
+                                     f"{f} at step {n}")
         decomp[backend] = res
     return decomp
 
@@ -1450,6 +1508,385 @@ def options_card_vs_cpu(dev):
 def max_rel(got, want):
     return float(np.max(np.abs(got - want))
                  / max(float(np.max(np.abs(want))), 1e-300))
+
+
+# -- phase 15: the second physics set -----------------------------------
+def with_physics(cfg, physics):
+    for k, v in physics.items():
+        setattr(cfg.physics, k, v)
+    return cfg
+
+
+def moisten(s, idynamic):
+    """Phase 15c's start: qv 1.8 times the rest state's (about 90% of
+    saturation), cloud water between 250 K and 290 K and ice between
+    220 K and 265 K, so that the microphysics has work from step 0."""
+    import torch
+    if idynamic == 3:
+        cpl, t, qx0 = 1.0, s.t, s.qx
+    else:
+        cpl = s.ps_a[None]
+        t, qx0 = s.t_a / cpl, s.qx_a
+    qv = 1.8 * qx0[0] / cpl
+    qc = torch.where((t > 250.0) & (t < 290.0), t.new_tensor(1.0e-4), 0.0)
+    qi = torch.where((t > 220.0) & (t < 265.0), t.new_tensor(3.0e-5), 0.0)
+    z = torch.zeros_like(qv)
+    qx = torch.stack([qv, qc, z, qi, z]) * cpl
+    if idynamic == 3:
+        return s._replace(qx=qx)
+    return s._replace(qx_a=qx, qx_b=qx.clone())
+
+
+def step_kernels(model, step):
+    """One ``step`` call under torch.profiler: (device kernels launched,
+    device busy ms, wall ms)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        step()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.time() - t0)
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    return len(kern), sum(e.time_range.elapsed_us() for e in kern) / 1e3, \
+        wall
+
+
+def run_schemes_a(dev, smi, paths, mods):
+    """Phase 15a: configuration A (test_001 from phase 13's ICBC files,
+    f32) through step 150; returns its step-12 fields (15e holds the 2x2
+    run to them), its launches a step and the kernel count of a cumulus
+    step."""
+    import torch
+    model = hydro_icbc_model(paths, dev, physics=SCHEME_A)
+    land = float(np.mean(model.grid.lndocn))
+    print(f"15a. configuration A {SCHEME_A} on test_001 "
+          f"({model.grid.jx}x{model.grid.iy}x{model.grid.kz}, f32, from "
+          f"ICBC): land fraction {land:.3f}")
+    if not 0.0 < land < 1.0:
+        raise AssertionError("configuration A's domain has no land/water "
+                             "split: one cumulus scheme would never run")
+    reset(mods)
+    rows, rec = [], {}
+    while model.nstep < HYDRO_ICBC_STEPS:
+        f = model._flags()
+        _, wall = model.run_icbc(1)
+        kind = "radiation" if f.do_rad else "cumulus" if f.do_cum \
+            else "plain"
+        rows.append((model.nstep - 1, kind, 1000.0 * wall))
+        if model.nstep in HYDRO_CHECK:
+            rec[model.nstep] = model.decoupled()
+    launches = read(mods)
+    ncum = sum(1 for n, k, _ in rows if k != "plain")
+    print(f"15a path: {HYDRO_ICBC_STEPS} steps, launches {launches} "
+          f"({ncum} cumulus steps: K2 {launches['K2'] / ncum:.2f} a "
+          f"cumulus step)")
+    if not model.check_finite():
+        raise AssertionError("15a: non-finite state")
+    if launches["K2"] <= 0 or launches["K1"] != 0:
+        raise AssertionError(f"15a bypassed K2 (Emanuel over land) or ran "
+                             f"Holtslag's K1 under the UW TCM: {launches}")
+    d = rec[HYDRO_ICBC_STEPS]
+    qx = model.state.qx_a / model.state.ps_a[None]
+    print(f"15a step {HYDRO_ICBC_STEPS}: ps {d['ps'].min():.3f}.."
+          f"{d['ps'].max():.3f} hPa, T {d['t'].min():.3f}.."
+          f"{d['t'].max():.3f} K, max qc/qr/qi/qs "
+          + "/".join(f"{float(qx[i].max()):.3e}" for i in range(1, 5))
+          + f", max TKE {float(model.state.tke_a.max()):.3f} m2/s2, "
+          f"rainc+rainnc max "
+          f"{float((model.state.rainc + model.state.rainnc).max()):.3f} mm")
+    ms = {}
+    for kind in ("plain", "cumulus", "radiation"):
+        t = [w for n, k, w in rows if k == kind and n >= 1]
+        ms[kind] = sum(t) / len(t)
+        print(f"15a ms/step (f32, 34x48x18, steps 1..149, each "
+              f"synchronised), {kind} steps: {ms[kind]:.3f} over {len(t)} "
+              f"steps, on {smi}")
+    nker, busy, wall = step_kernels(model, lambda: model.run_icbc(1))
+    print(f"15a cumulus step {model.nstep - 1} under the profiler: {nker} "
+          f"device kernels, device busy {busy:.2f} ms of {wall:.1f} ms wall")
+    del model
+    torch.cuda.empty_cache()
+    return dict(rec=rec, ms=ms, cum_kernels=nker,
+                per_step={k: v / HYDRO_ICBC_STEPS
+                          for k, v in launches.items()})
+
+
+def schemes_b_cfg(n=FLAGSHIP):
+    cfg = flagship_cfg()
+    cfg.dim.iy = cfg.dim.jx = n
+    return with_physics(cfg, SCHEME_B)
+
+
+def run_schemes_b(dev, smi, mods):
+    """Phase 15b: configuration B on MOLOCH at the flagship's widths, f32:
+    24 steps through K1, K3 and K4 (nf = 10) with the counters checked,
+    the ms/step of steps 24-47, the peak memory and the first
+    non-finite step; then the 48x48x41 cut held to B_REFERENCE. Both
+    from the flagship's perturbed rest state moistened by ``moisten``."""
+    import torch
+    from regcm_tpu_torch.core.grid import build_grid
+    from regcm_tpu_torch.driver import Model
+    from regcm_tpu_torch.dynamics.moloch import MolochCore
+    cfg = schemes_b_cfg()
+    grid = build_grid(cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    s0 = moisten(MolochCore(grid, cfg, device=dev, dtype=torch.float32
+                            ).initial_state(perturb=0.3, seed=1), 3)
+    model = Model(cfg, grid=grid, device=dev, dtype=torch.float32,
+                  initial_state=s0)
+    del s0
+    print(f"15b. configuration B {SCHEME_B} on MOLOCH "
+          f"{grid.jx}x{grid.iy}x{grid.kz}, f32, nqx {model.core.nqx}")
+    reset(mods)
+    walls, bad, launches = [], None, None
+    for n in range(2 * B_STEPS):
+        if n == B_STEPS:
+            launches = read(mods)
+        _, wall = model.run(1)
+        walls.append(1000.0 * wall)
+        if bad is None and not model.check_finite():
+            bad = model.nstep
+            break
+    if launches is None:
+        launches = read(mods)
+    print(f"15b path: {B_STEPS} steps, launches {launches}")
+    if min(launches[k] for k in ("K1", "K3", "K4")) <= 0 \
+            or launches["K2"] != 0:
+        raise AssertionError(f"15b bypassed a kernel or ran Emanuel's K2 "
+                             f"with the cumulus off: {launches}")
+    print(f"15b MOLOCH 192x192x41 f32 with configuration B: "
+          + (f"non-finite after step {bad}" if bad is not None
+             else f"finite through step {model.nstep}"))
+    if bad is not None and bad <= B_STEPS:
+        raise AssertionError(f"15b: non-finite within {B_STEPS} steps")
+    timed = walls[B_STEPS:]
+    if bad is None:
+        print(f"15b ms/step (f32, 192x192x41, steps {B_STEPS}.."
+              f"{2 * B_STEPS - 1}: cumulus off, surface at 40, no "
+              f"radiation; each synchronised): "
+              f"{sum(timed) / len(timed):.3f} on {smi}; peak device memory "
+              f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
+        nker, busy, wall = step_kernels(model, lambda: model.run(1))
+        print(f"15b step {model.nstep - 1} under the profiler: {nker} "
+              f"device kernels, device busy {busy:.2f} ms of {wall:.1f} ms "
+              f"wall")
+    del model
+    torch.cuda.empty_cache()
+    # the 48x48x41 cut against the JAX package's numbers
+    cfg = schemes_b_cfg(48)
+    grid = build_grid(cfg)
+    model = Model(cfg, grid=grid, device=dev, dtype=torch.float32,
+                  initial_state=moisten(MolochCore(
+                      grid, cfg, device=dev, dtype=torch.float32
+                  ).initial_state(perturb=0.3, seed=1), 3))
+    for n in range(1, max(B_REFERENCE) + 1):
+        model.run(1)
+        if n in B_REFERENCE:
+            d = model.decoupled()
+            qx = model.state.qx
+            got = (float(d["ps"].min()), float(d["ps"].max()),
+                   float(np.abs(d["w"]).max())) + tuple(
+                       float(qx[i].max()) for i in range(1, 5))
+            want = B_REFERENCE[n]
+            print(f"15b 48x48x41 f32 step {n}: ps {got[0]:.4f}..{got[1]:.4f}"
+                  f" hPa, wmax {got[2]:.5f} m/s, max qc/qr/qi/qs "
+                  + "/".join(f"{g:.4e}" for g in got[3:])
+                  + f"; JAX package {want[0]:.4f}..{want[1]:.4f} hPa, "
+                  f"{want[2]:.5f} m/s, "
+                  + "/".join(f"{w:.4e}" for w in want[3:]))
+            # ps, w as phase 6b; qc and qi within 1% (qr and qs, still
+            # ~1e-9 and below, are printed)
+            ok = (abs(got[0] - want[0]) < 0.1 and abs(got[1] - want[1]) < 0.1
+                  and abs(got[2] - want[2]) < 0.01 * want[2]
+                  and all(abs(got[i] - want[i]) <= 0.01 * want[i]
+                          for i in (3, 5)))
+            if not ok:
+                raise AssertionError(f"15b step {n} on the card leaves the "
+                                     f"reference: {got}")
+    del model
+    torch.cuda.empty_cache()
+    return dict(per_step={k: v / B_STEPS for k, v in launches.items()},
+                ms=sum(timed) / len(timed) if bad is None else None)
+
+
+def scheme_cases():
+    """Phase 15c's cases: (name, idynamic, ds, dt, physics overrides,
+    steps) on 16x20x14 over the 500 m hill with water."""
+    out = [("A hydrostatic", 1, 50.0, 150.0, SCHEME_A, 3),
+           ("A NH", 2, 10.0, 30.0, SCHEME_A, 3),
+           ("B MOLOCH", 3, 3.0, 30.0, SCHEME_B, 3)]
+    for i in range(1, 7):
+        out.append((f"A icldfrac={i}", 1, 50.0, 150.0,
+                    dict(SCHEME_A, icldfrac=i), 1))
+    return out
+
+
+def schemes_card_vs_cpu(dev):
+    """Phase 15c: each case on the card against the CPU in f64 from the
+    same moistened start (cumulus every step, every alarm at step 0):
+    rel-RMS below max(1e-7, 4 x the CPU run's spread under a 1e-15
+    relative change of T); a hydrometeor beyond it only at the points
+    where a microphysics threshold flipped (at most 1% of them)."""
+    import torch
+    from regcm_tpu_torch.config.params import RegCMConfig
+    from regcm_tpu_torch.core.grid import build_grid
+    from regcm_tpu_torch.driver import (Model, nh_initial_state,
+                                        standard_atmosphere_state)
+    from regcm_tpu_torch.dynamics.moloch import MolochCore
+    from regcm_tpu_torch.preproc.terrain import synthetic_topo
+    for name, idyn, ds, dt, phys, steps in scheme_cases():
+        cfg = with_physics(RegCMConfig(), phys)
+        cfg.core.idynamic = idyn
+        cfg.dim.iy, cfg.dim.jx, cfg.dim.kz = 16, 20, 14
+        cfg.geo.ds, cfg.time.dt, cfg.time.dtcum = ds, dt, dt
+        topo, _, mask = synthetic_topo(cfg, kind="gauss", height=500.0)
+        grid = build_grid(cfg, ht=topo, landmask=mask)
+        if idyn == 3:
+            s0 = MolochCore(grid, cfg, device="cpu").initial_state(
+                perturb=0.3, seed=1)
+        else:
+            start = nh_initial_state if idyn == 2 \
+                else standard_atmosphere_state
+            s0 = start(grid, cfg, "cpu", perturb=0.3, seed=1)
+        s0 = moisten(s0, idyn)
+        tn = "t" if idyn == 3 else "t_a"
+        rng = np.random.default_rng(0)
+        t = getattr(s0, tn)
+        s1 = s0._replace(**{tn: t * (1.0 + 1e-15 * torch.as_tensor(
+            rng.standard_normal(tuple(t.shape))))})
+        runs = {}
+        for run, device, init in (("gpu", dev, s0), ("cpu", "cpu", s0),
+                                  ("cpu_perturbed", "cpu", s1)):
+            m = Model(cfg, grid=grid, device=device, dtype=torch.float64,
+                      initial_state=init)
+            m.run(steps)
+            if not m.check_finite():
+                raise AssertionError(f"15c {name}: non-finite ({run})")
+            d = m.decoupled()
+            qx = m.state.qx if idyn == 3 \
+                else m.state.qx_a / m.state.ps_a[None]
+            for i, q in enumerate(("qc", "qr", "qi", "qs"), 1):
+                d[q] = qx[i].cpu().numpy()
+            runs[run] = d
+        worst, flips = (0.0, ""), {}
+        for f in ("ps", "t", "qv", "u", "v", "qc", "qr", "qi", "qs"):
+            want = runs["cpu"][f]
+            err = rel_rms(runs["gpu"][f], want)
+            lim = max(1e-7, 4.0 * rel_rms(runs["cpu_perturbed"][f], want))
+            worst = max(worst, (err / lim, f))
+            if err < lim:
+                continue
+            off = np.abs(runs["gpu"][f] - want) > 1e-7 * np.abs(want).max()
+            flips[f] = int(off.sum())
+            if f in ("ps", "t", "qv", "u", "v") or off.mean() > 0.01:
+                raise AssertionError(f"15c {name}: card and CPU disagree "
+                                     f"on {f}: rel-RMS {err} (bound {lim})")
+        print(f"15c {name}, {steps} steps f64, card vs CPU: worst field "
+              f"{worst[1]} at {worst[0]:.3f} of its bound"
+              + (f"; points past 1e-7 by a branch flip {flips}" if flips
+                 else ""))
+
+
+def compare_nf10(dev, k4):
+    """Phase 15d: K4 and K5a at B's stack of nf = 10 fields (θv, π, ux,
+    vx, wx and five water species) at 192x192x41: each against its plain
+    version (f64 1e-12, f32 1e-5), the 2x2 blocks of K5a against K4 bit
+    for bit, with the time and bound of each (f32)."""
+    import torch
+    from regcm_tpu_torch.parallel.halo import extend_block
+    from regcm_tpu_torch.parallel.mesh import DomainMesh
+    shape = (NF10,) + tuple(SHAPES["K4"][1][1:])
+    modes = ["zero"] * 4 + ["edge"] * 2 + ["zero"] * 2
+    stats = {}
+    for dtype in (torch.float64, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        args = k4_inputs(shape, dtype, dev)
+        ops, (dtrdx, dtrdz) = args[:8], args[8:]
+        iy, jx = shape[-2:]
+        want = k4.waf_advect(*args)
+        plain = k4.waf_advect_plain(*args)
+        torch.cuda.synchronize()
+        rel, ab = rel_err(want, plain)
+        print(f"15d K4 {dname} {shape}: max rel err {rel:.3e} against the "
+              f"plain version (max abs {ab:.3e}, tol {TOL[dname]['K4']:g})")
+        if not rel <= TOL[dname]["K4"]:
+            raise AssertionError(f"15d K4 {dname} nf=10 disagrees: {rel}")
+        meshes = [DomainMesh(*GRID, iy, jx, rank=r)
+                  for r in range(GRID[0] * GRID[1])]
+        blocks = []
+        for m in meshes:
+            ext = [extend_block(a, m.y0, m.x0, m.ly, m.lx, 2, mode)
+                   for a, mode in zip(ops, modes)]
+            geo = (dtrdx, dtrdz, iy, jx, m.y0, m.x0)
+            blocks.append((lambda ext=ext, geo=geo:
+                           k4.waf_advect_halo(*ext, *geo),
+                           lambda ext=ext, geo=geo:
+                           k4.waf_advect_sharded_plain(*ext, *geo)))
+        cat = lambda bl: torch.cat([torch.cat(bl[py * GRID[1]:(py + 1)
+                                                 * GRID[1]], dim=-1)
+                                    for py in range(GRID[0])], dim=-2)
+        got = cat([kern() for kern, _ in blocks])
+        ref = cat([pl() for _, pl in blocks])
+        torch.cuda.synchronize()
+        same = torch.equal(got, want)
+        rel5, ab5 = rel_err(got, ref)
+        print(f"15d K5a {dname} 2x2 blocks of {shape}: "
+              f"{'bit-identical' if same else 'DIFFERENT'} to K4; against "
+              f"the plain version max rel err {rel5:.3e} (max abs "
+              f"{ab5:.3e})")
+        if not same:
+            raise AssertionError(f"15d K5a {dname} nf=10 differs from K4 by "
+                                 f"{float((got - want).abs().max())}")
+        if not rel5 <= TOL[dname]["K4"]:
+            raise AssertionError(f"15d K5a {dname} nf=10 disagrees with "
+                                 f"its plain version: {rel5}")
+        if dname == "float32":
+            bshape = shape[:2] + (meshes[0].ly, meshes[0].lx)
+            for k, kern, pl, shp, err in (
+                    ("K4", lambda: k4.waf_advect(*args),
+                     lambda: k4.waf_advect_plain(*args), shape, ab),
+                    ("K5a", blocks[0][0], blocks[0][1], bshape, ab5)):
+                b_ms, b_by, byt, nops = bound(k, shp, 4)
+                st = dict(max_abs_err=err, ms=time_ms(kern),
+                          device_ms=device_ms(kern, KERNELS["K4"]),
+                          plain_ms=time_ms(pl), bound_ms=b_ms,
+                          bound_by=b_by, shape=list(shp))
+                stats[k] = st
+                print(f"15d {k} f32 {tuple(shp)}: kernel {st['ms']:.4f} ms "
+                      f"(device {st['device_ms']:.4f} ms), plain "
+                      f"{st['plain_ms']:.4f} ms, bound {b_ms:.4f} ms "
+                      f"({b_by}: {byt / 1e6:.1f} MB, {nops / 1e9:.3f} "
+                      f"GFLOP)")
+        del args, ops, want, plain, got, ref, blocks
+        torch.cuda.empty_cache()
+    return stats
+
+
+def schemes_rank(rank, paths):
+    """Phase 15e on one rank of the 2x2 group: configuration A from the
+    ICBC files for HYDRO_CHECK[0] steps (counters reset just before,
+    read just after); the whole domain's fields (on rank 0)."""
+    import torch
+    from regcm_tpu_torch.kernels import emanuel_mixing as k2
+    from regcm_tpu_torch.kernels import pbl_tridiag as k1
+    mods = {"K1": k1, "K2": k2}
+    model = hydro_icbc_model(paths, rank.device, rank.mesh(34, 48),
+                             physics=SCHEME_A)
+    reset(mods)
+    k1.launches_sharded = 0
+    model.run_icbc(HYDRO_CHECK[0])
+    launches = read(mods)
+    launches["K5c"] = k1.launches_sharded
+    out = dict(launches=launches, finite=model.check_finite())
+    dec = model.decoupled()
+    out["dec"] = dec if rank.rank == 0 else None
+    del model
+    torch.cuda.empty_cache()
+    return out
 
 
 def main():
@@ -1702,9 +2139,15 @@ def main():
         nh_card_vs_cpu(dev)
         options_card_vs_cpu(dev)
 
-        # -- 10, 11, 12, 14c. the decomposed runs
+        # -- 15a-d. the second physics set on one card
+        a15 = run_schemes_a(dev, smi, paths, mods)
+        b15 = run_schemes_b(dev, smi, mods)
+        schemes_card_vs_cpu(dev)
+        nf10 = compare_nf10(dev, k4)
+
+        # -- 10, 11, 12, 14c, 15e. the decomposed runs
         decomp = run_decomposed(dev, smi, single12, paths, icbc13,
-                                nh14["single12"])
+                                nh14["single12"], a15["rec"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1745,6 +2188,16 @@ def main():
                 for b, res in decomp.items()}
         if k in ("K1", "K2"):
             row["launches_per_step_nh"] = nh14["per_step"][k]
+        # phase 15: launches a step of configurations A (one card, 150
+        # steps) and B (one card, 24 steps); K4 and K5a at nf = 10
+        if k in BASE:           # A on 2x2 ranks (15e, rank 0)
+            row["launches_per_step_A_2x2"] = ranks[0]["schemes"][
+                "launches"].get(k, 0) / HYDRO_CHECK[0]
+        else:
+            row["launches_per_step_A"] = a15["per_step"][k]
+            row["launches_per_step_B"] = b15["per_step"][k]
+        if k in ("K4", "K5a"):
+            row["nf10"] = nf10[k]
         if k in BASE:
             row["launches_ranks"] = {b: [r["launches"][k] for r in res]
                                      for b, res in decomp.items()}

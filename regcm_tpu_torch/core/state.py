@@ -22,6 +22,12 @@ IQV = 0
 IQC = 1
 
 
+def species_count(ipptls: int) -> int:
+    """nqx: 2 water species (qv, qc) for SUBEX, 5 (qv, qc, qr, qi, qs)
+    for the 5-species schemes (Main/mod_params.F90:1359-1363)."""
+    return 5 if ipptls in (2, 3) else 2
+
+
 class StepFlags(NamedTuple):
     """Per-step physics cadence flags (syncro_rad/srf/cum alarms,
     Main/mpplib/mod_runparams.F90:51-75); plain bools that pick
@@ -103,16 +109,17 @@ class BdyState(NamedTuple):
 
 
 def zeros_hydro(kz: int, iy: int, jx: int, device="cuda",
-                dtype=torch.float64) -> HydroState:
-    """Zero state of the default configuration: qv and qc (SUBEX), two
-    split modes, one lake layer, no tracers, no subgrid."""
+                dtype=torch.float64, nqx: int = 2) -> HydroState:
+    """Zero state with ``nqx`` water species: 2 (qv, qc) for SUBEX, 5 (qv,
+    qc, qr, qi, qs) for Nogherotto-Tompkins; two split modes, one lake
+    layer, no tracers, no subgrid."""
     device = resolve_device(device)
 
     def full(shape, v=0.0):
         return torch.full(shape, v, dtype=dtype, device=device)
     z2 = full((iy, jx))
     z3 = full((kz, iy, jx))
-    z4 = full((2, kz, iy, jx))
+    z4 = full((nqx, kz, iy, jx))
     zs = full((2, iy, jx))
     zw = full((kz + 1, iy, jx))
     return HydroState(

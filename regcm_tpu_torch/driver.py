@@ -2,8 +2,8 @@
 
 ``Model(cfg, device=..., dtype=...).run(n)`` initialises the dynamical
 core that ``cfg.core.idynamic`` names (1: hydrostatic, 2: MM5
-non-hydrostatic, 3: MOLOCH) with
-the default physics suite and steps it with the reference's alarms
+non-hydrostatic, 3: MOLOCH) with the physics suite the configuration
+selects and steps it with the reference's alarms
 (``Main/mod_regcm_interface.F90``, ``Main/mpplib/mod_timer.F90``):
 cumulus every dtcum, surface every dtsrf, radiation every dtrad and the
 LW absorptivities every dtabem. It runs on the CUDA card unless the
@@ -33,8 +33,8 @@ import torch
 from .config.params import RegCMConfig
 from .core.grid import ModelGrid, build_grid
 from .core.state import (BdyState, HydroState, StepFlags, bdy_from_numpy,
-                         bdy_from_state, sliced, state_from_numpy,
-                         zeros_hydro)
+                         bdy_from_state, sliced, species_count,
+                         state_from_numpy, zeros_hydro)
 from .device import resolve_device
 from .dynamics import stencil
 from .dynamics.hydrostatic import HydroCore, fix_cross_pad
@@ -70,9 +70,12 @@ def standard_atmosphere_state(grid: ModelGrid, cfg: RegCMConfig,
     # 50% RH w.r.t. the model's own saturation (subsaturated everywhere)
     qsat = pfwsat(torch.as_tensor(t), torch.as_tensor(p * 1000.0)).numpy()
     qv = np.minimum(np.maximum(0.5 * qsat, c.minqq), 0.015)
-    s = zeros_hydro(kz, iy, jx, device=device, dtype=dtype)
+    nqx = species_count(cfg.physics.ipptls)
+    s = zeros_hydro(kz, iy, jx, device=device, dtype=dtype, nqx=nqx)
     f = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
-    qx = torch.stack([f(qv * ps[None]), torch.zeros_like(f(qv))])
+    qx = torch.cat([f(qv * ps[None])[None],
+                    torch.zeros((nqx - 1,) + qv.shape, dtype=dtype,
+                                device=device)])
     return s._replace(ps_a=f(ps), ps_b=f(ps), t_a=f(t * ps[None]),
                       t_b=f(t * ps[None]), qx_a=qx, qx_b=qx.clone(),
                       tg=f(t[-1]))
@@ -97,9 +100,13 @@ def nh_initial_state(grid: ModelGrid, cfg: RegCMConfig, device="cuda",
             * grid.m_cross_int[None]
     qv = np.minimum(0.3 * pfwsat(torch.as_tensor(t0),
                                  torch.as_tensor(base.pr0)).numpy(), 0.01)
-    s = zeros_hydro(grid.kz, grid.iy, grid.jx, device=device, dtype=dtype)
+    nqx = species_count(cfg.physics.ipptls)
+    s = zeros_hydro(grid.kz, grid.iy, grid.jx, device=device, dtype=dtype,
+                    nqx=nqx)
     f = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
-    qx = torch.stack([f(qv * ps[None]), torch.zeros_like(f(qv))])
+    qx = torch.cat([f(qv * ps[None])[None],
+                    torch.zeros((nqx - 1,) + qv.shape, dtype=dtype,
+                                device=device)])
     return s._replace(ps_a=f(ps), ps_b=f(ps), t_a=f(t0 * ps[None]),
                       t_b=f(t0 * ps[None]), qx_a=qx, qx_b=qx.clone(),
                       tg=f(t0[-1]))

@@ -16,8 +16,9 @@ The dynamics options of the JAX package are ported: diffusion
 semi-Lagrangian moisture advection ``isladvec=1`` (``sladvection.py``),
 the lateral boundary schemes ``iboudy`` 0-5 (3 and 4 with the
 inflow/outflow qv edges, 4 the sponge) and the NH core's upper Rayleigh
-damping (``ifrayd``). Chemistry and the UW TCM's prognostic TKE are
-refused at construction.
+damping (``ifrayd``), and the UW TCM's prognostic TKE (``ibltyp=2``:
+advected, diffused and forecast beside the physics' tendency).
+Chemistry is refused at construction.
 
 With a ``DomainMesh`` (``HydroCore(..., mesh=...)``) the core steps one
 rank's (ly, lx) block of the domain: the 2-D constants are built on the
@@ -37,7 +38,8 @@ import torch
 
 from ..config.params import RegCMConfig
 from ..core.grid import ModelGrid
-from ..core.state import BdyState, HydroState, StepFlags, IQV, IQC
+from ..core.state import (BdyState, HydroState, StepFlags, IQV, IQC,
+                          species_count)
 from ..device import resolve_device
 from ..utils import constants as c
 from ..utils.thermo import pfwsat, wlh
@@ -112,7 +114,6 @@ def _refuse_options(cfg: RegCMConfig, mesh):
          f"coreparam idynamic={cfg.core.idynamic} in HydroCore (1: "
          "hydrostatic, 2: MM5 non-hydrostatic; MOLOCH is MolochCore)"),
         (int(p.ichem) != 0, "chemistry (ichem=1)"),
-        (int(p.ibltyp) == 2, "UW TCM prognostic TKE (ibltyp=2)"),
         (mesh is not None and cfg.core.idynamic == 1
          and int(p.isladvec) == 1,
          "a decomposed run (mesh=) of the semi-Lagrangian advection "
@@ -180,6 +181,12 @@ class HydroCore:
         self.iqmsl = int(p.iqmsl)
         self.iboudy = int(p.iboudy)
         self.idynamic = cfg.core.idynamic
+        self.nqx = species_count(p.ipptls)
+        # the UW TCM's prognostic TKE (ibltyp=2,
+        # mod_tendency.F90:518-544,1414-1424,1544-1547)
+        self.ibltyp = int(p.ibltyp)
+        self.nuk = float(ex.get("nuk", 5.0))
+        self.tkemin = 1.0e-3         # uwtkemin (mod_pbl_uwtcm.F90:86)
 
         # 2-D constants
         self.msfx = f(g.msfx)
@@ -367,6 +374,63 @@ class HydroCore:
             fg = torch.where(exceed & locmax, torch.clamp(fg, max=0.0), fg)
             fg = torch.where(exceed & locmin, torch.clamp(fg, min=0.0), fg)
         return fg
+
+    def _tke_dyn(self, s, qdot, uavg1, uavg2, vavg1, vavg2, psa, xkcf):
+        """UW TKE dynamics tendency (coupled, on the kz+1 interfaces):
+        hadv ind=1 of the decoupled tke (mod_tendency.F90:1416), vadv
+        ind=0 of tke·p* (:1421-1424) and the horizontal diffusion with
+        the nuk coefficient (:1544-1547)."""
+        kz = self.kz
+        tk = s.tke_a                       # uncoupled, (kz+1, iy, jx)
+        # hadv ind=1: the winds interpolated to the interior interfaces
+        ua1_i = self.twt1[1:] * uavg1[1:] + self.twt2[1:] * uavg1[:-1]
+        ua2_i = self.twt1[1:] * uavg2[1:] + self.twt2[1:] * uavg2[:-1]
+        va1_i = self.twt1[1:] * vavg1[1:] + self.twt2[1:] * vavg1[:-1]
+        va2_i = self.twt1[1:] * vavg2[1:] + self.twt2[1:] * vavg2[:-1]
+        tk_i = tk[1:kz]
+        fx1 = shift(tk_i, 0, -1) + tk_i
+        fx2 = tk_i + shift(tk_i, 0, 1)
+        fy1 = shift(tk_i, -1, 0) + tk_i
+        fy2 = tk_i + shift(tk_i, 1, 0)
+        th_ = -self.xmapf[None] * (ua2_i * fx2 - ua1_i * fx1
+                                   + va2_i * fy2 - va1_i * fy1) \
+            * self.m_ci
+        # vadv ind=0 nk=kzp1 on the coupled tke·p* (half-level fluxes)
+        tkps = tk * psa[None]
+        fx0 = 0.5 * (qdot[:kz] + qdot[1:]) * (tkps[:kz] + tkps[1:])
+        dds_i = 1.0 / (self.dsig3[1:] + self.dsig3[:-1])
+        zt = torch.zeros_like(tk[:1])
+        tked = torch.cat([zt, th_ + (fx0[:-1] - fx0[1:]) * dds_i, zt])
+        # horizontal diffusion ×nuk on the decoupled b-level tke
+        return tked + self.nuk * self._diffu_cross(s.tke_b, xkcf)
+
+    def _tke_forecast(self, s, tkedyn, tkephy, rpsa, dt):
+        """Forecast and Asselin filter of the UW TKE
+        (mod_tendency.F90:528-543)."""
+        tketen = tkedyn * rpsa[None] + tkephy
+        tkec = torch.clamp(s.tke_b + dt * tketen, min=self.tkemin)
+        beta = 0.53
+        dtk = self.gnu2 * (tkec + s.tke_b - 2.0 * s.tke_a)
+        mci = self.m_ci[None] > 0.5
+        tke_b_n = torch.where(
+            mci, torch.clamp(s.tke_a + beta * dtk, min=self.tkemin),
+            s.tke_b)
+        tke_a_n = torch.where(
+            mci, torch.clamp(tkec + (beta - 1.0) * dtk, min=self.tkemin),
+            s.tke_a)
+        return tke_a_n, tke_b_n
+
+    def _tke_update(self, sfupd, s, qdot, uavg, psa, rpsa, xkcf, dt):
+        """The UW TCM's prognostic TKE (ibltyp=2): advected, diffused and
+        forecast, with the physics tendency ``_tkephy`` the suite hands
+        back; a no-op for the other PBL schemes."""
+        tkephy = sfupd.pop("_tkephy", None)
+        if self.ibltyp != 2:
+            return sfupd
+        tkedyn = self._tke_dyn(s, qdot, *uavg, psa, xkcf)
+        tke_a_n, tke_b_n = self._tke_forecast(
+            s, tkedyn, tkephy if tkephy is not None else 0.0, rpsa, dt)
+        return dict(sfupd, tke_a=tke_a_n, tke_b=tke_b_n)
 
     def _vadv_flux(self, fint):
         """Vertical flux divergence of interface fluxes at the interior
@@ -762,6 +826,9 @@ class HydroCore:
         if self.iboudy in (3, 4):
             qv_a_n = self._flow_edges(qv_a_n, psa_n, ucx, vcx, qext=qv_a_n)
 
+        sfupd = self._tke_update(
+            sfupd, s, qdot, (uavg1, uavg2, vavg1, vavg2), psa, rpsa,
+            torch.cat([xkc[:1], xkc], dim=0), dt)
         ns = s._replace(
             ps_a=psa_n, ps_b=psb_n, u_a=u_a_n, u_b=u_b_n,
             v_a=v_a_n, v_b=v_b_n, t_a=t_a_n, t_b=t_b_n,
@@ -1136,6 +1203,9 @@ class HydroCore:
         if self.iboudy in (3, 4):
             qv_a_n = self._flow_edges(qv_a_n, psa, ucx, vcx, qext=qv_a_n)
 
+        sfupd = self._tke_update(
+            sfupd, s, qdot, (uavg1, uavg2, vavg1, vavg2), psa, rpsa, xkcf,
+            dt)
         ns = s._replace(
             u_a=u_a_n, u_b=u_b_n, v_a=v_a_n, v_b=v_b_n,
             t_a=t_a_n, t_b=t_b_n,

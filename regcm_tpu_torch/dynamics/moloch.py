@@ -33,13 +33,15 @@ import torch
 
 from ..config.params import RegCMConfig
 from ..core.grid import ModelGrid
-from ..core.state import sliced, tensors_from, state_to_numpy
+from ..core.state import (sliced, species_count, tensors_from,
+                          state_to_numpy)
 from ..device import resolve_device
 from ..kernels.tridiag_w import tridiag_w, tridiag_w_sharded
 from ..kernels.waf_advect import (waf_advect, waf_advect_plain,
                                   waf_advect_sharded)
 from ..utils import constants as c
 from ..utils.thermo import pfwsat, wlh
+from .hydrostatic import level_sum
 from .stencil import shift, shifte, topology, with_topology
 
 T0_ZITA = 280.0
@@ -322,7 +324,7 @@ class MolochCore:
 
         # physics contract read by PhysicsSuite (uncoupled prognostics:
         # the coupling factor in atms is 1)
-        self.nqx = 5 if cfg.physics.ipptls in (2, 3) else 2
+        self.nqx = species_count(cfg.physics.ipptls)
         self.grid_lndocn = f(g.lndocn)
         self.sst = torch.full_like(self.mx2, 288.0)
         self.coriol = f(g.coriol)
@@ -658,7 +660,7 @@ class MolochCore:
         qv = torch.clamp(qx[0], min=c.minqq)
         qh = torch.clamp(qx[1:], min=0.0)
         qc = qh[0]
-        qcond = torch.sum(qh, dim=0)
+        qcond = level_sum(qh)
         tvirt = t * (1.0 + c.ep1 * qv - qcond)
         p = pai ** c.cpovr * c.stdp
         rho = p / (c.rgas * t)
@@ -751,7 +753,7 @@ class MolochCore:
         pai, t = st.pai, st.t
         qx = st.qx
         qv = torch.clamp(qx[0], min=c.minqq)
-        qcond = torch.sum(torch.clamp(qx[1:], min=0.0), dim=0)
+        qcond = level_sum(torch.clamp(qx[1:], min=0.0))
         p = pai ** c.cpovr * c.stdp
         qsat = pfwsat(t, p)
         tvirt = t * (1.0 + c.ep1 * qv - qcond)
@@ -781,7 +783,7 @@ class MolochCore:
         qv = torch.clamp(qx[0], min=c.minqq)
         qh = torch.clamp(qx[1:], min=0.0)
         qx = torch.cat([qv[None], qh])
-        qcond = torch.sum(qh, dim=0)
+        qcond = level_sum(qh)
         tvirt = tetav * pai
         t = tvirt / (1.0 + c.ep1 * qv - qcond)
 

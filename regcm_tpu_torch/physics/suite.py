@@ -1,14 +1,19 @@
 """Physics suite: ordered column-physics orchestration, torch twin of
-``regcm_tpu/physics/suite.py`` for the default configuration.
+``regcm_tpu/physics/suite.py``.
 
 ``physical_parametrizations`` (``Main/mod_tendency.F90:1682-1820``):
-Emanuel cumulus on the dtcum alarm → SUBEX cloud fraction and
-microphysics → CCM3 radiation on the dtrad alarm (LW absorptivities on
-dtabem) → BATS1e land with Zeng ocean fluxes on the dtsrf alarm →
-Holtslag PBL. Returns the physics tendencies for the dynamical core,
-coupled by ``atms["cpl"]`` (p* for the hydrostatic core, 1 for the
-uncoupled MOLOCH prognostics), plus persistent-state updates. Every
-other scheme is refused at construction by ``validate_physics``.
+deep cumulus on the dtcum alarm (Emanuel icup=4, Tiedtke icup=5 or none,
+each dense over the grid and blended by the land mask when icup_lnd and
+icup_ocn differ) → the icldfrac cloud fraction (schemes 0-6) and the
+resolved microphysics (SUBEX ipptls=1 or the 5-species
+Nogherotto-Tompkins ipptls=2) → CCM3 radiation on the dtrad alarm (LW
+absorptivities on dtabem) → BATS1e land with Zeng ocean fluxes on the
+dtsrf alarm → the PBL (Holtslag ibltyp=1, or the UW TCM ibltyp=2 with
+its TKE tendency handed back to the core). Returns the physics
+tendencies for the dynamical core, coupled by ``atms["cpl"]`` (p* for
+the sigma-p cores, 1 for the uncoupled MOLOCH prognostics), plus
+persistent-state updates. Every other scheme is refused at construction
+by ``validate_physics``.
 """
 from __future__ import annotations
 
@@ -21,8 +26,11 @@ from ..core.state import HydroState, BdyState, StepFlags
 from ..device import resolve_device
 from ..dynamics.stencil import cross2dot
 from ..utils import constants as c
+from .cloud.fractions import cldfrac_dispatch
 from .cumulus.emanuel import cupeman, ELCRIT_LND, ELCRIT_OCN, EPMAX
-from .micro.subex import subex, subex_cldfrac, combine_clouds
+from .cumulus.tiedtke import ntiedtke
+from .micro.nogtom import nogtom
+from .micro.subex import subex, combine_clouds
 from .pbl.holtslag import holtbl
 from .radiation.ccm3.driver import ccm3_radiation
 from .radiation.ccm3.tables import ghg_mmr
@@ -31,41 +39,48 @@ from .radiation.simple import radiation, surface_albedo
 from .surface.bats import (bats_albedo, fseas_fn, soil_static,
                            soil_static_tensors, vecbats)
 from .surface.fluxes import surface_fluxes
+from .uw_dispatch import run_uwtcm
 
-# Selector values this port implements (the defaults of RegCMConfig).
-# An unimplemented selector is a hard error at model build, never a
-# silent no-op (the reference's cross-check-and-die in mod_params).
+# Selector values this port implements. An unimplemented selector is a
+# hard error at model build, never a silent no-op (the reference's
+# cross-check-and-die in mod_params).
 SUPPORTED = dict(
-    icup_lnd={4}, icup_ocn={4},    # Emanuel
-    ibltyp={1},                    # Holtslag
-    ipptls={1},                    # SUBEX
+    icup_lnd={0, 4, 5}, icup_ocn={0, 4, 5},   # none, Emanuel, Tiedtke
+    ibltyp={1, 2},                 # Holtslag, UW TCM
+    ipptls={1, 2},                 # SUBEX, Nogherotto-Tompkins
     iocnflx={2},                   # Zeng
-    icldfrac={0},                  # SUBEX-Sundqvist
+    icldfrac={0, 1, 2, 3, 4, 5, 6},
     irrtm={0},                     # CCM3
     lakemod={0}, islab_ocean={0}, idcsst={0}, iseaice={0},
 )
+SCHEMES = dict(
+    icup={1: "Kuo", 2: "Grell", 3: "Betts-Miller", 6: "Kain-Fritsch"},
+    ibltyp={3: "GFS", 4: "MYJ"}, ipptls={3: "WSM5"})
 # the dynamical cores refuse what they leave out (HydroCore: chemistry,
-# the UW TCM's TKE, a decomposed semi-Lagrangian run; MolochCore its own)
+# a decomposed semi-Lagrangian run; MolochCore its own)
 
 
 def validate_physics(cfg):
     """Raise for any option this port does not implement."""
     p = cfg.physics
+    for name in ("icup_lnd", "icup_ocn"):
+        if getattr(p, name) < 0:
+            raise NotImplementedError(
+                f"physicsparam {name}={getattr(p, name)}: shallow "
+                "convection (icup<0) is not ported to regcm_tpu_torch")
     for name, ok in SUPPORTED.items():
         val = getattr(p, name)
         if val not in ok:
+            scheme = SCHEMES.get(name.split("_")[0], {}).get(val)
             raise NotImplementedError(
-                f"physicsparam {name}={val} is not ported to "
-                f"regcm_tpu_torch (supported: {sorted(ok)}); refusing to "
-                "run with a silently disabled scheme")
+                f"physicsparam {name}={val}"
+                + (f" ({scheme})" if scheme else "")
+                + " is not ported to regcm_tpu_torch (supported: "
+                f"{sorted(ok)}); refusing to run with a silently "
+                "disabled scheme")
     if cfg.dim.nsg > 1:
         raise NotImplementedError("dimparam nsg>1 (subgrid surface) is "
                                   "not ported to regcm_tpu_torch")
-    if cfg.core.idynamic == 3 and 1 in (abs(p.icup_lnd), abs(p.icup_ocn)):
-        raise ValueError(
-            "icup=1 (Kuo) requires the sigma-p cores' deferred qv "
-            "vertical advection staging and is not available with the "
-            "MOLOCH core (idynamic=3)")
     if cfg.core.idynamic == 3 and p.ibltyp == 2:
         raise ValueError(
             "ibltyp=2 (UW TCM) needs the MOLOCH WAF TKE advection "
@@ -95,10 +110,16 @@ class PhysicsSuite:
         self.ricr = 0.25      # ricr_lnd/ocn default (mod_params.F90:485)
         self.idynamic = cfg.core.idynamic
         self.land_scheme = "bats1e"
+        # the land/ocean cumulus split (icup_lnd/icup_ocn,
+        # Main/mpplib/mod_runparams.F90:109-153)
+        self.icup_lnd = cfg.physics.icup_lnd
+        self.icup_ocn = cfg.physics.icup_ocn
         # minorig: lowest Emanuel origin level (mod_params.F90:2352-2355)
         hs = grid.hsigma
         kl = [k for k in range(len(hs)) if hs[k] <= 0.950]
         self.minorig = grid.kz - (max(kl) + 1) if kl else 1
+        # Tiedtke's static marker-level profile (hsigma·stdp)
+        self.tiedtke_pref = np.asarray(grid.hsigma) * c.stdp
         # GHG scenario concentrations at the run start year
         year = cfg.restart.mdate0 // 1000000
         self.ghg = ghg_concentrations(
@@ -131,34 +152,120 @@ class PhysicsSuite:
                                  ELCRIT_LND, ELCRIT_OCN))
         self.epmax = torch.full((ncol,), EPMAX, dtype=dtype, device=device)
 
-    # -- Emanuel deep cumulus (cupemandrv, Main/cumlib/mod_cu_em.F90:107)
-    def _cumulus(self, core, atms, s, dt):
-        """Uncoupled cross-grid tendencies of the Emanuel scheme."""
+    # -- deep cumulus dispatch (cu_interface :335-369 and the
+    #    icup_lnd/icup_ocn split of Main/mpplib/mod_runparams.F90:109-153)
+    def _cumulus(self, core, atms, s, dyn, dt):
+        """The configured deep scheme(s) dense over the grid, land and
+        ocean tendencies blended by the mask; uncoupled cross-grid
+        fields (K/s, kg/kg/s, m/s²) and the persistent-state updates."""
+        zero3 = torch.zeros_like(atms["tb3"])
+        empty = dict(tten=zero3, qvten=zero3, utenx=zero3, vtenx=zero3,
+                     prate=torch.zeros_like(atms["psb"]), cldfra=zero3,
+                     cldlwc=zero3, qcten=zero3, qiten=zero3, qdetr=zero3,
+                     state={})
+        out_l = self._cumulus_one(self.icup_lnd, core, atms, s, dyn, dt) \
+            if self.icup_lnd else empty
+        if self.icup_ocn == self.icup_lnd:
+            return out_l
+        out_o = self._cumulus_one(self.icup_ocn, core, atms, s, dyn, dt) \
+            if self.icup_ocn else empty
+        lm2 = core.grid_lndocn > 0.5
+        out = {k: torch.where(lm2, out_l[k], out_o[k])
+               for k in empty if k != "state"}
+        cur = dict(cbmf=s.cbmf)
+        out["state"] = {
+            k: torch.where(lm2, out_l["state"].get(k, cur[k]),
+                           out_o["state"].get(k, cur[k]))
+            for k in set(out_l["state"]) | set(out_o["state"])}
+        return out
+
+    def _cumulus_one(self, icup, core, atms, s, dyn, dt):
+        """One deep-convection scheme on the whole grid."""
         kz = core.kz
         tb3 = torch.clamp(atms["tb3"], min=150.0)
         iy, jx = tb3.shape[1], tb3.shape[2]
         ncol = iy * jx
-        flipc = lambda a: torch.flip(a, [0]).reshape(a.shape[0], ncol).T
-        unflip = lambda a: torch.flip(a.T.reshape(kz, iy, jx), [0])
-        qmix = atms["qvb3"]
-        qspec = qmix / (1.0 + qmix)
-        qs_spec = atms["qsb3"] / (1.0 + atms["qsb3"])
-        out = cupeman(
-            flipc(tb3), flipc(qspec), flipc(qs_spec),
-            flipc(atms["ubx3"]), flipc(atms["vbx3"]),
-            flipc(atms["pb3"]) * 0.01, flipc(atms["pf3"]) * 0.01,
-            s.cbmf.reshape(ncol), dt, self.elcrit, self.epmax,
-            max(self.minorig - 1, 1))
-        cldfra = unflip(out.cldfra)
         rho = atms["rhob3"]
-        return dict(
-            tten=unflip(out.ft),
-            qvten=unflip(out.fq / (1.0 - flipc(qspec)) ** 2),
-            utenx=unflip(out.fu), vtenx=unflip(out.fv),
-            prate=out.precip.reshape(iy, jx),
+        zero3 = torch.zeros_like(tb3)
+        res = dict(utenx=zero3, vtenx=zero3, qcten=zero3, qiten=zero3,
+                   qdetr=zero3, state={})
+        if icup == 4:
+            # Emanuel (cupemandrv, Main/cumlib/mod_cu_em.F90:107)
+            flipc = lambda a: torch.flip(a, [0]).reshape(a.shape[0], ncol).T
+            unflip = lambda a: torch.flip(a.T.reshape(kz, iy, jx), [0])
+            qmix = atms["qvb3"]
+            qspec = qmix / (1.0 + qmix)
+            qs_spec = atms["qsb3"] / (1.0 + atms["qsb3"])
+            out = cupeman(
+                flipc(tb3), flipc(qspec), flipc(qs_spec),
+                flipc(atms["ubx3"]), flipc(atms["vbx3"]),
+                flipc(atms["pb3"]) * 0.01, flipc(atms["pf3"]) * 0.01,
+                s.cbmf.reshape(ncol), dt, self.elcrit, self.epmax,
+                max(self.minorig - 1, 1))
+            cldfra = unflip(out.cldfra)
+            res.update(
+                tten=unflip(out.ft),
+                qvten=unflip(out.fq / (1.0 - flipc(qspec)) ** 2),
+                utenx=unflip(out.fu), vtenx=unflip(out.fv),
+                prate=out.precip.reshape(iy, jx),
+                cldfra=cldfra,
+                cldlwc=torch.where(cldfra > 0.0, 0.3e-3 * 1000.0 * rho, 0.0),
+                state=dict(cbmf=out.cbmf.reshape(iy, jx) * core.m_ci))
+            return res
+        # "new Tiedtke" (ntiedtke, Main/cumlib/mod_cu_tiedtke.F90:4508,
+        # driver tiedtkedrv :207-434): specific-humidity basis in,
+        # mixing-ratio tendencies out (:380-391); the detrained
+        # condensate rides qcten/qiten (and qdetr, staged into nogtom,
+        # :392). Columns (ncol, kz) are transposed views: level-major.
+        colc = lambda a: a.reshape(a.shape[0], ncol).T
+        uncol = lambda a: a.T.reshape(kz, iy, jx)
+        rcpl = (1.0 / atms.get("cpl", atms["psb"]))[None]
+        # provisional state from the dynamic tendencies (cucall
+        # :601-609) and ZERO surface fluxes: the reference calls the BL
+        # after CU (:700-704), so the surface-flux shallow trigger is off
+        if dyn is not None:
+            tq = dyn["qvdyn"] * rcpl
+            tt = dyn["tdyn"] * rcpl
+        else:
+            tq = tt = zero3
+        tb3p = tb3 + tt * dt
+        qvb3p = torch.clamp(atms["qvb3"] + tq * dt, min=c.minqq)
+        qspec = qvb3p / (1.0 + qvb3p)
+        qc_spec = atms["qcb3"] / (1.0 + qvb3p)
+        za_c = colc(atms["za"])
+        zf_mid = 0.5 * (za_c[:, :-1] + za_c[:, 1:])
+        zf = torch.cat([2.0 * za_c[:, :1] - zf_mid[:, :1], zf_mid,
+                        torch.zeros_like(za_c[:, :1])], dim=1)
+        zfl = torch.zeros((ncol, kz + 1), dtype=tb3.dtype, device=tb3.device)
+        # the JAX package passes the model dt as Tiedtke's dtcum
+        # (physics/suite.py:467), and so does the port
+        out = ntiedtke(
+            colc(tb3p), colc(qspec), colc(atms["ubx3"]),
+            colc(atms["vbx3"]), colc(qc_spec), zfl, zfl,
+            colc(atms["pb3"]), colc(atms["pf3"]),
+            za_c * c.egrav, zf * c.egrav, colc(tq / (1.0 + qvb3p) ** 2),
+            colc(tt), core.grid_lndocn.reshape(ncol) > 0.5,
+            float(core.dtsec), float(self.cfg.ds_m), self.tiedtke_pref,
+            omega=colc(atms["omega_pa"]),
+            lmfmid=bool(self.cfg.tiedtke.lmfmid),
+            lmfsmooth=bool(self.cfg.tiedtke.lmfsmooth))
+        qcten = out.lten
+        qiten = torch.zeros_like(out.iten)
+        if self.cfg.physics.ipptls == 2:
+            qiten = out.iten          # :398-409
+        else:
+            qcten = qcten + out.iten  # :415-421
+        cldfra = uncol(out.cldfra)
+        res.update(
+            tten=uncol(out.tten),
+            qvten=uncol(out.qten / (1.0 - colc(qspec)) ** 2),
+            utenx=uncol(out.uten), vtenx=uncol(out.vten),
+            prate=out.prate.reshape(iy, jx),
             cldfra=cldfra,
             cldlwc=torch.where(cldfra > 0.0, 0.3e-3 * 1000.0 * rho, 0.0),
-            cbmf=out.cbmf.reshape(iy, jx) * core.m_ci)
+            qcten=uncol(qcten), qiten=uncol(qiten),
+            qdetr=uncol(out.qdetr))
+        return res
 
     def __call__(self, core, atms, s: HydroState, bdy: BdyState,
                  flags: StepFlags, dt, dyn=None):
@@ -186,32 +293,58 @@ class PhysicsSuite:
         # -- cumulus on the syncro_cum alarm; tendencies held in state
         #    between calls (mod_cu_interface.F90:288)
         if flags.do_cum:
-            cu = self._cumulus(core, atms, s, dt)
-            zero3 = torch.zeros_like(tb3)
+            cu = self._cumulus(core, atms, s, dyn, dt)
             sfupd["cuten"] = torch.stack(
                 [cu["tten"], cu["qvten"], cu["utenx"], cu["vtenx"],
-                 cu["cldfra"], cu["cldlwc"], zero3, zero3, zero3])
+                 cu["cldfra"], cu["cldlwc"], cu["qcten"], cu["qiten"],
+                 cu["qdetr"]])
             sfupd["cuprate"] = cu["prate"]
-            sfupd["cbmf"] = cu["cbmf"]
+            sfupd.update(cu["state"])
         else:
             cu = dict(tten=s.cuten[0], qvten=s.cuten[1],
                       utenx=s.cuten[2], vtenx=s.cuten[3],
                       cldfra=s.cuten[4], cldlwc=s.cuten[5],
-                      prate=s.cuprate)
-        tphy = cu["tten"] * cpl[None] * m_ci
-        qvphy = cu["qvten"] * cpl[None] * m_ci
+                      qcten=s.cuten[6], qiten=s.cuten[7],
+                      qdetr=s.cuten[8], prate=s.cuprate)
+        pfac = cpl[None] * m_ci
+        tphy = cu["tten"] * pfac
+        qvphy = cu["qvten"] * pfac
+        qcphy = cu["qcten"] * pfac
+        qiphy = cu["qiten"] * pfac
+        qrphy = qsphy = torch.zeros_like(tb3)
         sfupd["rainc"] = s.rainc + cu["prate"] * m_ci * core.dtsec
 
-        # -- cloud fraction + SUBEX (mod_tendency.F90:1715-1740)
-        fcc = subex_cldfrac(tb3, pb3, qvb3, qcb3, rh, core.rh0[None])
+        # -- cloud fraction + resolved microphysics
+        #    (mod_tendency.F90:1715-1740)
+        fcc = cldfrac_dispatch(
+            self.cfg.physics.icldfrac, tb3, pb3, qvb3, qcb3, rh,
+            atms["qsb3"], core.rh0[None], ps2d, float(self.cfg.geo.ds),
+            landmask=lnd)
         cldlwc, cldfra = combine_clouds(fcc, qcb3, rho, tb3,
                                         cu["cldfra"], cu["cldlwc"])
-        out = subex(tb3, pb3, pf3, qvb3, qcb3, rh, rho, fcc, cpl, dt,
-                    core.qck1, core.cgul, core.cevap, core.caccr)
-        tphy = tphy + out.tten * m_ci
-        qvphy = qvphy + out.qvten * m_ci
-        qcphy = out.qcten * m_ci
-        precip = out.precip * m_ci
+        if self.cfg.physics.ipptls == 1:
+            out = subex(tb3, pb3, pf3, qvb3, qcb3, rh, rho, fcc, cpl, dt,
+                        core.qck1, core.cgul, core.cevap, core.caccr)
+            tphy = tphy + out.tten * m_ci
+            qvphy = qvphy + out.qvten * m_ci
+            qcphy = qcphy + out.qcten * m_ci
+            precip = out.precip * m_ci
+        else:
+            # Nogherotto-Tompkins 5-species implicit microphysics
+            # (nogtom, Main/microlib/mod_micro_nogtom.F90:358); Tiedtke's
+            # detrainment staged in, zero under the other schemes
+            qhb3 = atms["qhb3"]
+            out = nogtom(tb3, torch.stack([qvb3, qhb3[0], qhb3[1],
+                                           qhb3[2], qhb3[3]]),
+                         pb3, pf3, rho, cldfra, cu["qdetr"], s.heatrt,
+                         atms["omega_pa"], lnd, core.dtsec)
+            tphy = tphy + out.tten * pfac
+            qvphy = qvphy + out.qxten[0] * pfac
+            qcphy = qcphy + out.qxten[1] * pfac
+            qrphy = qrphy + out.qxten[2] * pfac
+            qiphy = qiphy + out.qxten[3] * pfac
+            qsphy = qsphy + out.qxten[4] * pfac
+            precip = (out.rainnc + out.snownc) * m_ci
         sfupd["rainnc"] = s.rainnc + precip * core.dtsec
 
         # -- radiation (dtrad alarm; mod_tendency.F90:1744-1782)
@@ -230,8 +363,11 @@ class PhysicsSuite:
             if self.rad_scheme == "ccm3":
                 abem_cache = None if flags.do_abem else dict(
                     abstot=s.abstot, absnxt=s.absnxt, emstot=s.emstot)
+                five = core.nqx == 5
                 rad, abem_out = ccm3_radiation(
-                    tb3, qvb3, qcb3, torch.zeros_like(qcb3), pb3, pf3, rh,
+                    tb3, qvb3, qcb3,
+                    atms["qhb3"][2] if five else torch.zeros_like(qcb3),
+                    pb3, pf3, rh,
                     dzq, cldfra, cldlwc, coszrs, s.tg, lnd, self.xlat,
                     torch.where(lmm, swdr, alb), torch.where(lmm, swdf, alb),
                     torch.where(lmm, lwdr, alb), torch.where(lmm, lwdf, alb),
@@ -239,7 +375,8 @@ class PhysicsSuite:
                     torch.where(lmm, self.bats_ss["albvgl"], alb),
                     torch.where(lmm, emis_land, 0.985),
                     self.ghg_mmr, eccf=eccf, solcon=solcon,
-                    cache=abem_cache, want_cache=flags.do_abem)
+                    five_species=five, cache=abem_cache,
+                    want_cache=flags.do_abem)
                 if abem_out is not None:
                     sfupd.update(abem_out)
             else:
@@ -280,40 +417,58 @@ class PhysicsSuite:
             sfupd.update(bats=bo.bats, hfx=hfx, qfx=qfx, uvdrag=uvdrag,
                          tg=tg)
 
-        # -- Holtslag PBL (:1799-1819)
-        tp3 = tb3 * (ps2d / pb3) ** c.rovcp
-        # kmxpbl: highest allowed PBL level (p > 600 hPa, mkslice
-        # Main/mod_slice.F90:342-352); argmax on an int cast keeps the
-        # first occurrence
-        above = pb3 > 60000.0
-        first_above = torch.argmax(above.to(torch.int32), dim=0)
-        kmx = torch.where(torch.any(above, dim=0),
-                          torch.clamp(first_above - 1, min=0), kz - 2)
-        hout = holtbl(
-            tp3, tb3, pb3, pf3, qvb3, qcb3,
-            atms["ubx3"], atms["vbx3"],
-            atms["ubx3"] if mo else atms["ubd3"],
-            atms["vbx3"] if mo else atms["vbd3"],
-            za, dzq, ps2d / (c.rgas * tb3[kz - 1]), uvdrag, hfx, qfx, tg,
-            core.coriol, cpl,
-            torch.ones_like(cpl) if mo else cross2dot(psb),
-            kmx, dt, ricr=self.ricr,
-            cross2dot_fn=None if mo else cross2dot,
-            m_di=None if mo else core.m_di, m_ci=m_ci, mesh=self.mesh)
-        tphy = tphy + hout.tten
-        qvphy = qvphy + hout.qvten
-        qcphy = qcphy + hout.qcten
+        # -- PBL (:1799-1819)
         utenx, vtenx = cu["utenx"], cu["vtenx"]
         uphy = vphy = 0.0
-        if mo:
-            utenx = utenx + hout.uten
-            vtenx = vtenx + hout.vten
+        if self.cfg.physics.ibltyp == 1:
+            # Holtslag (holtbl, Main/pbllib/mod_pbl_holtbl.F90)
+            tp3 = tb3 * (ps2d / pb3) ** c.rovcp
+            # kmxpbl: highest allowed PBL level (p > 600 hPa, mkslice
+            # Main/mod_slice.F90:342-352); argmax on an int cast keeps
+            # the first occurrence
+            above = pb3 > 60000.0
+            first_above = torch.argmax(above.to(torch.int32), dim=0)
+            kmx = torch.where(torch.any(above, dim=0),
+                              torch.clamp(first_above - 1, min=0), kz - 2)
+            hout = holtbl(
+                tp3, tb3, pb3, pf3, qvb3, qcb3,
+                atms["ubx3"], atms["vbx3"],
+                atms["ubx3"] if mo else atms["ubd3"],
+                atms["vbx3"] if mo else atms["vbd3"],
+                za, dzq, ps2d / (c.rgas * tb3[kz - 1]), uvdrag, hfx, qfx,
+                tg, core.coriol, cpl,
+                torch.ones_like(cpl) if mo else cross2dot(psb),
+                kmx, dt, ricr=self.ricr,
+                cross2dot_fn=None if mo else cross2dot,
+                m_di=None if mo else core.m_di, m_ci=m_ci, mesh=self.mesh)
+            tphy = tphy + hout.tten
+            qvphy = qvphy + hout.qvten
+            qcphy = qcphy + hout.qcten
+            if mo:
+                utenx = utenx + hout.uten
+                vtenx = vtenx + hout.vten
+            else:
+                uphy, vphy = hout.uten, hout.vten
         else:
-            uphy, vphy = hout.uten, hout.vten
+            # UW TCM (uwtcm, Main/pbllib/mod_pbl_uwtcm.F90:137):
+            # prognostic-TKE moist turbulence from the b-level TKE; its
+            # TKE tendency goes back to the core through "_tkephy"
+            out = run_uwtcm(self, core, atms, s, dt)
+            tphy = tphy + out["tten"] * pfac
+            qvphy = qvphy + out["qvten"] * pfac
+            qcphy = qcphy + out["qcten"] * pfac
+            if core.nqx == 5:
+                qiphy = qiphy + out["qiten"] * pfac
+            utenx = utenx + out["uten"]
+            vtenx = vtenx + out["vten"]
+            sfupd["_tkephy"] = out["tketen"]
 
         # couple the accumulated cross-grid wind tendencies onto the
         # momentum grid in one pass (uvcross2dot ×p*_dot for the B grid,
         # tenxtouvten for MOLOCH's C grid)
         du, dv = core.couple_uvten(utenx, vtenx, cpl)
-        return (tphy, qvphy, qcphy[None], uphy + du, vphy + dv,
-                cldfra, heatrt, sfupd)
+        # hydrometeor tendencies on the species axis (qc[, qr, qi, qs])
+        qhphy = torch.stack([qcphy, qrphy, qiphy, qsphy]) \
+            if core.nqx == 5 else qcphy[None]
+        return (tphy, qvphy, qhphy, uphy + du, vphy + dv, cldfra, heatrt,
+                sfupd)

@@ -169,8 +169,8 @@ def test_model_refuses_unported_options():
     for overrides in ((("core", "idynamic", 4),),
                       (("physics", "icup_lnd", 2),),
                       (("physics", "ibltyp", 3),),
-                      (("physics", "ibltyp", 2),),
-                      (("physics", "ipptls", 2),),
+                      (("physics", "ibltyp", 4),),
+                      (("physics", "ipptls", 3),),
                       (("physics", "iocnflx", 1),),
                       (("physics", "ichem", 1),),
                       (("physics", "ichem", 1), ("core", "idynamic", 2)),

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""The decomposed phases of ``chip_smoke.py`` (10-12, 14c) alone, with only
-what they are held to: the single card's first 12 MOLOCH flagship steps
-(phase 6), the ICBC-driven runs (phase 13) and the NH flagship on one card
-(phase 14a).
+"""The decomposed phases of ``chip_smoke.py`` (10-12, 14c, 15e) alone, with
+only what they are held to: the single card's first 12 MOLOCH flagship
+steps (phase 6), the ICBC-driven runs (phase 13), the NH flagship on one
+card (phase 14a) and configuration A's first 12 steps on one card
+(phase 15a).
 
 For a host with four or more cards, where phases 10-12 run under gloo and
 under nccl (a card a rank): it spares the four-card call the phases that
@@ -62,8 +63,12 @@ def main():
         paths = cs.write_icbc_files(tmp)
         icbc13 = cs.run_icbc_single(dev, smi, paths, mods)   # phase 13
         nh14 = cs.run_nh_single(dev, smi, mods)              # phase 14a
+        a = cs.hydro_icbc_model(paths, dev, physics=cs.SCHEME_A)
+        a.run_icbc(cs.HYDRO_CHECK[0])                        # phase 15a
+        a15 = {cs.HYDRO_CHECK[0]: a.decoupled()}
+        del a
         cs.run_decomposed(dev, smi, single12, paths, icbc13,
-                          nh14["single12"])                  # 10-12, 14c
+                          nh14["single12"], a15)      # 10-12, 14c, 15e
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
