@@ -95,6 +95,22 @@ Phases (any failure raises and the script exits nonzero):
      blocks) at nf = 10 against their plain versions and K5a against K4
      bit for bit, with device time and bound; (e) A on 2x2 ranks (gloo)
      held to (a) bit for bit at step 12;
+ 16. the remaining cumulus schemes, after phase 15 and, for 16d, in the
+     decomposed group: (a) configuration C, RegCM4's CORDEX setting
+     (Grell over land, Emanuel over water, Holtslag, SUBEX) at the
+     EUR-44 extent (106x103x18, ds 50 km, dt 150 s, f32) from DOMAIN and
+     ICBC files the port's preprocessors write, through step 150 past
+     the boundary update after step 144: the ms/step of plain, cumulus,
+     surface and radiation steps, K1 and K2 launches, a cumulus step's
+     device kernels and busy share, the peak memory, the land fraction;
+     (b) Kuo, Betts-Miller with shallow convection and Kain-Fritsch on
+     test_001 from phase 13's ICBC files for 24 steps: the ms/step of
+     plain and cumulus steps and a cumulus step's device kernels; (c)
+     each new scheme and C on the card against the CPU in f64 at
+     16x20x14, 3 steps, with the saturation adjustment on and off (as
+     phase 5); (d) C on 2x2 ranks (gloo) on test_001 from phase
+     13's files, held bit for bit to one card at step 12, with K5c's
+     launches;
 then a JSON line of the kernels and the result line.
 """
 import json
@@ -221,6 +237,31 @@ B_REFERENCE = {6: (1011.5966, 1014.1085, 0.33896, 1.000000e-04, 0.0,
                    3.463735e-05, 8.895323e-10),
                12: (1010.7578, 1014.9992, 0.43865, 1.000000e-04, 0.0,
                     4.049361e-05, 1.046149e-09)}
+
+
+# phase 16: configuration C, RegCM4's CORDEX setting (Grell over land,
+# FC80 closure; MIT-Emanuel over water; Holtslag; SUBEX) at the EURO-CORDEX
+# EUR-44 extent (106 x 103 points, 0.44 deg ~ 50 km, RegCM4's 18 levels),
+# centred at RegCMConfig's 45N 13E; the other new schemes on test_001
+SCHEME_C = dict(icup_lnd=2, icup_ocn=4, igcc=2, ibltyp=1, ipptls=1,
+                icldfrac=0)
+EUR44 = (103, 106, 18)              # iy, jx, kz
+CU_SCHEMES = {"Kuo": dict(icup_lnd=1, icup_ocn=1),
+              "Betts-Miller + shallow": dict(icup_lnd=3, icup_ocn=-3),
+              "Kain-Fritsch": dict(icup_lnd=6, icup_ocn=6)}
+CU_STEPS = 24
+# 16c: (name, idynamic, ds, dt, physics overrides); the start's qv is 1.9
+# times the rest state's (95% of saturation): at 1.8 the ocean points sit
+# on SUBEX's rh0 = 0.9, where its cloud fraction is a roundoff
+CU_CASES = (("C", 1, 50.0, 150.0, SCHEME_C),
+            ("Kuo", 1, 50.0, 150.0, dict(SCHEME_C, icup_lnd=1, icup_ocn=1)),
+            ("Betts-Miller + shallow", 1, 50.0, 150.0,
+             dict(SCHEME_C, icup_lnd=3, icup_ocn=-3)),
+            ("Kain-Fritsch, UW TCM, nogtom", 1, 50.0, 150.0,
+             dict(icup_lnd=6, icup_ocn=6, ibltyp=2, ipptls=2, icldfrac=0)),
+            ("Grell on MOLOCH", 3, 3.0, 30.0,
+             dict(SCHEME_C, icup_ocn=2)))
+CU_QVFAC = 1.9
 
 
 def nvidia_smi_line():
@@ -1035,6 +1076,7 @@ def decomposed_rank(rank, time_steps, paths):
     torch.cuda.empty_cache()
     out["nh"] = nh_rank(rank, time_steps)
     out["schemes"] = schemes_rank(rank, paths)
+    out["cumulus"] = cumulus_rank(rank, paths)
     return out
 
 
@@ -1079,13 +1121,14 @@ def nh_rank(rank, time_steps):
     return nh
 
 
-def run_decomposed(dev, smi, single12, paths, icbc13, nh12, a15):
-    """Phases 10-12 and 14c: the 2x2 groups of ``decomposed_rank`` on
-    every backend the host allows, held bit for bit to the single card's
-    step-12 fields ``single12`` and to its f64 dryruns, test_001 from
-    ICBC to phase 13a's run ``icbc13``, and the NH flagship bit for bit
-    to phase 14a's step-12 fields ``nh12``; returns each backend's rank
-    results."""
+def run_decomposed(dev, smi, single12, paths, icbc13, nh12, a15, c16):
+    """Phases 10-12, 14c, 15e and 16d: the 2x2 groups of
+    ``decomposed_rank`` on every backend the host allows, held bit for
+    bit to the single card's step-12 fields ``single12`` and to its f64
+    dryruns, test_001 from ICBC to phase 13a's run ``icbc13``, the NH
+    flagship bit for bit to phase 14a's step-12 fields ``nh12``, and
+    configurations A and C to their single-card step-12 fields ``a15``
+    and ``c16``; returns each backend's rank results."""
     import torch
     from regcm_tpu_torch.core.grid import build_grid
     from regcm_tpu_torch.parallel.launch import spawn
@@ -1275,6 +1318,30 @@ def run_decomposed(dev, smi, single12, paths, icbc13, nh12, a15):
                   f"{rel_rms(dec[f], a15[n][f]):.3e}")
             if not same:
                 raise AssertionError(f"decomposed configuration A "
+                                     f"({backend}) differs from one card in "
+                                     f"{f} at step {n}")
+        # -- 16d. configuration C on 2x2 ranks against one card
+        for r, out in enumerate(res):
+            h = out["cumulus"]
+            print(f"  rank {r} configuration C: launches {h['launches']}")
+            if not h["finite"]:
+                raise AssertionError(f"rank {r}: non-finite decomposed "
+                                     f"configuration C")
+            if h["launches"]["K5c"] <= 0 or h["launches"]["K2"] <= 0 \
+                    or h["launches"]["K1"] != 0:
+                raise AssertionError(f"rank {r} ({backend}): the "
+                                     f"decomposed configuration C bypassed "
+                                     f"K5c or K2: {h['launches']}")
+        dec = res[0]["cumulus"]["dec"]
+        n = HYDRO_CHECK[0]
+        for f in HYDRO_FIELDS:
+            same = np.array_equal(dec[f], c16[f])
+            print(f"  configuration C f32 step {n}, {backend} 2x2 vs one "
+                  f"card (16d), {f}: "
+                  f"{'bit-identical' if same else 'DIFFERENT'}, rel-RMS "
+                  f"{rel_rms(dec[f], c16[f]):.3e}")
+            if not same:
+                raise AssertionError(f"decomposed configuration C "
                                      f"({backend}) differs from one card in "
                                      f"{f} at step {n}")
         decomp[backend] = res
@@ -1517,21 +1584,22 @@ def with_physics(cfg, physics):
     return cfg
 
 
-def moisten(s, idynamic):
-    """Phase 15c's start: qv 1.8 times the rest state's (about 90% of
-    saturation), cloud water between 250 K and 290 K and ice between
-    220 K and 265 K, so that the microphysics has work from step 0."""
+def moisten(s, idynamic, qvfac=1.8):
+    """Phase 15c's start: qv ``qvfac`` times the rest state's (1.8: about
+    90% of saturation), cloud water between 250 K and 290 K and ice
+    between 220 K and 265 K where the state carries them (qv and qc alone
+    under SUBEX), so that the microphysics has work from step 0."""
     import torch
     if idynamic == 3:
         cpl, t, qx0 = 1.0, s.t, s.qx
     else:
         cpl = s.ps_a[None]
         t, qx0 = s.t_a / cpl, s.qx_a
-    qv = 1.8 * qx0[0] / cpl
+    qv = qvfac * qx0[0] / cpl
     qc = torch.where((t > 250.0) & (t < 290.0), t.new_tensor(1.0e-4), 0.0)
     qi = torch.where((t > 220.0) & (t < 265.0), t.new_tensor(3.0e-5), 0.0)
     z = torch.zeros_like(qv)
-    qx = torch.stack([qv, qc, z, qi, z]) * cpl
+    qx = torch.stack([qv, qc, z, qi, z][:qx0.shape[0]]) * cpl
     if idynamic == 3:
         return s._replace(qx=qx)
     return s._replace(qx_a=qx, qx_b=qx.clone())
@@ -1889,6 +1957,288 @@ def schemes_rank(rank, paths):
     return out
 
 
+# -- phase 16: the remaining cumulus schemes -----------------------------
+def eur44_cfg():
+    """Configuration C at the EUR-44 extent over phase 13's one-day ICBC
+    window."""
+    from regcm_tpu_torch.config.params import RegCMConfig
+    cfg = with_physics(RegCMConfig(), SCHEME_C)
+    cfg.dim.iy, cfg.dim.jx, cfg.dim.kz = EUR44
+    cfg.globdat.gdate2 = ICBC_END
+    return cfg
+
+
+def write_eur44_files(directory):
+    """16a's input files, written by the port's preprocessors: the EUR-44
+    DOMAIN file of a 500 m hill whose lower 40% is water, and its one-day
+    ICBC file with a 10 m/s jet."""
+    from regcm_tpu_torch.preproc.icbc import generate_synthetic_icbc
+    from regcm_tpu_torch.preproc.terrain import synthetic_topo, write_domain
+    cfg = eur44_cfg()
+    topo, lnd, mask = synthetic_topo(cfg, kind="gauss", height=500.0)
+    paths = dict(domain=os.path.join(directory, "eur44_DOMAIN000.nc"),
+                 hydro=os.path.join(directory, "eur44_ICBC.nc"))
+    write_domain(cfg, paths["domain"], topo, lnd, mask)
+    generate_synthetic_icbc(cfg, topo, paths["hydro"], jet=10.0)
+    return paths
+
+
+def step_kind(flags):
+    """The alarm class of a step: radiation, surface (at test_001's
+    alarms always with the cumulus), cumulus or plain; a step of several
+    alarms counts as the costliest."""
+    return ("radiation" if flags.do_rad else "surface" if flags.do_srf
+            else "cumulus" if flags.do_cum else "plain")
+
+
+def timed_steps(model, until, record=()):
+    """run_icbc one step at a time up to step ``until``: (step, alarm
+    class, wall ms synchronised, cumulus alarm) of each, and the
+    decoupled fields after the steps in ``record``."""
+    rows, rec = [], {}
+    while model.nstep < until:
+        f = model._flags()
+        _, wall = model.run_icbc(1)
+        rows.append((model.nstep - 1, step_kind(f), 1000.0 * wall,
+                     f.do_cum))
+        if model.nstep in record:
+            rec[model.nstep] = model.decoupled()
+    return rows, rec
+
+
+def class_ms(rows, what, smi, shape, first=1):
+    """Print and return the mean ms/step of each alarm class from step
+    ``first`` on (step 0 pays the first calls' set-up)."""
+    ms = {}
+    for kind in ("plain", "cumulus", "surface", "radiation"):
+        t = [w for n, k, w, _ in rows if k == kind and n >= first]
+        ms[kind] = sum(t) / len(t) if t else None
+        print(f"{what} ms/step (f32, {shape}, steps {first}.."
+              f"{rows[-1][0]}, each synchronised), {kind} steps: "
+              + (f"{ms[kind]:.3f} over {len(t)} steps" if t
+                 else "none in these steps")
+              + f", on {smi}")
+    return ms
+
+
+def next_cumulus_step(model):
+    """Run up to the next step of the cumulus class (the cumulus alarm
+    alone)."""
+    while step_kind(model._flags()) != "cumulus":
+        model.run_icbc(1)
+
+
+def run_config_c(dev, smi, paths, mods):
+    """Phase 16a: configuration C at the EUR-44 extent from its own DOMAIN
+    and ICBC files through step 150."""
+    import torch
+    from regcm_tpu_torch.driver import Model
+    from regcm_tpu_torch.preproc.icbc import ICBCReader
+    from regcm_tpu_torch.preproc.terrain import build_grid_from_domain
+    cfg = eur44_cfg()
+    grid = build_grid_from_domain(cfg, paths["domain"])
+    t0 = time.time()
+    model = Model(cfg, grid=grid, device=dev, dtype=torch.float32)
+    model.init_from_icbc(ICBCReader(paths["hydro"], cfg.globdat.calendar))
+    torch.cuda.synchronize()
+    # the peak from here on holds the state and every step's temporaries
+    torch.cuda.reset_peak_memory_stats(dev)
+    land = float(np.mean(grid.lndocn))
+    shape = f"{grid.jx}x{grid.iy}x{grid.kz}"
+    print(f"16a. configuration C {SCHEME_C} at the EUR-44 extent {shape} "
+          f"(ds {cfg.geo.ds} km, dt {cfg.dtsec} s, f32, from ICBC; set-up "
+          f"{time.time() - t0:.1f} s): land fraction {land:.3f}")
+    if not 0.05 <= land <= 0.95:
+        raise AssertionError("16a: the domain needs 5% each of land and "
+                             "water, so that Grell and Emanuel both run")
+    reset(mods)
+    rows, rec = timed_steps(model, HYDRO_ICBC_STEPS, (HYDRO_ICBC_STEPS,))
+    launches = read(mods)
+    ncum = sum(1 for row in rows if row[3])
+    print(f"16a path: {HYDRO_ICBC_STEPS} steps, launches {launches} "
+          f"(K1 {launches['K1'] / HYDRO_ICBC_STEPS:.2f} a step, K2 "
+          f"{launches['K2'] / ncum:.2f} a cumulus step), boundary clock "
+          f"{model.xbctime:.0f} s after the update at step 144")
+    if not model.check_finite():
+        raise AssertionError("16a: non-finite state")
+    if launches["K1"] <= 0 or launches["K2"] <= 0:
+        raise AssertionError(f"16a bypassed K1 (Holtslag) or K2 (Emanuel "
+                             f"over water): {launches}")
+    if model.xbctime >= 6 * 3600.0:
+        raise AssertionError("16a: no boundary update")
+    d = rec[HYDRO_ICBC_STEPS]
+    print(f"16a step {HYDRO_ICBC_STEPS}: ps {d['ps'].min():.3f}.."
+          f"{d['ps'].max():.3f} hPa, T {d['t'].min():.3f}.."
+          f"{d['t'].max():.3f} K, rainc max "
+          f"{float(model.state.rainc.max()):.4f} mm, rainnc max "
+          f"{float(model.state.rainnc.max()):.4f} mm")
+    ms = class_ms(rows, "16a", smi, shape)
+    next_cumulus_step(model)
+    nker, busy, wall = step_kernels(model, lambda: model.run_icbc(1))
+    print(f"16a cumulus step {model.nstep - 1} under the profiler: {nker} "
+          f"device kernels, device busy {busy:.2f} ms of {wall:.1f} ms wall "
+          f"({100.0 * busy / wall:.1f}%)")
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    print(f"16a peak device memory {peak:.2f} GiB")
+    del model
+    torch.cuda.empty_cache()
+    return dict(ms=ms, cum_kernels=nker, land=land, peak_gib=peak,
+                per_step={k: v / HYDRO_ICBC_STEPS
+                          for k, v in launches.items()})
+
+
+def run_cumulus_schemes(dev, smi, paths, mods):
+    """Phase 16b: Kuo, Betts-Miller with shallow convection and
+    Kain-Fritsch on test_001 from phase 13's ICBC files, CU_STEPS steps
+    each; then configuration C there for HYDRO_CHECK[0] steps, the
+    single card 16d holds its 2x2 run to."""
+    import torch
+    out = {}
+    for name, phys in CU_SCHEMES.items():
+        model = hydro_icbc_model(paths, dev, physics=phys)
+        reset(mods)
+        rows, _ = timed_steps(model, CU_STEPS)
+        launches = read(mods)
+        print(f"16b {name} {phys} on test_001 from ICBC: {CU_STEPS} steps, "
+              f"launches {launches}")
+        if not model.check_finite():
+            raise AssertionError(f"16b {name}: non-finite state")
+        if launches["K1"] <= 0:
+            raise AssertionError(f"16b {name} bypassed K1: {launches}")
+        ms = class_ms(rows, f"16b {name}", smi, "34x48x18")
+        next_cumulus_step(model)
+        nker, busy, wall = step_kernels(model, lambda: model.run_icbc(1))
+        print(f"16b {name} cumulus step {model.nstep - 1} under the "
+              f"profiler: {nker} device kernels, device busy {busy:.2f} ms "
+              f"of {wall:.1f} ms wall; rainc max "
+              f"{float(model.state.rainc.max()):.4f} mm")
+        out[name] = dict(ms=ms, cum_kernels=nker)
+        del model
+        torch.cuda.empty_cache()
+    model = hydro_icbc_model(paths, dev, physics=SCHEME_C)
+    model.run_icbc(HYDRO_CHECK[0])
+    out["c_single12"] = model.decoupled()
+    del model
+    return out
+
+
+def cumulus_card_vs_cpu(dev):
+    """Phase 16c: each case of CU_CASES on the card against the CPU in f64
+    at 16x20x14 over the 500 m hill with water, 3 steps with every alarm
+    at step 0 and the cumulus every step. As phase 5: with the saturation
+    adjustment the trajectory turns roundoff into ~1e-6 (a threshold of
+    condtq flips), so it is held to max(1e-7, 4 x the CPU run's spread
+    under a 1e-15 relative change of T), the spread the largest of three
+    such changes (one change's spread varies sevenfold with its seed), a
+    hydrometeor beyond it only at the points where a threshold flipped
+    (at most 1% of them); with the adjustment off (subexparam conf=0)
+    the dynamical fields (ps, t, qv, u, v, w) are well conditioned and
+    held to 1e-10."""
+    import torch
+    from regcm_tpu_torch.config.params import RegCMConfig
+    from regcm_tpu_torch.core.grid import build_grid
+    from regcm_tpu_torch.driver import Model, standard_atmosphere_state
+    from regcm_tpu_torch.dynamics.moloch import MolochCore
+    from regcm_tpu_torch.preproc.terrain import synthetic_topo
+    for name, idyn, ds, dt, phys in CU_CASES:
+        cfgs = {}
+        for conf in (None, 0.0):
+            cfg = with_physics(RegCMConfig(), phys)
+            cfg.core.idynamic = idyn
+            cfg.dim.iy, cfg.dim.jx, cfg.dim.kz = 16, 20, 14
+            cfg.geo.ds, cfg.time.dt, cfg.time.dtcum = ds, dt, dt
+            if conf is not None:
+                cfg.subex.conf = conf
+            cfgs[conf] = cfg
+        cfg = cfgs[None]
+        topo, _, mask = synthetic_topo(cfg, kind="gauss", height=500.0)
+        grid = build_grid(cfg, ht=topo, landmask=mask)
+        if idyn == 3:
+            s0 = MolochCore(grid, cfg, device="cpu").initial_state(
+                perturb=0.3, seed=1)
+        else:
+            s0 = standard_atmosphere_state(grid, cfg, "cpu", perturb=0.3,
+                                           seed=1)
+        s0 = moisten(s0, idyn, CU_QVFAC)
+        tn = "t" if idyn == 3 else "t_a"
+        t = getattr(s0, tn)
+        todo = [("gpu", None, dev, s0), ("cpu", None, "cpu", s0),
+                ("gpu_dry", 0.0, dev, s0), ("cpu_dry", 0.0, "cpu", s0)]
+        for seed in range(3):
+            rng = np.random.default_rng(seed)
+            todo.append((f"cpu_perturbed{seed}", None, "cpu", s0._replace(
+                **{tn: t * (1.0 + 1e-15 * torch.as_tensor(
+                    rng.standard_normal(tuple(t.shape))))})))
+        runs = {}
+        for run, conf, device, init in todo:
+            m = Model(cfgs[conf], grid=grid, device=device,
+                      dtype=torch.float64, initial_state=init)
+            m.run(3)
+            if not m.check_finite():
+                raise AssertionError(f"16c {name}: non-finite ({run})")
+            d = m.decoupled()
+            qx = m.state.qx if idyn == 3 \
+                else m.state.qx_a / m.state.ps_a[None]
+            for i in range(1, qx.shape[0]):
+                d[("qc", "qr", "qi", "qs")[i - 1]] = qx[i].cpu().numpy()
+            if idyn != 3:
+                d["rainc"] = m.state.rainc.cpu().numpy()
+            runs[run] = d
+        worst, flips = (0.0, ""), {}
+        fields = [f for f in runs["cpu"] if f != "rainc"]
+        for f in fields:
+            want = runs["cpu"][f]
+            err = rel_rms(runs["gpu"][f], want)
+            lim = max(1e-7, 4.0 * max(
+                rel_rms(runs[f"cpu_perturbed{seed}"][f], want)
+                for seed in range(3)))
+            worst = max(worst, (err / lim, f))
+            if err < lim:
+                continue
+            off = np.abs(runs["gpu"][f] - want) > 1e-7 * np.abs(want).max()
+            flips[f] = int(off.sum())
+            if f not in ("qc", "qr", "qi", "qs") or off.mean() > 0.01:
+                raise AssertionError(f"16c {name}: card and CPU disagree "
+                                     f"on {f}: rel-RMS {err} (bound {lim})")
+        # the dry runs' dynamical fields, as phases 5 and 7 hold them (the
+        # autoconversion thresholds still act on qc)
+        dry = max((rel_rms(runs["gpu_dry"][f], runs["cpu_dry"][f]), f)
+                  for f in fields if f not in ("qc", "qr", "qi", "qs"))
+        rain = (f", convective rain max {runs['cpu']['rainc'].max():.3e} mm"
+                if "rainc" in runs["cpu"] else "")
+        print(f"16c {name}, 3 steps f64 16x20x14, card vs CPU: worst field "
+              f"{worst[1]} at {worst[0]:.3f} of its bound"
+              + (f"; points past 1e-7 by a branch flip {flips}" if flips
+                 else "") + f"; saturation adjustment off: worst {dry[1]} "
+              f"rel-RMS {dry[0]:.3e} (bound 1e-10)" + rain)
+        if not dry[0] <= 1e-10:
+            raise AssertionError(f"16c {name}: card and CPU disagree with "
+                                 f"the adjustment off on {dry[1]}: {dry[0]}")
+
+
+def cumulus_rank(rank, paths):
+    """Phase 16d on one rank of the 2x2 group: configuration C on test_001
+    from the ICBC files for HYDRO_CHECK[0] steps (counters reset just
+    before, read just after); the whole domain's fields (on rank 0)."""
+    import torch
+    from regcm_tpu_torch.kernels import emanuel_mixing as k2
+    from regcm_tpu_torch.kernels import pbl_tridiag as k1
+    mods = {"K1": k1, "K2": k2}
+    model = hydro_icbc_model(paths, rank.device, rank.mesh(34, 48),
+                             physics=SCHEME_C)
+    reset(mods)
+    k1.launches_sharded = 0
+    model.run_icbc(HYDRO_CHECK[0])
+    launches = read(mods)
+    launches["K5c"] = k1.launches_sharded
+    out = dict(launches=launches, finite=model.check_finite())
+    dec = model.decoupled()
+    out["dec"] = dec if rank.rank == 0 else None
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1910,6 +2260,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     mods = {"K1": k1, "K2": k2, "K3": k3, "K4": k4}
+    t_all = time.time()
 
     # -- 1. card and versions
     smi = nvidia_smi_line()
@@ -2145,9 +2496,17 @@ def main():
         schemes_card_vs_cpu(dev)
         nf10 = compare_nf10(dev, k4)
 
-        # -- 10, 11, 12, 14c, 15e. the decomposed runs
+        # -- 16a-c. the remaining cumulus schemes on one card
+        t16 = time.time()
+        c16 = run_config_c(dev, smi, write_eur44_files(tmp), mods)
+        cu16 = run_cumulus_schemes(dev, smi, paths, mods)
+        cumulus_card_vs_cpu(dev)
+        print(f"phase 16a-c took {time.time() - t16:.1f} s")
+
+        # -- 10, 11, 12, 14c, 15e, 16d. the decomposed runs
         decomp = run_decomposed(dev, smi, single12, paths, icbc13,
-                                nh14["single12"], a15["rec"])
+                                nh14["single12"], a15["rec"],
+                                cu16["c_single12"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2198,6 +2557,13 @@ def main():
             row["launches_per_step_B"] = b15["per_step"][k]
         if k in ("K4", "K5a"):
             row["nf10"] = nf10[k]
+        # phase 16: launches a step of configuration C (one card at the
+        # EUR-44 extent, 150 steps; K5c on 2x2 ranks, 16d, rank 0)
+        if k in ("K1", "K2"):
+            row["launches_per_step_C"] = c16["per_step"][k]
+        if k == "K5c":
+            row["launches_per_step_C_2x2"] = ranks[0]["cumulus"][
+                "launches"]["K5c"] / HYDRO_CHECK[0]
         if k in BASE:
             row["launches_ranks"] = {b: [r["launches"][k] for r in res]
                                      for b, res in decomp.items()}
@@ -2205,6 +2571,7 @@ def main():
             row.update(launches_hydrostatic=hydro_launches[k],
                        small_shape=stats[k]["small"])
         kernels.append(row)
+    print(f"chip_smoke ran in {time.time() - t_all:.1f} s on {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

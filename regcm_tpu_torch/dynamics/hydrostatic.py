@@ -420,6 +420,11 @@ class HydroCore:
             s.tke_a)
         return tke_a_n, tke_b_n
 
+    def _kuo_defer(self):
+        """Whether the physics suite's Kuo scheme takes the qv vertical
+        advection term (``PhysicsSuite.kuo_defer``)."""
+        return bool(getattr(self.physics, "kuo_defer", False))
+
     def _tke_update(self, sfupd, s, qdot, uavg, psa, rpsa, xkcf, dt):
         """The UW TCM's prognostic TKE (ibltyp=2): advected, diffused and
         forecast, with the physics tendency ``_tkephy`` the suite hands
@@ -603,7 +608,9 @@ class HydroCore:
                                          / torch.clamp(qva[1:], min=1e-30))
                           ** self.qcon[1:], 0.0)
         qv_vadv = self._vadv_flux(qdot[1:kz] * fgq)
-        qvten = qvhadv + qv_vadv
+        # Kuo takes the qv vertical advection over (mod_tendency.F90:
+        # 1371-1373): the core adds it only when no Kuo scheme runs
+        qvten = qvhadv if self._kuo_defer() else qvhadv + qv_vadv
         # hydrometeors: hadv + vadv4d with the upstream sign guard
         if self.isladvec == 1:
             qhten = slhadv(s.qx_b[1:], slw, dt,
@@ -980,7 +987,9 @@ class HydroCore:
                                          / torch.clamp(qva[1:], min=1e-30))
                           ** self.qcon[1:], 0.0)
         qv_vadv = self._vadv_flux(qdot[1:kz] * fgq)
-        qvten = qvhadv + qv_vadv
+        # Kuo takes the qv vertical advection over (mod_tendency.F90:
+        # 1371-1373): the core adds it only when no Kuo scheme runs
+        qvten = qvhadv if self._kuo_defer() else qvhadv + qv_vadv
         qhten = self._hadv_scalar(qhdec, uavg1, uavg2, vavg1, vavg2, ps=psa)
         qhten = self._stability_guard(qhten, qhdec, psa, "rel")
         qha = s.qx_a[1:]

@@ -2,18 +2,22 @@
 ``regcm_tpu/physics/suite.py``.
 
 ``physical_parametrizations`` (``Main/mod_tendency.F90:1682-1820``):
-deep cumulus on the dtcum alarm (Emanuel icup=4, Tiedtke icup=5 or none,
-each dense over the grid and blended by the land mask when icup_lnd and
-icup_ocn differ) → the icldfrac cloud fraction (schemes 0-6) and the
-resolved microphysics (SUBEX ipptls=1 or the 5-species
-Nogherotto-Tompkins ipptls=2) → CCM3 radiation on the dtrad alarm (LW
-absorptivities on dtabem) → BATS1e land with Zeng ocean fluxes on the
-dtsrf alarm → the PBL (Holtslag ibltyp=1, or the UW TCM ibltyp=2 with
-its TKE tendency handed back to the core). Returns the physics
-tendencies for the dynamical core, coupled by ``atms["cpl"]`` (p* for
-the sigma-p cores, 1 for the uncoupled MOLOCH prognostics), plus
-persistent-state updates. Every other scheme is refused at construction
-by ``validate_physics``.
+deep cumulus on the dtcum alarm (icup 1 Kuo, 2 Grell, 3 Betts-Miller, 4
+Emanuel, 5 Tiedtke, 6 Kain-Fritsch or 0 none, each dense over the grid
+and blended by the land mask when icup_lnd and icup_ocn differ; the
+sigma-p cores hand Kuo the qv vertical advection, which returns on every
+step to the columns Kuo leaves alone, and Kain-Fritsch reads a
+running-mean w updated on every step) → the
+icldfrac cloud fraction (schemes 0-6) and the resolved microphysics
+(SUBEX ipptls=1 or the 5-species Nogherotto-Tompkins ipptls=2) → CCM3
+radiation on the dtrad alarm (LW absorptivities on dtabem) → BATS1e land
+with Zeng ocean fluxes on the dtsrf alarm → the PBL (Holtslag ibltyp=1,
+or the UW TCM ibltyp=2 with its TKE tendency handed back to the core) →
+shallow convection on every step when an icup is negative, on the total
+tendencies. Returns the physics tendencies for the dynamical core,
+coupled by ``atms["cpl"]`` (p* for the sigma-p cores, 1 for the
+uncoupled MOLOCH prognostics), plus persistent-state updates. Every
+other scheme is refused at construction by ``validate_physics``.
 """
 from __future__ import annotations
 
@@ -27,7 +31,12 @@ from ..device import resolve_device
 from ..dynamics.stencil import cross2dot
 from ..utils import constants as c
 from .cloud.fractions import cldfrac_dispatch
+from .cumulus.betts_miller import bmpara, clwfromt, model_cumulus_cloud
 from .cumulus.emanuel import cupeman, ELCRIT_LND, ELCRIT_OCN, EPMAX
+from .cumulus.grell import cup
+from .cumulus.kain_fritsch import KFParams, KFTables, kfpara
+from .cumulus.kuo import build_kuo_tables, kuo
+from .cumulus.shallow import shallcu
 from .cumulus.tiedtke import ntiedtke
 from .micro.nogtom import nogtom
 from .micro.subex import subex, combine_clouds
@@ -45,7 +54,9 @@ from .uw_dispatch import run_uwtcm
 # hard error at model build, never a silent no-op (the reference's
 # cross-check-and-die in mod_params).
 SUPPORTED = dict(
-    icup_lnd={0, 4, 5}, icup_ocn={0, 4, 5},   # none, Emanuel, Tiedtke
+    # |icup|: none, Kuo, Grell, Betts-Miller, Emanuel, Tiedtke,
+    # Kain-Fritsch; a negative value adds shallow convection
+    icup_lnd={0, 1, 2, 3, 4, 5, 6}, icup_ocn={0, 1, 2, 3, 4, 5, 6},
     ibltyp={1, 2},                 # Holtslag, UW TCM
     ipptls={1, 2},                 # SUBEX, Nogherotto-Tompkins
     iocnflx={2},                   # Zeng
@@ -53,9 +64,10 @@ SUPPORTED = dict(
     irrtm={0},                     # CCM3
     lakemod={0}, islab_ocean={0}, idcsst={0}, iseaice={0},
 )
-SCHEMES = dict(
-    icup={1: "Kuo", 2: "Grell", 3: "Betts-Miller", 6: "Kain-Fritsch"},
-    ibltyp={3: "GFS", 4: "MYJ"}, ipptls={3: "WSM5"})
+SCHEMES = dict(ibltyp={3: "GFS", 4: "MYJ"}, ipptls={3: "WSM5"},
+               iocnflx={1: "BATS ocean fluxes", 3: "COARE"},
+               lakemod={1: "lake model"}, islab={1: "slab ocean"},
+               idcsst={1: "diurnal SST"}, iseaice={1: "sea ice"})
 # the dynamical cores refuse what they leave out (HydroCore: chemistry,
 # a decomposed semi-Lagrangian run; MolochCore its own)
 
@@ -63,13 +75,10 @@ SCHEMES = dict(
 def validate_physics(cfg):
     """Raise for any option this port does not implement."""
     p = cfg.physics
-    for name in ("icup_lnd", "icup_ocn"):
-        if getattr(p, name) < 0:
-            raise NotImplementedError(
-                f"physicsparam {name}={getattr(p, name)}: shallow "
-                "convection (icup<0) is not ported to regcm_tpu_torch")
     for name, ok in SUPPORTED.items():
         val = getattr(p, name)
+        if name.startswith("icup"):
+            val = abs(val)
         if val not in ok:
             scheme = SCHEMES.get(name.split("_")[0], {}).get(val)
             raise NotImplementedError(
@@ -81,6 +90,17 @@ def validate_physics(cfg):
     if cfg.dim.nsg > 1:
         raise NotImplementedError("dimparam nsg>1 (subgrid surface) is "
                                   "not ported to regcm_tpu_torch")
+    icups = (max(p.icup_lnd, 0), max(p.icup_ocn, 0))
+    if 1 in icups:
+        if cfg.core.idynamic == 3:
+            raise ValueError(
+                "icup=1 (Kuo) requires the sigma-p cores' deferred qv "
+                "vertical advection and is not available with the "
+                "MOLOCH core (idynamic=3)")
+        if icups[0] != icups[1]:
+            raise ValueError(
+                "icup=1 (Kuo) cannot be mixed with a different scheme on "
+                "the other surface type (deferred qv vadv contract)")
     if cfg.core.idynamic == 3 and p.ibltyp == 2:
         raise ValueError(
             "ibltyp=2 (UW TCM) needs the MOLOCH WAF TKE advection "
@@ -111,9 +131,17 @@ class PhysicsSuite:
         self.idynamic = cfg.core.idynamic
         self.land_scheme = "bats1e"
         # the land/ocean cumulus split (icup_lnd/icup_ocn,
-        # Main/mpplib/mod_runparams.F90:109-153)
-        self.icup_lnd = cfg.physics.icup_lnd
-        self.icup_ocn = cfg.physics.icup_ocn
+        # Main/mpplib/mod_runparams.F90:109-153); a negative icup adds
+        # shallow convection everywhere (mod_tendency.F90:316)
+        p = cfg.physics
+        self.icup_lnd = max(p.icup_lnd, 0)
+        self.icup_ocn = max(p.icup_ocn, 0)
+        self.shallow = p.icup_lnd < 0 or p.icup_ocn < 0
+        icups = (self.icup_lnd, self.icup_ocn)
+        # Kuo takes the qv vertical advection from the sigma-p cores
+        # (mod_tendency.F90:1371-1373); the suite gives it back on every
+        # step to the columns Kuo leaves alone
+        self.kuo_defer = 1 in icups
         # minorig: lowest Emanuel origin level (mod_params.F90:2352-2355)
         hs = grid.hsigma
         kl = [k for k in range(len(hs)) if hs[k] <= 0.950]
@@ -151,10 +179,43 @@ class PhysicsSuite:
         self.elcrit = f(np.where(lnd.reshape(ncol) > 0.5,
                                  ELCRIT_LND, ELCRIT_OCN))
         self.epmax = torch.full((ncol,), EPMAX, dtype=dtype, device=device)
+        # Grell: the highest departure level (hsigma > skbmax,
+        # mod_params.F90:2283-2285)
+        self.grell_kbmax = int((np.asarray(grid.hsigma) > 0.4).sum()) - 1
+        if self.kuo_defer:
+            # Kuo's heating/moistening weight tables (mod_params.F90:
+            # 2217-2276) and the 700 hPa level
+            tw, vq = build_kuo_tables(grid.sigma, grid.hsigma, grid.dsigma,
+                                      grid.ptop)
+            self.kuo_tabs = (f(tw), f(vq))
+            self.kuo_sig = tuple(f(getattr(grid, k)) for k in
+                                 ("sigma", "hsigma", "dsigma"))
+            self.k700 = int(np.argmax(np.asarray(grid.hsigma) * 95.0 + 5.0
+                                      > 70.0)) + 1
+        # Kain-Fritsch: the saturation-point tables and the kfparam and
+        # cloud-fraction constants; its trigger reads the running-mean w
+        # in the state (wavg), updated on every step
+        self.uses_kf = 6 in icups
+        if self.uses_kf:
+            kfn = cfg.kf
+            cld = cfg.raw.get("cldparam", {}) if cfg.raw else {}
+            self.kf_tab = KFTables.build(cfg.ptop_cb * 1000.0, dtype,
+                                         device)
+            self.kf_par = KFParams(
+                entrate=float(kfn.kf_entrate),
+                convrate=float(kfn.kf_convrate),
+                min_pef=float(kfn.kf_min_pef), max_pef=float(kfn.kf_max_pef),
+                dpp=float(kfn.kf_dpp), min_dtcape=float(kfn.kf_min_dtcape),
+                max_dtcape=float(kfn.kf_max_dtcape),
+                tkemax=float(kfn.kf_tkemax),
+                wthreshold=float(kfn.kf_wthreshold),
+                k2_const=float(cld.get("k2_const", 500.0)),
+                kfac_shal=float(cld.get("kfac_shal", 0.07)),
+                kfac_deep=float(cld.get("kfac_deep", 0.14)))
 
     # -- deep cumulus dispatch (cu_interface :335-369 and the
     #    icup_lnd/icup_ocn split of Main/mpplib/mod_runparams.F90:109-153)
-    def _cumulus(self, core, atms, s, dyn, dt):
+    def _cumulus(self, core, atms, s, flags, dyn, dt):
         """The configured deep scheme(s) dense over the grid, land and
         ocean tendencies blended by the mask; uncoupled cross-grid
         fields (K/s, kg/kg/s, m/s²) and the persistent-state updates."""
@@ -163,6 +224,13 @@ class PhysicsSuite:
                      prate=torch.zeros_like(atms["psb"]), cldfra=zero3,
                      cldlwc=zero3, qcten=zero3, qiten=zero3, qdetr=zero3,
                      state={})
+        if self.kuo_defer and dyn is not None:
+            # columns that do not convect get the deferred qv vertical
+            # advection back (mod_cu_kuo.F90:270-282), on every step
+            rcpl = 1.0 / atms.get("cpl", atms["psb"])
+            empty["qvten"] = dyn["qv_vadv"] * rcpl[None]
+        if not flags.do_cum or (self.icup_lnd == 0 and self.icup_ocn == 0):
+            return empty
         out_l = self._cumulus_one(self.icup_lnd, core, atms, s, dyn, dt) \
             if self.icup_lnd else empty
         if self.icup_ocn == self.icup_lnd:
@@ -172,7 +240,7 @@ class PhysicsSuite:
         lm2 = core.grid_lndocn > 0.5
         out = {k: torch.where(lm2, out_l[k], out_o[k])
                for k in empty if k != "state"}
-        cur = dict(cbmf=s.cbmf)
+        cur = dict(cbmf=s.cbmf, cldefi=s.cldefi)
         out["state"] = {
             k: torch.where(lm2, out_l["state"].get(k, cur[k]),
                            out_o["state"].get(k, cur[k]))
@@ -189,10 +257,93 @@ class PhysicsSuite:
         zero3 = torch.zeros_like(tb3)
         res = dict(utenx=zero3, vtenx=zero3, qcten=zero3, qiten=zero3,
                    qdetr=zero3, state={})
+        flipc = lambda a: torch.flip(a, [0]).reshape(a.shape[0], ncol).T
+        unflip = lambda a: torch.flip(a.T.reshape(kz, iy, jx), [0])
+        colc = lambda a: a.reshape(a.shape[0], ncol).T
+        uncol = lambda a: a.T.reshape(kz, iy, jx)
+        rcpl = (1.0 / atms.get("cpl", atms["psb"]))[None]
+        conv_lwc = lambda cldfra: torch.where(
+            cldfra > 0.0, 0.3e-3 * 1000.0 * rho, 0.0)
+        if icup == 1:
+            # Kuo (cupara, Main/cumlib/mod_cu_kuo.F90:75): triggered by
+            # the moisture convergence; convecting columns get the Kuo
+            # tendencies, the others the deferred qv vertical advection
+            tw, vq = self.kuo_tabs
+            out = kuo(tb3, atms["qvb3"], atms["pb3"] * 1e-3,
+                      atms["psb"] + core.ptop, dyn["qvhadv"],
+                      *self.kuo_sig, tw, vq, core.ptop, self.k700)
+            res.update(tten=out.tten,
+                       qvten=torch.where(out.active[None], out.qvten,
+                                         dyn["qv_vadv"] * rcpl),
+                       prate=out.prate, cldfra=zero3, cldlwc=zero3)
+            return res
+        if icup == 2:
+            # Grell (cuparan, Main/cumlib/mod_cu_grell.F90:207) on the
+            # current and the large-scale-forced state
+            if dyn is not None:
+                tn3 = tb3 + dyn["tdyn"] * rcpl * dt
+                qo3 = atms["qvb3"] + dyn["qvdyn"] * rcpl * dt
+            else:
+                tn3, qo3 = tb3, atms["qvb3"]
+            out = cup(flipc(tb3), flipc(atms["qvb3"]), flipc(tn3),
+                      flipc(qo3), flipc(atms["pb3"]) * 0.01,
+                      atms["ps2d"].reshape(ncol) * 0.01,
+                      (core.ht / c.egrav).reshape(ncol),
+                      flipc(torch.sqrt(atms["ubx3"] ** 2
+                                       + atms["vbx3"] ** 2)),
+                      dt, igcc=self.cfg.physics.igcc,
+                      kbmax=self.grell_kbmax)
+            cldfra = unflip(out.cldfrc)
+            res.update(tten=unflip(out.outt), qvten=unflip(out.outq),
+                       prate=out.pratec.reshape(iy, jx), cldfra=cldfra,
+                       cldlwc=conv_lwc(cldfra))
+            return res
+        if icup == 3:
+            # Betts-Miller (bmpara, Main/cumlib/mod_cu_bm.F90:134):
+            # top-down columns, no flip
+            out = bmpara(colc(tb3), colc(atms["qvb3"]), colc(atms["pb3"]),
+                         colc(atms["pf3"]),
+                         colc(atms["za"] + (core.ht / c.egrav)[None]),
+                         atms["ps2d"].reshape(ncol),
+                         core.grid_lndocn.reshape(ncol),
+                         s.cldefi.reshape(ncol), dt)
+            cldfra = uncol(model_cumulus_cloud(
+                out.kbot, out.ktop, kz, float(self.cfg.geo.ds), tb3.dtype))
+            res.update(tten=uncol(out.tten), qvten=uncol(out.qten),
+                       prate=out.prate.reshape(iy, jx), cldfra=cldfra,
+                       cldlwc=torch.where(cldfra > 0.001, clwfromt(tb3),
+                                          0.0),
+                       state=dict(cldefi=out.cldefi.reshape(iy, jx)))
+            return res
+        if icup == 6:
+            # Kain-Fritsch (kfdrv/kfpara, Main/cumlib/mod_cu_kf.F90),
+            # bottom-up columns; ipptls > 1 feeds back the mixed-phase
+            # species (f_qi); the qr/qs tendencies ride the qcten/qiten
+            # slots, as in the JAX package
+            f_qi = self.cfg.physics.ipptls > 1
+            ql0 = flipc(atms["qcb3"])
+            qi0 = flipc(atms["qhb3"][2]) if f_qi and core.nqx == 5 \
+                else torch.zeros_like(ql0)
+            if self.cfg.physics.ibltyp == 2:
+                tkec = 0.5 * (s.tke_b[:-1] + s.tke_b[1:])
+            else:
+                tkec = torch.full_like(tb3, self.kf_par.tkemax)
+            wavg = atms.get("_wavg", s.wavg)
+            out = kfpara(
+                self.kf_tab, self.kf_par, flipc(tb3), flipc(atms["qvb3"]),
+                flipc(atms["ubx3"]), flipc(atms["vbx3"]), flipc(atms["za"]),
+                flipc(atms["pb3"]), flipc(rho), flipc(atms["dzq"]),
+                flipc(wavg), flipc(tkec), ql0, qi0, float(core.dtsec),
+                float(self.cfg.ds_m), f_qi=f_qi)
+            cldfra = unflip(out.cldfra)
+            res.update(tten=unflip(out.dtdt), qvten=unflip(out.dqdt),
+                       prate=out.prate.reshape(iy, jx), cldfra=cldfra,
+                       cldlwc=conv_lwc(cldfra),
+                       qcten=unflip(out.dqcdt + out.dqrdt),
+                       qiten=unflip(out.dqidt + out.dqsdt))
+            return res
         if icup == 4:
             # Emanuel (cupemandrv, Main/cumlib/mod_cu_em.F90:107)
-            flipc = lambda a: torch.flip(a, [0]).reshape(a.shape[0], ncol).T
-            unflip = lambda a: torch.flip(a.T.reshape(kz, iy, jx), [0])
             qmix = atms["qvb3"]
             qspec = qmix / (1.0 + qmix)
             qs_spec = atms["qsb3"] / (1.0 + atms["qsb3"])
@@ -209,7 +360,7 @@ class PhysicsSuite:
                 utenx=unflip(out.fu), vtenx=unflip(out.fv),
                 prate=out.precip.reshape(iy, jx),
                 cldfra=cldfra,
-                cldlwc=torch.where(cldfra > 0.0, 0.3e-3 * 1000.0 * rho, 0.0),
+                cldlwc=conv_lwc(cldfra),
                 state=dict(cbmf=out.cbmf.reshape(iy, jx) * core.m_ci))
             return res
         # "new Tiedtke" (ntiedtke, Main/cumlib/mod_cu_tiedtke.F90:4508,
@@ -217,9 +368,6 @@ class PhysicsSuite:
         # mixing-ratio tendencies out (:380-391); the detrained
         # condensate rides qcten/qiten (and qdetr, staged into nogtom,
         # :392). Columns (ncol, kz) are transposed views: level-major.
-        colc = lambda a: a.reshape(a.shape[0], ncol).T
-        uncol = lambda a: a.T.reshape(kz, iy, jx)
-        rcpl = (1.0 / atms.get("cpl", atms["psb"]))[None]
         # provisional state from the dynamic tendencies (cucall
         # :601-609) and ZERO surface fluxes: the reference calls the BL
         # after CU (:700-704), so the surface-flux shallow trigger is off
@@ -262,7 +410,7 @@ class PhysicsSuite:
             utenx=uncol(out.uten), vtenx=uncol(out.vten),
             prate=out.prate.reshape(iy, jx),
             cldfra=cldfra,
-            cldlwc=torch.where(cldfra > 0.0, 0.3e-3 * 1000.0 * rho, 0.0),
+            cldlwc=conv_lwc(cldfra),
             qcten=uncol(qcten), qiten=uncol(qiten),
             qdetr=uncol(out.qdetr))
         return res
@@ -290,15 +438,27 @@ class PhysicsSuite:
         lmm = lnd > 0.5
         sfupd: Dict[str, torch.Tensor] = {}
 
+        if self.uses_kf:
+            # the running-mean w of the KF trigger, on every step (avg_ww,
+            # mod_cu_interface.F90:256-268): weight 1/max(int(max(dtcum,
+            # 3600)/dt), 1), w from -ω/(ρg)
+            w1 = 1.0 / max(int(max(self.cfg.time.dtcum, 3600.0)
+                               / core.dtsec), 1)
+            w_now = -atms["omega_pa"] / (rho * c.egrav)
+            sfupd["wavg"] = (1.0 - w1) * s.wavg + w1 * w_now
+            atms["_wavg"] = sfupd["wavg"]
+
         # -- cumulus on the syncro_cum alarm; tendencies held in state
-        #    between calls (mod_cu_interface.F90:288)
-        if flags.do_cum:
-            cu = self._cumulus(core, atms, s, dyn, dt)
-            sfupd["cuten"] = torch.stack(
-                [cu["tten"], cu["qvten"], cu["utenx"], cu["vtenx"],
-                 cu["cldfra"], cu["cldlwc"], cu["qcten"], cu["qiten"],
-                 cu["qdetr"]])
-            sfupd["cuprate"] = cu["prate"]
+        #    between calls (mod_cu_interface.F90:288); with Kuo on every
+        #    step (the deferred qv advection), its tendencies not held
+        if self.kuo_defer or flags.do_cum:
+            cu = self._cumulus(core, atms, s, flags, dyn, dt)
+            if not self.kuo_defer:
+                sfupd["cuten"] = torch.stack(
+                    [cu["tten"], cu["qvten"], cu["utenx"], cu["vtenx"],
+                     cu["cldfra"], cu["cldlwc"], cu["qcten"], cu["qiten"],
+                     cu["qdetr"]])
+                sfupd["cuprate"] = cu["prate"]
             sfupd.update(cu["state"])
         else:
             cu = dict(tten=s.cuten[0], qvten=s.cuten[1],
@@ -462,6 +622,21 @@ class PhysicsSuite:
             utenx = utenx + out["uten"]
             vtenx = vtenx + out["vten"]
             sfupd["_tkephy"] = out["tketen"]
+
+        # -- shallow convection (any icup < 0; mod_tendency.F90:316) on
+        #    the total (dynamics + physics) tendencies, on every step
+        if self.shallow and dyn is not None:
+            ncol = tb3.shape[1] * tb3.shape[2]
+            flipc = lambda a: torch.flip(a, [0]).reshape(kz, ncol).T
+            unflip = lambda a: torch.flip(a.T.reshape(tb3.shape), [0])
+            rcpl = (1.0 / cpl)[None]
+            out = shallcu(flipc(tb3), flipc(qvb3),
+                          flipc((dyn["tdyn"] + tphy) * rcpl),
+                          flipc((dyn["qvdyn"] + qvphy) * rcpl),
+                          flipc(pb3) * 0.01, ps2d.reshape(ncol) * 0.01,
+                          (core.ht / c.egrav).reshape(ncol), dt)
+            tphy = tphy + unflip(out.outts) * cpl[None] * m_ci
+            qvphy = qvphy + unflip(out.outqs) * cpl[None] * m_ci
 
         # couple the accumulated cross-grid wind tendencies onto the
         # momentum grid in one pass (uvcross2dot ×p*_dot for the B grid,

@@ -160,14 +160,15 @@ def test_standard_atmosphere_state_matches_jax():
 
 
 def test_model_refuses_unported_options():
-    """Every option the port leaves out raises at model build; the
+    """Every option the port leaves out raises at model build (Kuo over
+    land beside Emanuel over water: Kuo is never mixed); the
     decomposed runs (mesh=) also refuse the semi-Lagrangian advection
     (ROADMAP item 10e) and the periodic topologies (item 10d)."""
     from regcm_tpu_torch.driver import Model
     from regcm_tpu_torch.parallel.mesh import DomainMesh
 
     for overrides in ((("core", "idynamic", 4),),
-                      (("physics", "icup_lnd", 2),),
+                      (("physics", "icup_lnd", 1),),
                       (("physics", "ibltyp", 3),),
                       (("physics", "ibltyp", 4),),
                       (("physics", "ipptls", 3),),

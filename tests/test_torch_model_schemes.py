@@ -220,6 +220,19 @@ def test_decomposed_matches_one_rank(group22):
         assert R.max_rel(got["dec"][k], v) <= 1e-12, k
 
 
+def test_decomposed_c_matches_one_rank(group22):
+    """Configuration C (Grell over land, Emanuel over water, Holtslag,
+    SUBEX; tests/test_torch_cumulus.py holds it to the JAX package) on
+    2x2 ranks against one rank, f64, three steps: 1e-12 in every state
+    field (Grell's sums over levels run in level order)."""
+    got, want = group22[0]["run_c"], group22[0]["single_c"]
+    assert got["finite"] and want["finite"]
+    for k, v in want["state"].items():
+        assert R.max_rel(got["state"][k], v) <= 1e-12, k
+    for k, v in want["dec"].items():
+        assert R.max_rel(got["dec"][k], v) <= 1e-12, k
+
+
 def test_ccm3_five_species_matches_jax():
     """CCM3 radiation with five species (ice in the clouds): 1e-12."""
     from regcm_tpu.physics.radiation.ccm3.driver import ccm3_radiation as jr
@@ -295,11 +308,12 @@ def test_model_icup5():
 
 
 @pytest.mark.parametrize("overrides,match", [
-    ((("physics", "icup_lnd", 2),), r"icup_lnd=2 \(Grell\)"),
-    ((("physics", "icup_ocn", 6),), r"icup_ocn=6 \(Kain-Fritsch\)"),
-    ((("physics", "icup_lnd", 1),), r"icup_lnd=1 \(Kuo\)"),
-    ((("physics", "icup_ocn", 3),), r"icup_ocn=3 \(Betts-Miller\)"),
-    ((("physics", "icup_lnd", -1),), "shallow convection"),
+    ((("physics", "icup_lnd", 1), ("physics", "icup_ocn", 1),
+      ("core", "idynamic", 3)), r"icup=1 \(Kuo\).*MOLOCH"),
+    ((("physics", "icup_ocn", 1),), r"icup=1 \(Kuo\) cannot be mixed"),
+    ((("physics", "iocnflx", 3),), r"iocnflx=3 \(COARE\)"),
+    ((("physics", "lakemod", 1),), r"lakemod=1 \(lake model\)"),
+    ((("physics", "iseaice", 1),), r"iseaice=1 \(sea ice\)"),
     ((("physics", "ibltyp", 3),), r"ibltyp=3 \(GFS\)"),
     ((("physics", "ibltyp", 4),), r"ibltyp=4 \(MYJ\)"),
     ((("physics", "ipptls", 3),), r"ipptls=3 \(WSM5\)"),
@@ -307,7 +321,8 @@ def test_model_icup5():
 ])
 def test_unported_schemes_refused(overrides, match):
     """What stays unported raises at model build and names the scheme:
-    the other cumulus schemes, shallow convection, GFS and MYJ, WSM5
+    Kuo on MOLOCH and Kuo mixed with another scheme (as the JAX package
+    refuses them), COARE, the lake and sea-ice models, GFS and MYJ, WSM5
     (although it too has five species), and the UW TCM on MOLOCH."""
     from regcm_tpu_torch.driver import Model
     cfg, _ = R.port_grid("hydro")

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""The decomposed phases of ``chip_smoke.py`` (10-12, 14c, 15e) alone, with
-only what they are held to: the single card's first 12 MOLOCH flagship
-steps (phase 6), the ICBC-driven runs (phase 13), the NH flagship on one
-card (phase 14a) and configuration A's first 12 steps on one card
-(phase 15a).
+"""The decomposed phases of ``chip_smoke.py`` (10-12, 14c, 15e, 16d) alone,
+with only what they are held to: the single card's first 12 MOLOCH
+flagship steps (phase 6), the ICBC-driven runs (phase 13), the NH
+flagship on one card (phase 14a) and configurations A's and C's first 12
+steps on one card (phases 15a, 16b).
 
 For a host with four or more cards, where phases 10-12 run under gloo and
 under nccl (a card a rank): it spares the four-card call the phases that
@@ -66,9 +66,13 @@ def main():
         a = cs.hydro_icbc_model(paths, dev, physics=cs.SCHEME_A)
         a.run_icbc(cs.HYDRO_CHECK[0])                        # phase 15a
         a15 = {cs.HYDRO_CHECK[0]: a.decoupled()}
-        del a
+        c = cs.hydro_icbc_model(paths, dev, physics=cs.SCHEME_C)
+        c.run_icbc(cs.HYDRO_CHECK[0])                        # phase 16b
+        c16 = c.decoupled()
+        del a, c
         cs.run_decomposed(dev, smi, single12, paths, icbc13,
-                          nh14["single12"], a15)      # 10-12, 14c, 15e
+                          nh14["single12"], a15,
+                          c16)                   # 10-12, 14c, 15e, 16d
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
