@@ -83,7 +83,7 @@ Phases (any failure raises and the script exits nonzero):
  15. the second physics set, after phase 14 and, for 15e, in the
      decomposed group: (a) configuration A (Emanuel over land, Tiedtke
      over water, the UW TCM, Nogherotto-Tompkins) on test_001 from phase
-     13's ICBC files (f32) through step 150, with the ms/step of plain,
+     13's ICBC files (f32) for 24 steps, with the ms/step of plain,
      cumulus and radiation steps, K2's launches and the device kernels of
      a cumulus step; (b) configuration B (no deep convection,
      Nogherotto-Tompkins, Holtslag) on MOLOCH at 192x192x41 (f32): 24
@@ -111,6 +111,27 @@ Phases (any failure raises and the script exits nonzero):
      phase 5); (d) C on 2x2 ranks (gloo) on test_001 from phase
      13's files, held bit for bit to one card at step 12, with K5c's
      launches;
+ 17. the rest of the physics matrix, after phase 16 and, for 17b, in the
+     decomposed group: (a) configuration D, RegCM4's tropical band
+     (i_band=1, Mercator about the equator, 140x802x18 at ds 50 km so
+     that jx·ds closes the equator's circle, dt 150 s, f32; Emanuel,
+     Holtslag, SUBEX, CCM3, BATS1e, COARE ocean fluxes and the slab
+     ocean) from DOMAIN and ICBC files the port's preprocessors write,
+     48 steps (four radiation cycles): the ms/step of plain, cumulus,
+     surface and radiation steps, K1 and K2 launches, a cumulus step's
+     device kernels and busy share, the peak memory and the slab SST's
+     change, then K1 and K2 held against their plain versions on the
+     operands of one of D's cumulus steps; (b) D on 2x2 ranks (gloo)
+     held bit for bit to one card at step 12, with K5c's launches and
+     the exchanges and bytes a step of each rank, and the doubly
+     periodic CRM (16x16x14, ds 4 km, f64; the CPU tests' run) 2x2
+     against one card at 1e-12; (c) GFS, MYJ, WSM5, Zeng with the
+     skin SST, sea ice and the lake (a 20 m lake, a 270 K sea) and the
+     BATS ocean fluxes with nsg=2, each on test_001 from phase 13's
+     files for 24 steps: the ms/step of each alarm class and a surface
+     step's device kernels; (d) the three Model settings of the CPU
+     tests on the card against the CPU in f64 at 16x20x14, 3 steps, as
+     16c;
 then a JSON line of the kernels and the result line.
 """
 import json
@@ -227,6 +248,9 @@ OPTIONS = {"idiffu2": (1, dict(idiffu=2)), "idiffu3": (1, dict(idiffu=3)),
 SCHEME_A = dict(icup_lnd=4, icup_ocn=5, ibltyp=2, ipptls=2, icldfrac=0)
 SCHEME_B = dict(icup_lnd=0, icup_ocn=0, ibltyp=1, ipptls=2, icldfrac=0)
 B_STEPS = 24
+# 15a's depth: two radiation cycles (phases 13a and 12b run test_001
+# past the boundary update after step 144)
+A_STEPS = 24
 NF10 = 10          # B's WAF stack: θv, π, ux, vx, wx and five species
 # the JAX package (float32, CPU) with B's physics on a 48x48x41 MOLOCH
 # cut from initial_state(perturb=0.3, seed=1) moistened as moisten()
@@ -262,6 +286,43 @@ CU_CASES = (("C", 1, 50.0, 150.0, SCHEME_C),
             ("Grell on MOLOCH", 3, 3.0, 30.0,
              dict(SCHEME_C, icup_ocn=2)))
 CU_QVFAC = 1.9
+
+
+# phase 17: configuration D, RegCM4's tropical band (i_band=1, the
+# reference's Testing/test_009.in and test_010.in; RegT-Band, Coppola et
+# al. 2012) less its chemistry: x-periodic Mercator about the equator,
+# Emanuel, Holtslag, SUBEX, CCM3, BATS1e, COARE over the ocean and the
+# slab ocean restoring toward the SST. jx·ds closes the equator's circle
+# (802 x 50 km = 40,100 km); iy covers about ±31° of latitude
+SCHEME_D = dict(icup_lnd=4, icup_ocn=4, ibltyp=1, ipptls=1, icldfrac=0,
+                iocnflx=3, islab_ocean=1)
+BAND = (140, 802, 18)               # iy, jx, kz
+D_STEPS = 48                        # four radiation cycles
+D_CHECK = 12                        # 17b's step
+# 17c: each other new setting on test_001 from phase 13's files: the
+# physicsparam overrides, and nsg or a lake and a cold sea
+NEW_SETTINGS = {"GFS": dict(physics=dict(ibltyp=3)),
+                "MYJ": dict(physics=dict(ibltyp=4)),
+                "WSM5": dict(physics=dict(ipptls=3)),
+                "Zeng + dcsst + sea ice + lake": dict(
+                    physics=dict(idcsst=1, iseaice=1, lakemod=1),
+                    lake=True),
+                "BATS ocean fluxes, nsg=2": dict(
+                    physics=dict(iocnflx=1), nsg=2)}
+# 17d: the three Model settings of the CPU tests (tests/
+# _torch_surface_settings.py) at 16x20x14: (name, idynamic, ds, dt,
+# physics, geo, nsg, lake and cold sea)
+NEW_CASES = (
+    ("(i) band, COARE, slab", 1, 50.0, 150.0, SCHEME_D,
+     dict(i_band=1, iproj="NORMER", clat=0.0), 1, False),
+    ("(ii) MOLOCH, Zeng, dcsst, sea ice, lake, WSM5, GFS", 3, 3.0, 30.0,
+     dict(icup_lnd=0, icup_ocn=0, ibltyp=3, ipptls=3, iocnflx=2, idcsst=1,
+          iseaice=1, lakemod=1, icldfrac=0), {}, 1, True),
+    ("(iii) NH, MYJ, BATS ocean fluxes, nsg=2", 2, 10.0, 30.0,
+     dict(icup_lnd=4, icup_ocn=4, ibltyp=4, ipptls=1, iocnflx=1,
+          icldfrac=0), {}, 2, False))
+# 17a: the timing repetitions of K1 and K2 on D's operands
+D_REPS = 10
 
 
 def nvidia_smi_line():
@@ -1077,6 +1138,7 @@ def decomposed_rank(rank, time_steps, paths):
     out["nh"] = nh_rank(rank, time_steps)
     out["schemes"] = schemes_rank(rank, paths)
     out["cumulus"] = cumulus_rank(rank, paths)
+    out["band"] = band_rank(rank, paths)
     return out
 
 
@@ -1121,14 +1183,15 @@ def nh_rank(rank, time_steps):
     return nh
 
 
-def run_decomposed(dev, smi, single12, paths, icbc13, nh12, a15, c16):
-    """Phases 10-12, 14c, 15e and 16d: the 2x2 groups of
+def run_decomposed(dev, smi, single12, paths, icbc13, nh12, a15, c16, d17):
+    """Phases 10-12, 14c, 15e, 16d and 17b: the 2x2 groups of
     ``decomposed_rank`` on every backend the host allows, held bit for
     bit to the single card's step-12 fields ``single12`` and to its f64
     dryruns, test_001 from ICBC to phase 13a's run ``icbc13``, the NH
-    flagship bit for bit to phase 14a's step-12 fields ``nh12``, and
-    configurations A and C to their single-card step-12 fields ``a15``
-    and ``c16``; returns each backend's rank results."""
+    flagship bit for bit to phase 14a's step-12 fields ``nh12``,
+    configurations A, C and D to their single-card step-12 fields
+    ``a15``, ``c16`` and ``d17``, and the CRM to one card in f64;
+    returns each backend's rank results."""
     import torch
     from regcm_tpu_torch.core.grid import build_grid
     from regcm_tpu_torch.parallel.launch import spawn
@@ -1137,6 +1200,7 @@ def run_decomposed(dev, smi, single12, paths, icbc13, nh12, a15, c16):
     hgrid = build_grid(hcfg, ht=hill(32, 32))
     ref64 = dryrun(hcfg, hgrid, dev)
     href = {ph: hydro_dryrun(dev, ph) for ph in (False, True)}
+    crm_ref = crm_run(dev)                   # 17b's single-card CRM
     spread = None                 # the f32 rule's spread run, if needed
     ncards = torch.cuda.device_count()
     world = GRID[0] * GRID[1]
@@ -1344,6 +1408,8 @@ def run_decomposed(dev, smi, single12, paths, icbc13, nh12, a15, c16):
                 raise AssertionError(f"decomposed configuration C "
                                      f"({backend}) differs from one card in "
                                      f"{f} at step {n}")
+        # -- 17b. configuration D and the CRM on 2x2 ranks
+        check_band_decomposed(res, backend, d17, crm_ref)
         decomp[backend] = res
     return decomp
 
@@ -1625,7 +1691,7 @@ def step_kernels(model, step):
 
 def run_schemes_a(dev, smi, paths, mods):
     """Phase 15a: configuration A (test_001 from phase 13's ICBC files,
-    f32) through step 150; returns its step-12 fields (15e holds the 2x2
+    f32) for A_STEPS steps; returns its step-12 fields (15e holds the 2x2
     run to them), its launches a step and the kernel count of a cumulus
     step."""
     import torch
@@ -1639,7 +1705,7 @@ def run_schemes_a(dev, smi, paths, mods):
                              "split: one cumulus scheme would never run")
     reset(mods)
     rows, rec = [], {}
-    while model.nstep < HYDRO_ICBC_STEPS:
+    while model.nstep < A_STEPS:
         f = model._flags()
         _, wall = model.run_icbc(1)
         kind = "radiation" if f.do_rad else "cumulus" if f.do_cum \
@@ -1649,7 +1715,7 @@ def run_schemes_a(dev, smi, paths, mods):
             rec[model.nstep] = model.decoupled()
     launches = read(mods)
     ncum = sum(1 for n, k, _ in rows if k != "plain")
-    print(f"15a path: {HYDRO_ICBC_STEPS} steps, launches {launches} "
+    print(f"15a path: {A_STEPS} steps, launches {launches} "
           f"({ncum} cumulus steps: K2 {launches['K2'] / ncum:.2f} a "
           f"cumulus step)")
     if not model.check_finite():
@@ -1657,9 +1723,9 @@ def run_schemes_a(dev, smi, paths, mods):
     if launches["K2"] <= 0 or launches["K1"] != 0:
         raise AssertionError(f"15a bypassed K2 (Emanuel over land) or ran "
                              f"Holtslag's K1 under the UW TCM: {launches}")
-    d = rec[HYDRO_ICBC_STEPS]
+    d = model.decoupled()
     qx = model.state.qx_a / model.state.ps_a[None]
-    print(f"15a step {HYDRO_ICBC_STEPS}: ps {d['ps'].min():.3f}.."
+    print(f"15a step {A_STEPS}: ps {d['ps'].min():.3f}.."
           f"{d['ps'].max():.3f} hPa, T {d['t'].min():.3f}.."
           f"{d['t'].max():.3f} K, max qc/qr/qi/qs "
           + "/".join(f"{float(qx[i].max()):.3e}" for i in range(1, 5))
@@ -1670,17 +1736,17 @@ def run_schemes_a(dev, smi, paths, mods):
     for kind in ("plain", "cumulus", "radiation"):
         t = [w for n, k, w in rows if k == kind and n >= 1]
         ms[kind] = sum(t) / len(t)
-        print(f"15a ms/step (f32, 34x48x18, steps 1..149, each "
+        print(f"15a ms/step (f32, 34x48x18, steps 1..{A_STEPS - 1}, each "
               f"synchronised), {kind} steps: {ms[kind]:.3f} over {len(t)} "
               f"steps, on {smi}")
+    next_cumulus_step(model)
     nker, busy, wall = step_kernels(model, lambda: model.run_icbc(1))
     print(f"15a cumulus step {model.nstep - 1} under the profiler: {nker} "
           f"device kernels, device busy {busy:.2f} ms of {wall:.1f} ms wall")
     del model
     torch.cuda.empty_cache()
     return dict(rec=rec, ms=ms, cum_kernels=nker,
-                per_step={k: v / HYDRO_ICBC_STEPS
-                          for k, v in launches.items()})
+                per_step={k: v / A_STEPS for k, v in launches.items()})
 
 
 def schemes_b_cfg(n=FLAGSHIP):
@@ -2239,6 +2305,452 @@ def cumulus_rank(rank, paths):
     return out
 
 
+# -- phase 17: configuration D and the rest of the physics matrix --------
+def band_cfg():
+    """Configuration D over phase 13's one-day ICBC window."""
+    from regcm_tpu_torch.config.params import RegCMConfig
+    cfg = with_physics(RegCMConfig(), SCHEME_D)
+    cfg.dim.iy, cfg.dim.jx, cfg.dim.kz = BAND
+    cfg.geo.i_band = 1
+    cfg.geo.iproj, cfg.geo.clat = "NORMER", 0.0
+    cfg.globdat.gdate2 = ICBC_END
+    return cfg
+
+
+def write_band_files(directory):
+    """17a's input files, written by the port's preprocessors: D's DOMAIN
+    file of a 500 m hill whose lower ground is water, and its one-day
+    ICBC file with a 10 m/s jet."""
+    from regcm_tpu_torch.preproc.icbc import generate_synthetic_icbc
+    from regcm_tpu_torch.preproc.terrain import synthetic_topo, write_domain
+    cfg = band_cfg()
+    topo, lnd, mask = synthetic_topo(cfg, kind="gauss", height=500.0)
+    paths = dict(band_domain=os.path.join(directory, "band_DOMAIN000.nc"),
+                 band=os.path.join(directory, "band_ICBC.nc"))
+    write_domain(cfg, paths["band_domain"], topo, lnd, mask)
+    generate_synthetic_icbc(cfg, topo, paths["band"], jet=10.0)
+    return paths
+
+
+def band_model(paths, device, mesh=None):
+    """Configuration D in f32 on its DOMAIN file's grid, cold-started from
+    its ICBC file (the rank's block under a mesh)."""
+    import torch
+    from regcm_tpu_torch.driver import Model
+    from regcm_tpu_torch.preproc.icbc import ICBCReader
+    from regcm_tpu_torch.preproc.terrain import build_grid_from_domain
+    cfg = band_cfg()
+    grid = build_grid_from_domain(cfg, paths["band_domain"])
+    m = Model(cfg, grid=grid, device=device, dtype=torch.float32, mesh=mesh)
+    m.init_from_icbc(ICBCReader(paths["band"], cfg.globdat.calendar))
+    return m
+
+
+def run_band(dev, smi, paths, mods):
+    """Phase 17a: configuration D at full width on one card from its
+    DOMAIN and ICBC files for D_STEPS steps."""
+    import torch
+    t0 = time.time()
+    model = band_model(paths, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    grid = model.grid
+    ocean = torch.as_tensor(grid.lndocn, device=dev) < 0.5
+    tg0 = model.state.tg.clone()
+    shape = f"{grid.jx}x{grid.iy}x{grid.kz}"
+    print(f"17a. configuration D {SCHEME_D}, the tropical band (i_band=1, "
+          f"NORMER about the equator) at {shape} (ds {model.cfg.geo.ds} km, "
+          f"dt {model.cfg.dtsec} s, f32, {grid.iy * grid.jx} columns, xlat "
+          f"{grid.xlat.min():.2f}..{grid.xlat.max():.2f}, land fraction "
+          f"{float(np.mean(grid.lndocn)):.3f}; from ICBC, set-up "
+          f"{time.time() - t0:.1f} s)")
+    reset(mods)
+    rows, rec = timed_steps(model, D_STEPS, (D_CHECK,))
+    launches = read(mods)
+    ncum = sum(1 for row in rows if row[3])
+    print(f"17a path: {D_STEPS} steps, launches {launches} (K1 "
+          f"{launches['K1'] / D_STEPS:.2f} a step, K2 "
+          f"{launches['K2'] / ncum:.2f} a cumulus step)")
+    if not model.check_finite():
+        raise AssertionError("17a: non-finite state")
+    if launches["K1"] <= 0 or launches["K2"] <= 0:
+        raise AssertionError(f"17a bypassed K1 (Holtslag) or K2 (Emanuel): "
+                             f"{launches}")
+    dsst = (model.state.tg - tg0)[ocean]
+    off = (model.state.tg - model.core.sst)[ocean]
+    print(f"17a slab ocean after {D_STEPS} steps: SST change "
+          f"{float(dsst.min()):.5f}..{float(dsst.max()):.5f} K, off the "
+          f"forcing SST {float(off.min()):.5f}..{float(off.max()):.5f} K")
+    if not float(dsst.abs().max()) > 0.0:
+        raise AssertionError("17a: the slab SST did not move")
+    d = model.decoupled()
+    print(f"17a step {D_STEPS}: ps {d['ps'].min():.3f}..{d['ps'].max():.3f} "
+          f"hPa, T {d['t'].min():.3f}..{d['t'].max():.3f} K, rainc max "
+          f"{float(model.state.rainc.max()):.4f} mm")
+    ms = class_ms(rows, "17a", smi, shape)
+    next_cumulus_step(model)
+    nker, busy, wall = step_kernels(model, lambda: model.run_icbc(1))
+    print(f"17a cumulus step {model.nstep - 1} under the profiler: {nker} "
+          f"device kernels, device busy {busy:.2f} ms of {wall:.1f} ms wall "
+          f"({100.0 * busy / wall:.1f}%)")
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    print(f"17a peak device memory {peak:.2f} GiB")
+    operands = check_d_operands(model, mods)
+    del model
+    torch.cuda.empty_cache()
+    return dict(ms=ms, cum_kernels=nker, peak_gib=peak, rec=rec[D_CHECK],
+                per_step={k: v / D_STEPS for k, v in launches.items()},
+                operands=operands)
+
+
+def check_d_operands(model, mods):
+    """17a's kernels on D's own operands: the next cumulus step of
+    ``model`` runs with Holtslag's K1 call and Emanuel's K2 call
+    recorded (copies of the first call's inputs of each); then each
+    kernel is held against its plain version on them, and K2 also on
+    clouds in every column at D's shape, at the f32 tolerance, and both
+    are timed. Runs after the main path's counts were read."""
+    import torch
+    from regcm_tpu_torch.physics.cumulus import emanuel
+    from regcm_tpu_torch.physics.pbl import holtslag
+    next_cumulus_step(model)
+    seen = {}
+    sites = (("K1", holtslag, NAMES["K1"]), ("K2", emanuel, NAMES["K2"]))
+
+    def recording(k, fn):
+        def call(*args):
+            seen.setdefault(k, [a.clone() for a in args])
+            return fn(*args)
+        return call
+
+    for k, site, name in sites:
+        setattr(site, name, recording(k, getattr(mods[k], name)))
+    try:
+        model.run_icbc(1)
+    finally:
+        for k, site, name in sites:
+            setattr(site, name, getattr(mods[k], name))
+    out = {}
+    for k, _, name in sites:
+        if k not in seen:
+            raise AssertionError(f"17a: D's cumulus step made no {k} call")
+        shape = tuple(seen[k][3].shape if k == "K1" else seen[k][0].shape)
+        cases = [("D's operands", seen[k])]
+        if k == "K2":
+            # D's start is dry (no rain in 48 steps): K2 also takes phase
+            # 3's synthetic profiles, a deep cloud in every column, at
+            # D's shape
+            ncloud = int(seen[k][-1].any(dim=1).sum())
+            print(f"17a K2: {ncloud} of {shape[0]} columns of D's cumulus "
+                  f"step in cloud")
+            cases.append(("clouds at D's shape",
+                          k2_inputs(shape, torch.float32, model.device)))
+        for label, args in cases:
+            out.setdefault(k, {})[label] = check_operands(
+                k, mods[k], name, args, shape, label)
+    return out
+
+
+def check_operands(k, mod, name, args, shape, label):
+    """Kernel ``k`` against its plain version on ``args`` (f32) at the
+    f32 tolerance, then both timed; the stats of the kernels line."""
+    import torch
+    kern, plain = getattr(mod, name), getattr(mod, name + "_plain")
+    got = kern(*args)
+    counts = {}
+    want = plain(*args, counts=counts) if k == "K2" else plain(*args)
+    torch.cuda.synchronize()
+    if k == "K2":
+        rel, ab = max(rel_err(got[key], want[key]) for key in mod.KEYS)
+        scale = max(float(want[key].abs().max()) for key in mod.KEYS)
+    else:
+        rel, ab = rel_err(got, want)
+        scale = float(want.abs().max())
+    tol = TOL["float32"][k]
+    print(f"17a {k} {name} on {label} {shape} (f32): max rel err "
+          f"{rel:.3e} (max abs {ab:.3e}, largest output {scale:.3e}, tol "
+          f"{tol:g})")
+    if not rel <= tol:
+        raise AssertionError(f"17a: {k} disagrees with its plain version "
+                             f"on {label}: {rel}")
+    b_ms, b_by, _, _ = bound(k, shape, 4, counts)
+    st = dict(shape=list(shape), max_abs_err=ab, max_rel_err=rel,
+              largest_output=scale,
+              ms=time_ms(lambda: kern(*args), D_REPS),
+              plain_ms=time_ms(lambda: plain(*args), D_REPS),
+              bound_ms=b_ms, bound_by=b_by)
+    print(f"17a {k} on {label}: kernel {st['ms']:.4f} ms, plain "
+          f"{st['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return st
+
+
+def _water_patches(lndocn):
+    """(lake, cold sea) of a grid's cross points, the CPU tests' patches
+    (tests/_torch_surface_settings.water_patches) on (iy, jx)."""
+    from tests._torch_surface_settings import water_patches
+    return tuple(np.pad(m, ((0, 1), (0, 1))) for m in
+                 water_patches(np.asarray(lndocn)[:-1, :-1]))
+
+
+def new_setting_model(paths, dev, st):
+    """A 17c setting on test_001 from phase 13's ICBC files (f32): the
+    physics overrides, nsg, and a lake and a 270 K sea where asked."""
+    import torch
+    from regcm_tpu_torch.driver import Model
+    from regcm_tpu_torch.preproc.icbc import ICBCReader
+    from regcm_tpu_torch.preproc.terrain import build_grid_from_domain
+    cfg = with_physics(hydro_icbc_cfg(), st["physics"])
+    cfg.dim.nsg = st.get("nsg", 1)
+    grid = build_grid_from_domain(cfg, paths["domain"])
+    if st.get("lake"):
+        lake, sea = _water_patches(grid.lndocn)
+        grid.extras["dhlake"] = np.where(lake, 20.0, 0.0)
+    m = Model(cfg, grid=grid, device=dev, dtype=torch.float32)
+    if st.get("lake"):
+        m.core.sst = torch.where(torch.as_tensor(sea, device=dev),
+                                 torch.full_like(m.core.sst, 270.0),
+                                 m.core.sst)
+    m.init_from_icbc(ICBCReader(paths["hydro"], cfg.globdat.calendar))
+    return m
+
+
+def next_step_of(model, kind):
+    """Run up to the next step of alarm class ``kind``."""
+    while step_kind(model._flags()) != kind:
+        model.run_icbc(1)
+
+
+def run_new_settings(dev, smi, paths, mods):
+    """Phase 17c: each NEW_SETTINGS case on test_001 from phase 13's ICBC
+    files for CU_STEPS steps: ms/step of each alarm class, K1 and K2
+    launches, a surface step's device kernels."""
+    import torch
+    out = {}
+    for name, st in NEW_SETTINGS.items():
+        model = new_setting_model(paths, dev, st)
+        reset(mods)
+        rows, _ = timed_steps(model, CU_STEPS)
+        launches = read(mods)
+        print(f"17c {name} {st} on test_001 from ICBC: {CU_STEPS} steps, "
+              f"launches {launches}")
+        if not model.check_finite():
+            raise AssertionError(f"17c {name}: non-finite state")
+        if launches["K2"] <= 0:
+            raise AssertionError(f"17c {name} bypassed K2: {launches}")
+        if st["physics"].get("ibltyp", 1) == 1 and launches["K1"] <= 0:
+            raise AssertionError(f"17c {name} bypassed K1: {launches}")
+        ms = class_ms(rows, f"17c {name}", smi, "34x48x18")
+        next_step_of(model, "surface")
+        nker, busy, wall = step_kernels(model, lambda: model.run_icbc(1))
+        print(f"17c {name} surface step {model.nstep - 1} under the "
+              f"profiler: {nker} device kernels, device busy {busy:.2f} ms "
+              f"of {wall:.1f} ms wall")
+        if st.get("lake"):
+            s = model.state
+            print(f"17c {name}: sea ice at "
+                  f"{int((s.seaice[0] > 0).sum())} points, lake surface "
+                  f"{float(s.tlak[0].min()):.3f}..{float(s.tlak[0].max()):.3f}"
+                  f" C, skin SST set at {int((s.dcsst[2] > 100).sum())}")
+        out[name] = dict(ms=ms, srf_kernels=nker)
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def new_case_start(case):
+    """A NEW_CASES case at 16x20x14 over the 500 m hill with water: the
+    configs (saturation adjustment on, off), the grid and the moistened
+    start (CPU, f64)."""
+    import torch
+    from regcm_tpu_torch.config.params import RegCMConfig
+    from regcm_tpu_torch.core.grid import build_grid
+    from regcm_tpu_torch.driver import (nh_initial_state,
+                                        standard_atmosphere_state)
+    from regcm_tpu_torch.dynamics.moloch import MolochCore
+    from regcm_tpu_torch.preproc.terrain import synthetic_topo
+    from tests._torch_surface_settings import subgrid_landuse
+    name, idyn, ds, dt, phys, geo, nsg, lake = case
+    cfgs = {}
+    for conf in (None, 0.0):
+        cfg = with_physics(RegCMConfig(), phys)
+        cfg.core.idynamic = idyn
+        cfg.dim.iy, cfg.dim.jx, cfg.dim.kz = 16, 20, 14
+        cfg.dim.nsg = nsg
+        cfg.geo.ds, cfg.time.dt, cfg.time.dtcum = ds, dt, dt
+        for k, v in geo.items():
+            setattr(cfg.geo, k, v)
+        if lake:
+            cfg.physics.extras["lake_ndpmax"] = 30
+        if conf is not None:
+            cfg.subex.conf = conf
+        cfgs[conf] = cfg
+    cfg = cfgs[None]
+    topo, _, mask = synthetic_topo(cfg, kind="gauss", height=500.0)
+    grid = build_grid(cfg, ht=topo, landmask=mask)
+    if lake:
+        grid.extras["dhlake"] = np.where(_water_patches(grid.lndocn)[0],
+                                         20.0, 0.0)
+    if nsg > 1:
+        subgrid_landuse(grid)
+    kw = dict(perturb=0.3, seed=1)
+    if idyn == 3:
+        s0 = MolochCore(grid, cfg, device="cpu").initial_state(**kw)
+    elif idyn == 2:
+        s0 = nh_initial_state(grid, cfg, "cpu", torch.float64, **kw)
+    else:
+        s0 = standard_atmosphere_state(grid, cfg, "cpu", **kw)
+    return cfgs, grid, moisten(s0, idyn, CU_QVFAC)
+
+
+def new_card_vs_cpu(dev):
+    """Phase 17d: each NEW_CASES case on the card against the CPU in f64
+    at 16x20x14, 3 steps, held as phase 16c holds its cases: the spread
+    rule with three seeds (a hydrometeor past it at most at 1% of the
+    points), and the dynamical fields with the saturation adjustment off
+    to 1e-10; the surface state (tg, hfx, qfx) within the same rule."""
+    import torch
+    from regcm_tpu_torch.driver import Model
+    for case in NEW_CASES:
+        name, idyn = case[0], case[1]
+        cfgs, grid, s0 = new_case_start(case)
+        tn = "t" if idyn == 3 else "t_a"
+        t = getattr(s0, tn)
+        todo = [("gpu", None, dev, s0), ("cpu", None, "cpu", s0),
+                ("gpu_dry", 0.0, dev, s0), ("cpu_dry", 0.0, "cpu", s0)]
+        for seed in range(3):
+            rng = np.random.default_rng(seed)
+            todo.append((f"cpu_perturbed{seed}", None, "cpu", s0._replace(
+                **{tn: t * (1.0 + 1e-15 * torch.as_tensor(
+                    rng.standard_normal(tuple(t.shape))))})))
+        runs = {}
+        for run, conf, device, init in todo:
+            m = Model(cfgs[conf], grid=grid, device=device,
+                      dtype=torch.float64, initial_state=init)
+            if case[7]:
+                lake, sea = _water_patches(grid.lndocn)
+                m.core.sst = torch.where(
+                    torch.as_tensor(sea, device=m.core.sst.device),
+                    torch.full_like(m.core.sst, 270.0), m.core.sst)
+            m.run(3)
+            if not m.check_finite():
+                raise AssertionError(f"17d {name}: non-finite ({run})")
+            d = m.decoupled()
+            qx = m.state.qx if idyn == 3 \
+                else m.state.qx_a / m.state.ps_a[None]
+            for i in range(1, qx.shape[0]):
+                d[("qc", "qr", "qi", "qs")[i - 1]] = qx[i].cpu().numpy()
+            for k in ("tg", "hfx", "qfx"):
+                d[k] = getattr(m.state, k).cpu().numpy()
+            runs[run] = d
+        worst, flips = (0.0, ""), {}
+        for f in runs["cpu"]:
+            want = runs["cpu"][f]
+            err = rel_rms(runs["gpu"][f], want)
+            lim = max(1e-7, 4.0 * max(
+                rel_rms(runs[f"cpu_perturbed{seed}"][f], want)
+                for seed in range(3)))
+            worst = max(worst, (err / lim, f))
+            if err < lim:
+                continue
+            off = np.abs(runs["gpu"][f] - want) > 1e-7 * np.abs(want).max()
+            flips[f] = int(off.sum())
+            if f not in ("qc", "qr", "qi", "qs") or off.mean() > 0.01:
+                raise AssertionError(f"17d {name}: card and CPU disagree "
+                                     f"on {f}: rel-RMS {err} (bound {lim})")
+        dyn = [f for f in ("ps", "t", "qv", "u", "v", "w") if f in runs["cpu"]]
+        dry = max((rel_rms(runs["gpu_dry"][f], runs["cpu_dry"][f]), f)
+                  for f in dyn)
+        print(f"17d {name}, 3 steps f64 16x20x14, card vs CPU: worst field "
+              f"{worst[1]} at {worst[0]:.3f} of its bound"
+              + (f"; points past 1e-7 by a branch flip {flips}" if flips
+                 else "") + f"; saturation adjustment off: worst {dry[1]} "
+              f"rel-RMS {dry[0]:.3e} (bound 1e-10)")
+        if not dry[0] <= 1e-10:
+            raise AssertionError(f"17d {name}: card and CPU disagree with "
+                                 f"the adjustment off on {dry[1]}: {dry[0]}")
+
+
+def crm_run(device, mesh=None):
+    """17b's CRM, the CPU tests' doubly periodic run (tests/
+    _torch_surface_settings.PERIODIC["crm"]: hydrostatic, default
+    physics, f64) on ``device``: the whole domain's fields."""
+    from tests._torch_surface_settings import periodic_run
+    return periodic_run("crm", mesh=mesh, device=device)
+
+
+def band_rank(rank, paths):
+    """Phase 17b on one rank of the 2x2 group: configuration D at full
+    width for D_CHECK steps (counters and halo tallies reset just before,
+    read just after), then the CRM in f64; the whole domain's fields (on
+    rank 0)."""
+    import torch
+    from regcm_tpu_torch.kernels import emanuel_mixing as k2
+    from regcm_tpu_torch.kernels import pbl_tridiag as k1
+    from regcm_tpu_torch.parallel import halo
+    mods = {"K1": k1, "K2": k2}
+    model = band_model(paths, rank.device, rank.mesh(BAND[0], BAND[1]))
+    reset(mods)
+    k1.launches_sharded = 0
+    halo.exchanges = halo.bytes_sent = 0
+    model.run_icbc(D_CHECK)
+    launches = read(mods)
+    launches["K5c"] = k1.launches_sharded
+    out = dict(launches=launches, finite=model.check_finite(),
+               exchanges_per_step=halo.exchanges / D_CHECK,
+               bytes_per_step=halo.bytes_sent / D_CHECK)
+    dec = model.decoupled()
+    out["dec"] = dec if rank.rank == 0 else None
+    del model
+    torch.cuda.empty_cache()
+    from tests._torch_surface_settings import PERIODIC
+    crm = crm_run(rank.device, rank.mesh(PERIODIC["crm"]["iy"],
+                                         PERIODIC["crm"]["jx"]))
+    out["crm"] = crm if rank.rank == 0 else None
+    return out
+
+
+def check_band_decomposed(res, backend, d17, crm_ref):
+    """17b's checks of the 2x2 group's band and CRM runs against one
+    card: D bit for bit at D_CHECK, the CRM within 1e-12."""
+    from tests._torch_surface_settings import PERIODIC
+    for r, out in enumerate(res):
+        h = out["band"]
+        print(f"  rank {r} configuration D: launches {h['launches']}, "
+              f"{h['exchanges_per_step']:.1f} halo exchanges and "
+              f"{h['bytes_per_step'] / 1e6:.3f} MB sent a step")
+        if not h["finite"]:
+            raise AssertionError(f"rank {r}: non-finite decomposed "
+                                 f"configuration D")
+        if h["launches"]["K5c"] <= 0 or h["launches"]["K2"] <= 0 \
+                or h["launches"]["K1"] != 0:
+            raise AssertionError(f"rank {r} ({backend}): the decomposed "
+                                 f"configuration D bypassed K5c or K2: "
+                                 f"{h['launches']}")
+    dec = res[0]["band"]["dec"]
+    for f in HYDRO_FIELDS:
+        same = np.array_equal(dec[f], d17[f])
+        print(f"  configuration D f32 {BAND[1]}x{BAND[0]}x{BAND[2]} step "
+              f"{D_CHECK}, {backend} 2x2 vs one card (17a), {f}: "
+              f"{'bit-identical' if same else 'DIFFERENT'}, rel-RMS "
+              f"{rel_rms(dec[f], d17[f]):.3e}")
+        if not same:
+            raise AssertionError(f"decomposed configuration D ({backend}) "
+                                 f"differs from one card in {f}")
+    crm = res[0]["band"]["crm"]
+    if not crm["finite"]:
+        raise AssertionError("non-finite decomposed CRM")
+    worst = max((max_rel(crm["fields"][f], w), f)
+                for f, w in crm_ref["fields"].items())
+    st = PERIODIC["crm"]
+    print(f"  CRM {st['iy']}x{st['jx']}x14 f64 (doubly periodic, "
+          f"{st['steps']} steps), {backend} 2x2 vs one card: worst field "
+          f"{worst[1]} max rel err {worst[0]:.3e} (bound 1e-12)")
+    if not worst[0] <= 1e-12:
+        raise AssertionError(f"decomposed CRM ({backend}) disagrees in "
+                             f"{worst[1]}: {worst[0]}")
+
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2503,10 +3015,18 @@ def main():
         cumulus_card_vs_cpu(dev)
         print(f"phase 16a-c took {time.time() - t16:.1f} s")
 
-        # -- 10, 11, 12, 14c, 15e, 16d. the decomposed runs
+        # -- 17a, 17c, 17d. configuration D and the other new settings
+        t17 = time.time()
+        paths.update(write_band_files(tmp))
+        d17 = run_band(dev, smi, paths, mods)
+        run_new_settings(dev, smi, paths, mods)
+        new_card_vs_cpu(dev)
+        print(f"phase 17a, 17c, 17d took {time.time() - t17:.1f} s")
+
+        # -- 10, 11, 12, 14c, 15e, 16d, 17b. the decomposed runs
         decomp = run_decomposed(dev, smi, single12, paths, icbc13,
                                 nh14["single12"], a15["rec"],
-                                cu16["c_single12"])
+                                cu16["c_single12"], d17["rec"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2564,6 +3084,14 @@ def main():
         if k == "K5c":
             row["launches_per_step_C_2x2"] = ranks[0]["cumulus"][
                 "launches"]["K5c"] / HYDRO_CHECK[0]
+        # phase 17: configuration D (one card at full width, 48 steps;
+        # K5c on 2x2 ranks, 17b, rank 0)
+        if k in ("K1", "K2"):
+            row["launches_per_step_D"] = d17["per_step"][k]
+            row["D_operands"] = d17["operands"][k]
+        if k == "K5c":
+            row["launches_per_step_D_2x2"] = ranks[0]["band"][
+                "launches"]["K5c"] / D_CHECK
         if k in BASE:
             row["launches_ranks"] = {b: [r["launches"][k] for r in res]
                                      for b, res in decomp.items()}

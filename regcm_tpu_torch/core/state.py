@@ -109,10 +109,12 @@ class BdyState(NamedTuple):
 
 
 def zeros_hydro(kz: int, iy: int, jx: int, device="cuda",
-                dtype=torch.float64, nqx: int = 2) -> HydroState:
+                dtype=torch.float64, nqx: int = 2, nlak: int = 1,
+                nnsg: int = 1) -> HydroState:
     """Zero state with ``nqx`` water species: 2 (qv, qc) for SUBEX, 5 (qv,
-    qc, qr, qi, qs) for Nogherotto-Tompkins; two split modes, one lake
-    layer, no tracers, no subgrid."""
+    qc, qr, qi, qs) for the 5-species schemes; two split modes, ``nlak``
+    lake layers, no tracers, the BATS pack per subcell (10, nnsg, iy, jx)
+    when ``nnsg`` > 1."""
     device = resolve_device(device)
 
     def full(shape, v=0.0):
@@ -134,10 +136,10 @@ def zeros_hydro(kz: int, iy: int, jx: int, device="cuda",
         tke_a=full((kz + 1, iy, jx), 1.0e-3),
         tke_b=full((kz + 1, iy, jx), 1.0e-3),
         pbl0=full((2, iy, jx)),
-        tlak=full((1, iy, jx)),
+        tlak=full((nlak, iy, jx)),
         lakhi=full((iy, jx), 0.01),
         lakice=z2, laksnow=z2, laksnag=z2,
-        bats=full((10, iy, jx)),
+        bats=full((10, nnsg, iy, jx) if nnsg > 1 else (10, iy, jx)),
         seaice=full((4, iy, jx)),
         dcsst=full((3, iy, jx)),
         abstot=full(((kz + 1) * (kz + 1), iy, jx)),

@@ -42,10 +42,20 @@ from .dynamics.moloch import (MolochBdy, MolochCore, MolochState,
                               moloch_bdy_from_numpy, moloch_state_from_numpy)
 from .dynamics.sound import make_base_state
 from .physics.surface.bats import bats_init_state
+from .physics.surface.lake import init_lake, lake_layers
 from .utils import constants as c
 from .utils.calendar import Date
 from .utils.sun import coszrs as _coszrs, solar_state
 from .utils.thermo import pfwsat
+
+
+def _zeros(grid: ModelGrid, cfg: RegCMConfig, device, dtype) -> HydroState:
+    """The zero state sized for the configuration's species, lake layers
+    and subgrid."""
+    return zeros_hydro(grid.kz, grid.iy, grid.jx, device=device,
+                       dtype=dtype, nqx=species_count(cfg.physics.ipptls),
+                       nlak=lake_layers(cfg.physics),
+                       nnsg=max(int(cfg.dim.nsg), 1) ** 2)
 
 
 def standard_atmosphere_state(grid: ModelGrid, cfg: RegCMConfig,
@@ -71,7 +81,7 @@ def standard_atmosphere_state(grid: ModelGrid, cfg: RegCMConfig,
     qsat = pfwsat(torch.as_tensor(t), torch.as_tensor(p * 1000.0)).numpy()
     qv = np.minimum(np.maximum(0.5 * qsat, c.minqq), 0.015)
     nqx = species_count(cfg.physics.ipptls)
-    s = zeros_hydro(kz, iy, jx, device=device, dtype=dtype, nqx=nqx)
+    s = _zeros(grid, cfg, device, dtype)
     f = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
     qx = torch.cat([f(qv * ps[None])[None],
                     torch.zeros((nqx - 1,) + qv.shape, dtype=dtype,
@@ -101,8 +111,7 @@ def nh_initial_state(grid: ModelGrid, cfg: RegCMConfig, device="cuda",
     qv = np.minimum(0.3 * pfwsat(torch.as_tensor(t0),
                                  torch.as_tensor(base.pr0)).numpy(), 0.01)
     nqx = species_count(cfg.physics.ipptls)
-    s = zeros_hydro(grid.kz, grid.iy, grid.jx, device=device, dtype=dtype,
-                    nqx=nqx)
+    s = _zeros(grid, cfg, device, dtype)
     f = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
     qx = torch.cat([f(qv * ps[None])[None],
                     torch.zeros((nqx - 1,) + qv.shape, dtype=dtype,
@@ -186,16 +195,27 @@ class Model:
                                    state_from_numpy, mesh, self.device, dtype)
             if self.idynamic == 1:
                 self.state = self.core.init_split_storage(self.state)
+        tg0 = self.state.tg.cpu().numpy()
+        tg0 = np.where(tg0 > 100.0, tg0, 288.0)
         if getattr(physics, "land_scheme", "") == "bats1e":
             # initbats cold start: slmo soil water, Tg-initialised
             # leaf/subsoil temperatures (mod_bats_common.F90); column by
-            # column, on the rank's block
-            tg0 = self.state.tg.cpu().numpy()
-            tg0 = np.where(tg0 > 100.0, tg0, 288.0)
-            b0 = bats_init_state(physics.bats_ss_np,
-                                 self._local(self.grid.lndocn), tg0)
+            # column (per subcell with nsg > 1), on the rank's block
+            ss = physics.bats_ss_sub_np if physics.nnsg > 1 \
+                else physics.bats_ss_np
+            b0 = bats_init_state(ss, self._local(self.grid.lndocn), tg0)
             self.state = self.state._replace(bats=torch.as_tensor(
                 b0, dtype=dtype, device=self.device))
+        if cfg.physics.lakemod == 1:
+            # initlake (mod_ocn_lake.F90:96): the cold-start lake profile,
+            # column by column on the rank's block
+            dh = np.asarray(self.grid.extras.get(
+                "dhlake", np.zeros((self.grid.iy, self.grid.jx))))
+            tlak0, _, _ = init_lake(self._local(dh),
+                                    self._local(np.asarray(self.grid.xlat)),
+                                    tg0, lake_layers(cfg.physics))
+            self.state = self.state._replace(tlak=torch.as_tensor(
+                tlak0, dtype=dtype, device=self.device))
         if bdy is None:
             bdy = moloch_bdy_from_state(self.state) if self.idynamic == 3 \
                 else bdy_from_state(self.state)

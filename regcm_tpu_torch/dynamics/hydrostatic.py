@@ -26,8 +26,10 @@ whole grid and sliced, every horizontal stencil reads across block edges
 through the halo exchange of ``stencil.shift``/``shifte``, the writes
 that belong to the domain's edges (``fix_cross_pad``, ``_flow_edges``)
 happen on the ranks that hold those edges, and the diagnostics are
-reduced over the ranks. The periodic (band, CRM) topologies and the
-semi-Lagrangian advection are not decomposed.
+reduced over the ranks. The periodic topologies (the band, i_band=1,
+periodic in x; the CRM, i_crm=1, in x and y) decompose as the others,
+the first and last ranks of a periodic axis exchanging across the seam;
+the semi-Lagrangian advection is not decomposed.
 """
 from __future__ import annotations
 
@@ -113,7 +115,7 @@ def _refuse_options(cfg: RegCMConfig, mesh):
         (cfg.core.idynamic not in (1, 2),
          f"coreparam idynamic={cfg.core.idynamic} in HydroCore (1: "
          "hydrostatic, 2: MM5 non-hydrostatic; MOLOCH is MolochCore)"),
-        (int(p.ichem) != 0, "chemistry (ichem=1)"),
+        (int(p.ichem) != 0, "chemistry (ichem=1, ROADMAP.md item 13)"),
         (mesh is not None and cfg.core.idynamic == 1
          and int(p.isladvec) == 1,
          "a decomposed run (mesh=) of the semi-Lagrangian advection "
@@ -139,11 +141,6 @@ class HydroCore:
         self.dtype = dtype
         self.periodic_x = bool(cfg.geo.i_band or cfg.geo.i_crm)
         self.periodic_y = bool(cfg.geo.i_crm)
-        if mesh is not None and self.periodic_x:
-            raise NotImplementedError(
-                "a decomposed run (mesh=) of the band or CRM topology "
-                "(i_band/i_crm) is not ported yet (ROADMAP.md Queue 1, "
-                "item 10d)")
         self.mesh = mesh
         # vertical profiles; (..., iy, jx) fields built on the whole grid
         # and cut to the rank's block

@@ -39,6 +39,7 @@ from ..device import resolve_device
 from ..kernels.tridiag_w import tridiag_w, tridiag_w_sharded
 from ..kernels.waf_advect import (waf_advect, waf_advect_plain,
                                   waf_advect_sharded)
+from ..physics.surface.lake import lake_layers
 from ..utils import constants as c
 from ..utils.thermo import pfwsat, wlh
 from .hydrostatic import level_sum
@@ -198,11 +199,13 @@ def _refuse_options(cfg: RegCMConfig):
             f"MolochCore needs idynamic=3, got {cfg.core.idynamic}")
     if int(cfg.physics.ichem) != 0:
         raise NotImplementedError(
-            "regcm_tpu_torch does not port chemistry (ichem=1)")
+            "regcm_tpu_torch does not port chemistry (ichem=1, ROADMAP.md "
+            "item 13)")
     if cfg.geo.i_band or cfg.geo.i_crm:
         raise NotImplementedError(
             "regcm_tpu_torch does not port periodic MOLOCH domains "
-            "(i_band/i_crm)")
+            "(i_band/i_crm): the JAX package's MolochCore has none to hold "
+            "a port against (ROADMAP.md Queue 3)")
 
 
 class MolochCore:
@@ -417,9 +420,8 @@ class MolochCore:
         qx = torch.cat([f(qv)[None],
                         torch.zeros((self.nqx - 1, kz, iy, jx),
                                     dtype=self.dtype, device=dev)])
-        nlak = int(self.cfg.physics.extras.get("lake_ndpmax", 100)) \
-            if self.cfg.physics.lakemod == 1 else 1
-        phys = zeros_moloch_phys(kz, iy, jx, dev, self.dtype, nlak=nlak)
+        phys = zeros_moloch_phys(kz, iy, jx, dev, self.dtype,
+                                 nlak=lake_layers(self.cfg.physics))
         phys["tg"] = f(t[kz - 1])
         z3 = torch.zeros((kz, iy, jx), dtype=self.dtype, device=dev)
         st = MolochState(

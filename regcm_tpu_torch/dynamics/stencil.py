@@ -8,8 +8,9 @@ directions (tropical band: x; CRM: x and y) wrap with ``torch.roll``.
 Under a ``DomainMesh`` (``topology(mesh=...)``) each tensor is one
 rank's block of the domain: a shift first extends the block by |dy|
 rows and |dx| columns on the side it reads from (``parallel.halo``,
-y before x so that a diagonal shift gets its corner), then slices, so
-that every rank computes its block of the undecomposed result.
+y before x so that a diagonal shift gets its corner; around a periodic
+axis the first and last ranks are neighbours), then slices, so that
+every rank computes its block of the undecomposed result.
 """
 from __future__ import annotations
 
@@ -33,8 +34,6 @@ def topology(periodic_x: bool = False, periodic_y: bool = False,
              mesh=None):
     """Set the stencil topology for code run within this context."""
     global _PX, _PY, _MESH
-    if mesh is not None and (periodic_x or periodic_y):
-        raise NotImplementedError("periodic topologies are not decomposed")
     old = (_PX, _PY, _MESH)
     _PX, _PY, _MESH = bool(periodic_x), bool(periodic_y), mesh
     try:
@@ -89,9 +88,11 @@ def _decomposed(a, dy, dx, mode):
     the side each offset reads from, then slice."""
     ly, lx = a.shape[-2], a.shape[-1]
     if dy:
-        a = halo_expand(a, _MESH, -2, max(-dy, 0), max(dy, 0), mode)
+        a = halo_expand(a, _MESH, -2, max(-dy, 0), max(dy, 0), mode,
+                        periodic=_PY)
     if dx:
-        a = halo_expand(a, _MESH, -1, max(-dx, 0), max(dx, 0), mode)
+        a = halo_expand(a, _MESH, -1, max(-dx, 0), max(dx, 0), mode,
+                        periodic=_PX)
     y, x = max(dy, 0), max(dx, 0)
     return a[..., y:y + ly, x:x + lx]
 
@@ -137,7 +138,8 @@ def halo_pad(a, h: int, wrap: bool = True):
     replicated at a domain edge, wrapped around a periodic axis (with
     ``wrap``), the neighbouring ranks' values under a mesh."""
     if _MESH is not None:
-        return halo_expand2d(a, _MESH, h, "edge")
+        return halo_expand2d(a, _MESH, h, "edge", periodic_x=_PX and wrap,
+                             periodic_y=_PY and wrap)
     ny, nx = a.shape[-2], a.shape[-1]
 
     def index(n, periodic):

@@ -122,10 +122,10 @@ def halo_expand(a: torch.Tensor, mesh, axis: int, before: int, after: int,
 
 
 def halo_expand2d(a: torch.Tensor, mesh, h: int, mode: str = "zero",
-                  periodic_x: bool = False):
+                  periodic_x: bool = False, periodic_y: bool = False):
     """Extend the trailing (y, x) axes by h on each side; the corners
     come from the x exchange of the y-extended rows."""
-    a = halo_expand(a, mesh, -2, h, h, mode)
+    a = halo_expand(a, mesh, -2, h, h, mode, periodic=periodic_y)
     return halo_expand(a, mesh, -1, h, h, mode, periodic=periodic_x)
 
 

@@ -135,7 +135,9 @@ class KFTables(NamedTuple):
     rdthk: float
 
     @classmethod
-    def build(cls, ptop_pa, dtype=torch.float64, device="cpu"):
+    def build(cls, ptop_pa, device, dtype=torch.float64):
+        """The tables on the caller's ``device`` (no default: a model on
+        the card builds them there)."""
         d = kf_lutab(float(ptop_pa))
         f = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
         return cls(f(d["ttab"]), f(d["qstab"]), f(d["the0k"]),

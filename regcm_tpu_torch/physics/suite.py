@@ -7,17 +7,23 @@ Emanuel, 5 Tiedtke, 6 Kain-Fritsch or 0 none, each dense over the grid
 and blended by the land mask when icup_lnd and icup_ocn differ; the
 sigma-p cores hand Kuo the qv vertical advection, which returns on every
 step to the columns Kuo leaves alone, and Kain-Fritsch reads a
-running-mean w updated on every step) → the
-icldfrac cloud fraction (schemes 0-6) and the resolved microphysics
-(SUBEX ipptls=1 or the 5-species Nogherotto-Tompkins ipptls=2) → CCM3
-radiation on the dtrad alarm (LW absorptivities on dtabem) → BATS1e land
-with Zeng ocean fluxes on the dtsrf alarm → the PBL (Holtslag ibltyp=1,
-or the UW TCM ibltyp=2 with its TKE tendency handed back to the core) →
-shallow convection on every step when an icup is negative, on the total
-tendencies. Returns the physics tendencies for the dynamical core,
-coupled by ``atms["cpl"]`` (p* for the sigma-p cores, 1 for the
-uncoupled MOLOCH prognostics), plus persistent-state updates. Every
-other scheme is refused at construction by ``validate_physics``.
+running-mean w updated on every step) → the icldfrac cloud fraction
+(schemes 0-6) and the resolved microphysics (ipptls 1 SUBEX, 2 the
+5-species Nogherotto-Tompkins, 3 WSM5, 0 none) → CCM3 radiation on the
+dtrad alarm (LW absorptivities on dtabem) → the surface on the dtsrf
+alarm: the ocean fluxes (iocnflx 1 BATS, 2 Zeng, 3 COARE), BATS1e over
+land (batched over the nsg×nsg subcells when nsg > 1; any other
+land_scheme runs the force-restore ground of ``surface_fluxes``), then
+the slab ocean, the diurnal skin SST, sea ice and the Hostetler lake,
+each overriding its points → the PBL (ibltyp 1 Holtslag, 2 the UW TCM
+with its TKE tendency handed back to the core, 3 GFS, 4 MYJ with its
+TKE and surface layer kept in the state, 0 none) → shallow convection on
+every step when an icup is negative, on the total tendencies. Returns
+the physics tendencies for the dynamical core, coupled by
+``atms["cpl"]`` (p* for the sigma-p cores, 1 for the uncoupled MOLOCH
+prognostics), plus persistent-state updates. ``validate_physics``
+refuses at construction what the JAX package refuses and what the port
+leaves out (chemistry, RRTMG).
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ import torch
 
 from ..core.state import HydroState, BdyState, StepFlags
 from ..device import resolve_device
+from ..dynamics.hydrostatic import level_sum
 from ..dynamics.stencil import cross2dot
 from ..utils import constants as c
 from .cloud.fractions import cldfrac_dispatch
@@ -40,6 +47,8 @@ from .cumulus.shallow import shallcu
 from .cumulus.tiedtke import ntiedtke
 from .micro.nogtom import nogtom
 from .micro.subex import subex, combine_clouds
+from .micro.wsm5 import wsm5
+from .pbl.gfs import moninq
 from .pbl.holtslag import holtbl
 from .radiation.ccm3.driver import ccm3_radiation
 from .radiation.ccm3.tables import ghg_mmr
@@ -47,49 +56,58 @@ from .radiation.ghg import ghg_concentrations
 from .radiation.simple import radiation, surface_albedo
 from .surface.bats import (bats_albedo, fseas_fn, soil_static,
                            soil_static_tensors, vecbats)
+from .surface.dcsst import dcsst
 from .surface.fluxes import surface_fluxes
-from .uw_dispatch import run_uwtcm
+from .surface.lake import init_lake, lake_layers, lakedrv
+from .surface.seaice import seaice
+from .surface.slab import update_slabocean
+from .uw_dispatch import run_myj, run_uwtcm
 
-# Selector values this port implements. An unimplemented selector is a
-# hard error at model build, never a silent no-op (the reference's
-# cross-check-and-die in mod_params).
+# Selector values this port implements: those of the JAX package. An
+# unimplemented selector is a hard error at model build, never a silent
+# no-op (the reference's cross-check-and-die in mod_params). lakemod,
+# islab_ocean, idcsst and iseaice switch their model on at 1, as in the
+# JAX package.
 SUPPORTED = dict(
     # |icup|: none, Kuo, Grell, Betts-Miller, Emanuel, Tiedtke,
     # Kain-Fritsch; a negative value adds shallow convection
     icup_lnd={0, 1, 2, 3, 4, 5, 6}, icup_ocn={0, 1, 2, 3, 4, 5, 6},
-    ibltyp={1, 2},                 # Holtslag, UW TCM
-    ipptls={1, 2},                 # SUBEX, Nogherotto-Tompkins
-    iocnflx={2},                   # Zeng
+    ibltyp={0, 1, 2, 3, 4},        # none, Holtslag, UW TCM, GFS, MYJ
+    ipptls={0, 1, 2, 3},           # none, SUBEX, Nogherotto-Tompkins, WSM5
+    iocnflx={1, 2, 3},             # BATS, Zeng, COARE
     icldfrac={0, 1, 2, 3, 4, 5, 6},
-    irrtm={0},                     # CCM3
-    lakemod={0}, islab_ocean={0}, idcsst={0}, iseaice={0},
+    irrtm={0},                     # CCM3 (RRTMG: ROADMAP item 15)
 )
-SCHEMES = dict(ibltyp={3: "GFS", 4: "MYJ"}, ipptls={3: "WSM5"},
-               iocnflx={1: "BATS ocean fluxes", 3: "COARE"},
-               lakemod={1: "lake model"}, islab={1: "slab ocean"},
-               idcsst={1: "diurnal SST"}, iseaice={1: "sea ice"})
-# the dynamical cores refuse what they leave out (HydroCore: chemistry,
-# a decomposed semi-Lagrangian run; MolochCore its own)
+# the dynamical cores refuse what they leave out (HydroCore: a decomposed
+# semi-Lagrangian run, item 10e; MolochCore: periodic domains)
 
 
 def validate_physics(cfg):
-    """Raise for any option this port does not implement."""
+    """Raise for any option the JAX package refuses or this port leaves
+    out; each message names the scheme and its ROADMAP item."""
     p = cfg.physics
     for name, ok in SUPPORTED.items():
         val = getattr(p, name)
         if name.startswith("icup"):
             val = abs(val)
         if val not in ok:
-            scheme = SCHEMES.get(name.split("_")[0], {}).get(val)
+            what = " (RRTMG, ROADMAP.md item 15)" if name == "irrtm" else ""
             raise NotImplementedError(
-                f"physicsparam {name}={val}"
-                + (f" ({scheme})" if scheme else "")
-                + " is not ported to regcm_tpu_torch (supported: "
-                f"{sorted(ok)}); refusing to run with a silently "
-                "disabled scheme")
+                f"physicsparam {name}={val}{what} is not ported to "
+                f"regcm_tpu_torch (supported: {sorted(ok)}); refusing to "
+                "run with a silently disabled scheme")
+    if int(p.ichem) != 0:
+        raise NotImplementedError(
+            "regcm_tpu_torch does not port chemistry (ichem=1, ROADMAP.md "
+            "item 13)")
+    land = str(p.extras.get("land_scheme", "bats1e"))
     if cfg.dim.nsg > 1:
-        raise NotImplementedError("dimparam nsg>1 (subgrid surface) is "
-                                  "not ported to regcm_tpu_torch")
+        if cfg.core.idynamic == 3:
+            raise ValueError(
+                "dimparam nsg>1 (subgrid surface) is not wired for the "
+                "MOLOCH core (idynamic=3), in the JAX package either")
+        if land != "bats1e":
+            raise ValueError("nsg>1 requires the BATS1e land scheme")
     icups = (max(p.icup_lnd, 0), max(p.icup_ocn, 0))
     if 1 in icups:
         if cfg.core.idynamic == 3:
@@ -103,12 +121,9 @@ def validate_physics(cfg):
                 "the other surface type (deferred qv vadv contract)")
     if cfg.core.idynamic == 3 and p.ibltyp == 2:
         raise ValueError(
-            "ibltyp=2 (UW TCM) needs the MOLOCH WAF TKE advection "
-            "path, which is not wired yet; use ibltyp 1/3/4 with "
-            "idynamic=3")
-    land = str(p.extras.get("land_scheme", "bats1e"))
-    if land != "bats1e":
-        raise NotImplementedError(f"land_scheme={land!r} is not ported")
+            "ibltyp=2 (UW TCM) needs the MOLOCH WAF TKE advection path, "
+            "which neither package wires (ROADMAP.md item 12); use ibltyp "
+            "0/1/3/4 with idynamic=3")
     rad = str(p.extras.get("rad_scheme", "ccm3"))
     if rad not in ("ccm3", "broadband"):
         raise ValueError(f"rad_scheme={rad!r} is not a radiation scheme")
@@ -129,7 +144,6 @@ class PhysicsSuite:
         loc = (lambda a: a) if mesh is None else mesh.local
         self.ricr = 0.25      # ricr_lnd/ocn default (mod_params.F90:485)
         self.idynamic = cfg.core.idynamic
-        self.land_scheme = "bats1e"
         # the land/ocean cumulus split (icup_lnd/icup_ocn,
         # Main/mpplib/mod_runparams.F90:109-153); a negative icup adds
         # shallow convection everywhere (mod_tendency.F90:316)
@@ -167,13 +181,45 @@ class PhysicsSuite:
                                       device=device)
         self.xlat = f(loc(grid.xlat))
         # BATS1e static fields from the DOMAIN landuse/texture
-        # (defaults: short grass over land, ocean class 15, loam)
-        lveg = loc(np.asarray(grid.extras.get(
-            "lveg", np.where(grid.lndocn > 0.5, 2, 15))))
-        ltex = loc(np.asarray(grid.extras.get(
-            "ltex", np.full((grid.iy, grid.jx), 6))))
-        self.bats_ss_np = soil_static(lveg, ltex)
-        self.bats_ss = soil_static_tensors(self.bats_ss_np, device, dtype)
+        # (defaults: short grass over land, ocean class 15, loam); with
+        # nsg > 1 per subcell too (Share/mod_dynparam.F90 nsg, BATS
+        # batched over nnsg, the rdnnsg averaging of
+        # Main/mod_lm_interface.F90:542-545); another land_scheme runs
+        # the force-restore ground of surface_fluxes over land
+        self.land_scheme = str(p.extras.get("land_scheme", "bats1e"))
+        self.nnsg = max(int(cfg.dim.nsg), 1) ** 2
+        if self.land_scheme == "bats1e":
+            lveg = np.asarray(grid.extras.get(
+                "lveg", np.where(grid.lndocn > 0.5, 2, 15)))
+            ltex = np.asarray(grid.extras.get(
+                "ltex", np.full((grid.iy, grid.jx), 6)))
+            self.bats_ss_np = soil_static(loc(lveg), loc(ltex))
+            self.bats_ss = soil_static_tensors(self.bats_ss_np, device,
+                                               dtype)
+            if self.nnsg > 1:
+                shp = (self.nnsg, grid.iy, grid.jx)
+                lvs = loc(np.asarray(grid.extras.get(
+                    "lveg_sub", np.broadcast_to(lveg, shp))))
+                lts = loc(np.asarray(grid.extras.get(
+                    "ltex_sub", np.broadcast_to(ltex, shp))))
+                # the per-subcell land mask (ocean/lake classes 14/15)
+                self.lnd_sub = f((lvs != 14) & (lvs != 15))
+                self.bats_ss_sub_np = soil_static(lvs, lts)
+                self.bats_ss_sub = soil_static_tensors(
+                    self.bats_ss_sub_np, device, dtype)
+        # Hostetler lake (lakemod=1, mod_ocn_lake.F90): the static depth
+        # index, extinction and mask from the DOMAIN lake depth
+        # (grid.extras["dhlake"], m)
+        self.lakemod = int(p.lakemod)
+        if self.lakemod == 1:
+            dh = np.asarray(grid.extras.get(
+                "dhlake", np.zeros((grid.iy, grid.jx))))
+            _, eta, idep = init_lake(dh, grid.xlat,
+                                     np.full(dh.shape, 288.0),
+                                     lake_layers(p))
+            self.lake_eta = f(loc(eta))
+            self.lake_idep = torch.as_tensor(loc(idep), device=device)
+            self.lakmsk = f(loc((dh >= 2.0) & (grid.lndocn < 0.5)))
         lnd = loc(np.asarray(grid.lndocn))
         ncol = lnd.size
         self.elcrit = f(np.where(lnd.reshape(ncol) > 0.5,
@@ -199,8 +245,8 @@ class PhysicsSuite:
         if self.uses_kf:
             kfn = cfg.kf
             cld = cfg.raw.get("cldparam", {}) if cfg.raw else {}
-            self.kf_tab = KFTables.build(cfg.ptop_cb * 1000.0, dtype,
-                                         device)
+            self.kf_tab = KFTables.build(cfg.ptop_cb * 1000.0, device,
+                                         dtype=dtype)
             self.kf_par = KFParams(
                 entrate=float(kfn.kf_entrate),
                 convrate=float(kfn.kf_convrate),
@@ -415,6 +461,194 @@ class PhysicsSuite:
             qdetr=uncol(out.qdetr))
         return res
 
+    # -- nsg > 1: the subcells' batch and the averages back to the cell
+    def _sub(self, a):
+        """A cell field broadcast over the nnsg subcells."""
+        return a[None].expand((self.nnsg,) + tuple(a.shape))
+
+    def _mean_land(self, a):
+        """The mean over a cell's land subcells (subcells summed in
+        order, so that a block of a decomposed run adds as the whole
+        domain does)."""
+        nl = torch.clamp(level_sum(self.lnd_sub), min=1.0)
+        return level_sum(a * self.lnd_sub) / nl
+
+    # -- surface model (dtsrf alarm; mod_tendency.F90:1786-1795): ocean
+    #    fluxes, BATS1e, slab ocean, diurnal SST, sea ice, lake
+    def _surface(self, core, atms, s, bdy, tb3, qvb3, za, precip, cuprate,
+                 swabs, lwnet, sfupd):
+        """The surface fluxes, drag and ground temperature after the
+        surface models in the JAX package's order; their persistent
+        state goes into ``sfupd``."""
+        kz = core.kz
+        p = self.cfg.physics
+        dtsrf = self.cfg.time.dtsrf
+        lnd = core.grid_lndocn
+        ps2d = atms["ps2d"]
+        u1, v1, t1, q1, z1 = (atms["ubx3"][kz - 1], atms["vbx3"][kz - 1],
+                              tb3[kz - 1], qvb3[kz - 1], za[kz - 1])
+        rhox = ps2d / (c.rgas * t1)
+        slab = p.islab_ocean == 1
+        # with the slab ocean the prognostic SST lives in tg over the
+        # ocean points (sfs%tg2 aliasing, mod_slabocean.F90:79)
+        sst = s.tg if slab else core.sst
+        if p.idcsst == 1 and not slab:
+            # the ocean fluxes see the prognostic skin temperature once it
+            # is spun up (dcsst, mod_ocn_zeng.F90:101-105)
+            sst = torch.where(s.dcsst[2] > 100.0, s.dcsst[2], sst)
+        sf = surface_fluxes(u1, v1, t1, q1, z1, rhox, ps2d, s.tg, sst, lnd,
+                            swabs, lwnet, precip, dtsrf, iocnflx=p.iocnflx)
+        hfx, qfx, uvdrag, tg = sf.hfx, sf.qfx, sf.uvdrag, sf.tg
+        if self.land_scheme == "bats1e":
+            # full BATS1e over the land points (vecbats,
+            # Main/batslib/mod_bats_common.F90:318)
+            args = (t1, q1 / (1.0 + q1), u1, v1, z1, rhox, ps2d,
+                    precip + cuprate * core.m_ci, swabs, -lwnet, swabs,
+                    atms["coszrs"])
+            if self.nnsg > 1:
+                # batched over the subcells, each with its landuse and
+                # texture; the subgrid skin T is carried as tgbrd, as in
+                # the JAX package; fluxes averaged back to the cell
+                # (rdnnsg, mod_lm_interface.F90:542-545)
+                bo = vecbats(*(self._sub(a) for a in args), s.bats[0],
+                             s.bats, self.bats_ss_sub, self.lnd_sub, dtsrf)
+                mean_l = self._mean_land
+                lfrac = level_sum(self.lnd_sub) / self.nnsg
+                anyl = lfrac > 0.0
+                blend = lambda ln, oc: torch.where(
+                    anyl, lfrac * ln + (1.0 - lfrac) * oc, oc)
+                hfx = blend(mean_l(bo.sent), hfx)
+                qfx = blend(torch.clamp(mean_l(bo.evpr), min=0.0), qfx)
+                uvdrag = blend(mean_l(bo.drag), uvdrag)
+                tg = blend(mean_l(bo.tgrd), tg)
+            else:
+                bo = vecbats(*args, s.tg, s.bats, self.bats_ss, lnd, dtsrf)
+                lmm = lnd > 0.5
+                hfx = torch.where(lmm, bo.sent, hfx)
+                qfx = torch.where(lmm, torch.clamp(bo.evpr, min=0.0), qfx)
+                uvdrag = torch.where(lmm, bo.drag, uvdrag)
+                tg = torch.where(lmm, bo.tgrd, tg)
+            sfupd["bats"] = bo.bats
+        ocean = lnd < 0.5
+        if slab:
+            # update_slabocean (mod_slabocean.F90:95): the mixed-layer
+            # budget restoring toward the forcing SST; the SOM q-flux
+            # adjustment (qflb0) only where the boundary carries one
+            sp = self.cfg.slaboc
+            qadj = 0.0
+            if sp.do_qflux_adj and bdy is not None \
+                    and getattr(bdy, "qflb0", None) is not None:
+                qadj = bdy.qflb0
+            tg, _ = update_slabocean(
+                tg, core.sst, ocean, swabs, -lwnet, hfx, qfx, dtsrf,
+                mixed_layer_depth=sp.mixed_layer_depth,
+                do_restore_sst=sp.do_restore_sst,
+                sst_restore_timescale=sp.sst_restore_timescale,
+                qflux_adj=qadj)
+        if p.idcsst == 1 and not slab:
+            # Zeng-Beljaars diurnal warm layer and cool skin
+            # (mod_ocn_zeng.F90:293-377)
+            spd = torch.sqrt(u1 ** 2 + v1 ** 2)
+            ustar = torch.sqrt(torch.clamp(uvdrag, min=1e-6)
+                               * torch.clamp(spd, min=0.1) / rhox)
+            dco = dcsst(core.sst, swabs, -lwnet, hfx, qfx, ustar, rhox,
+                        s.dcsst, lnd, dtsrf)
+            tg = torch.where(ocean, dco.tskin, tg)
+            sfupd["dcsst"] = dco.dcsst
+        if p.iseaice == 1:
+            # frozen ocean points override the open-water fluxes (seaice,
+            # mod_ocn_bats.F90:105; vecocn, mod_ocn_common.F90:62)
+            si = seaice(t1, q1, u1, v1, z1, rhox, ps2d, precip, swabs,
+                        -lwnet, sst, s.seaice, lnd, dtsrf)
+            im = si.icemask > 0.5
+            hfx = torch.where(im, si.sent, hfx)
+            qfx = torch.where(im, si.evpr, qfx)
+            uvdrag = torch.where(im, si.drag, uvdrag)
+            tg = torch.where(im, si.tg, tg)
+            sfupd["seaice"] = si.ice
+        if self.lakemod == 1:
+            # lake points override the ocean fluxes (lakedrv,
+            # mod_ocn_lake.F90:203; llake, mod_ocn_common.F90:61)
+            lk = lakedrv(t1, q1, u1, v1, z1, swabs, lwnet, precip, s.hfx,
+                         s.qfx, rhox, ps2d, s.tlak, s.lakhi, s.lakice,
+                         s.laksnow, s.laksnag, tg, self.lake_eta,
+                         self.lake_idep, self.lakmsk, self.xlat, dtsrf)
+            m = self.lakmsk > 0.5
+            hfx = torch.where(m, lk.sent, hfx)
+            qfx = torch.where(m, torch.clamp(lk.evpr, min=0.0), qfx)
+            uvdrag = torch.where(m, lk.drag, uvdrag)
+            tg = torch.where(m, lk.tg, tg)
+            sfupd.update(tlak=lk.tlak, lakhi=lk.lakhi, lakice=lk.lakice,
+                         laksnow=lk.laksnow, laksnag=lk.laksnag)
+        sfupd.update(hfx=hfx, qfx=qfx, uvdrag=uvdrag, tg=tg)
+        return hfx, qfx, uvdrag, tg
+
+    # -- GFS PBL inputs: bottom-up columns, the kinematic surface fluxes,
+    #    the interface pressures and geopotentials (pbl_gfs,
+    #    Main/pbllib/mod_pbl_gfs.F90:98-179)
+    def _gfs(self, atms, s, tb3, qvb3, qcb3, pb3, za, dzq, hfx, qfx,
+             uvdrag, tg, dt):
+        """The GFS tendencies on the cross grid: du, dv (uncoupled), T,
+        qv and qc (to be coupled)."""
+        kz, iy, jx = tb3.shape
+        ncol = iy * jx
+        flipc = lambda a: torch.flip(a, [0]).reshape(kz, ncol).T
+        unflip = lambda a: torch.flip(a.T.reshape(kz, iy, jx), [0])
+        ps2 = atms["ps2d"].reshape(ncol)
+        ta = tb3[kz - 1].reshape(ncol)
+        qa = qvb3[kz - 1].reshape(ncol)
+        ua = atms["ubx3"][kz - 1].reshape(ncol)
+        va = atms["vbx3"][kz - 1].reshape(ncol)
+        pa = pb3[kz - 1].reshape(ncol)
+        spd1 = torch.sqrt(ua ** 2 + va ** 2)
+        rrhox = c.rgas * ta * (1.0 + c.ep1 * qa) / pa
+        cpm = c.cpd * (1.0 + 0.8 * qa)
+        heat = hfx.reshape(ncol) / cpm * rrhox    # (:128)
+        evap = qfx.reshape(ncol) * rrhox
+        # stress = ustar² from the stored drag (uvdrag = ρ·Cd·V)
+        stress = uvdrag.reshape(ncol) * spd1 * rrhox
+        # the surface bulk Richardson number (BATS form,
+        # mod_ocn_bats.F90:47)
+        zaa = za[kz - 1].reshape(ncol)
+        rbsoil = zaa * c.egrav * (1.0 - tg.reshape(ncol) / ta) \
+            / (spd1 ** 2 + 0.01)
+        prsl = flipc(pb3) * 1e-3                  # cb
+        t1 = flipc(tb3)
+        dz1 = flipc(dzq)
+        z1 = flipc(za)
+        # interface pressures, summed up the column in level order, and
+        # geopotentials (:156-179)
+        delk = prsl / (c.rgas * c.regrav) * dz1 / t1
+        p0 = ps2 * 1e-3
+        prsi = [p0]
+        acc = delk[:, 0]
+        prsi.append(p0 - acc)
+        for k in range(1, kz):
+            acc = acc + delk[:, k]
+            prsi.append(p0 - acc)
+        prsi = torch.stack(prsi, dim=1)
+        phii = torch.cat(
+            [torch.zeros_like(z1[:, :1]),
+             (z1[:, 1:] - z1[:, :1]) * c.egrav,
+             ((z1[:, -1] - z1[:, 0]) * c.egrav
+              + dz1[:, -1] * c.egrav)[:, None]], dim=1)
+        phil = torch.cat(
+            [0.5 * (z1[:, 1:] + z1[:, :-1] - 2.0 * z1[:, :1]) * c.egrav,
+             (2.0 * phii[:, kz - 1] - 0.5
+              * (z1[:, -1] + z1[:, -2] - 2.0 * z1[:, 0]) * c.egrav)[:, None]],
+            dim=1)
+        prslk = (prsl * 1000.0 / c.stdp) ** c.rovcp
+        psk = (ps2 / c.stdp) ** c.rovcp
+        q1s = flipc(qvb3 / (1.0 + qvb3))
+        qcs = flipc(qcb3 / (1.0 + qcb3))
+        thr = flipc(s.heatrt) / prslk
+        out = moninq(flipc(atms["ubx3"]), flipc(atms["vbx3"]), t1, q1s, qcs,
+                     prsl, prsi, delk, prslk, psk, phil, phii, thr, heat,
+                     evap, stress, rbsoil, spd1, dt)
+        return (unflip(out.du), unflip(out.dv), unflip(out.tau),
+                unflip(out.rtgq / (1.0 - q1s) ** 2),
+                unflip(out.rtgc / (1.0 - qcs) ** 2))
+
     def __call__(self, core, atms, s: HydroState, bdy: BdyState,
                  flags: StepFlags, dt, dyn=None):
         kz = core.kz
@@ -482,14 +716,15 @@ class PhysicsSuite:
             landmask=lnd)
         cldlwc, cldfra = combine_clouds(fcc, qcb3, rho, tb3,
                                         cu["cldfra"], cu["cldlwc"])
-        if self.cfg.physics.ipptls == 1:
+        ipptls = self.cfg.physics.ipptls
+        if ipptls == 1:
             out = subex(tb3, pb3, pf3, qvb3, qcb3, rh, rho, fcc, cpl, dt,
                         core.qck1, core.cgul, core.cevap, core.caccr)
             tphy = tphy + out.tten * m_ci
             qvphy = qvphy + out.qvten * m_ci
             qcphy = qcphy + out.qcten * m_ci
             precip = out.precip * m_ci
-        else:
+        elif ipptls == 2:
             # Nogherotto-Tompkins 5-species implicit microphysics
             # (nogtom, Main/microlib/mod_micro_nogtom.F90:358); Tiedtke's
             # detrainment staged in, zero under the other schemes
@@ -505,6 +740,28 @@ class PhysicsSuite:
             qiphy = qiphy + out.qxten[3] * pfac
             qsphy = qsphy + out.qxten[4] * pfac
             precip = (out.rainnc + out.snownc) * m_ci
+        elif ipptls == 3:
+            # WSM5 (mod_micro_interface.F90 → wsm5, Main/microlib/
+            # mod_micro_wsm5.F90:214) on bottom-up columns; the
+            # tendencies are (new − old)·p*/dt (wsm5:296-307)
+            iy, jx = tb3.shape[1], tb3.shape[2]
+            ncol = iy * jx
+            colb = lambda a: torch.flip(a, [0]).reshape(kz, ncol).T
+            uncolb = lambda a: torch.flip(a.T.reshape(kz, iy, jx), [0])
+            qhb3 = atms["qhb3"]
+            out = wsm5(colb(tb3), colb(qvb3), colb(qhb3[0]), colb(qhb3[2]),
+                       colb(qhb3[1]), colb(qhb3[3]), colb(pb3), colb(dzq),
+                       colb(rho), colb(atms["qsb3"]), colb(rh), core.dtsec)
+            wfac = cpl[None] / core.dtsec * m_ci
+            tphy = tphy + (uncolb(out.t) - tb3) * wfac
+            qvphy = qvphy + (uncolb(out.qv) - qvb3) * wfac
+            qcphy = qcphy + (uncolb(out.qc) - qhb3[0]) * wfac
+            qrphy = qrphy + (uncolb(out.qr) - qhb3[1]) * wfac
+            qiphy = qiphy + (uncolb(out.qi) - qhb3[2]) * wfac
+            qsphy = qsphy + (uncolb(out.qs) - qhb3[3]) * wfac
+            precip = out.rain.reshape(iy, jx) * m_ci
+        else:
+            precip = torch.zeros_like(psb)
         sfupd["rainnc"] = s.rainnc + precip * core.dtsec
 
         # -- radiation (dtrad alarm; mod_tendency.F90:1744-1782)
@@ -512,12 +769,35 @@ class PhysicsSuite:
         if flags.do_rad:
             coszrs = atms["coszrs"]
             alb = surface_albedo(coszrs, lnd)
-            # BATS two-band direct/diffuse land albedo, bulk ocean albedo
-            swdr, lwdr, swdf, lwdf = bats_albedo(
-                coszrs, s.bats[0], s.bats[6], s.bats[4], s.bats[5],
-                self.bats_ss, lnd)
-            emis_land = self.bats_ss["lndemiss"] \
-                - self.bats_ss["seasemi"] * fseas_fn(s.bats[0])
+            if self.land_scheme == "bats1e":
+                # BATS two-band direct/diffuse land albedo, the bulk
+                # zenith formula over the ocean; with nsg > 1 per subcell,
+                # averaged over the land subcells (mod_lm_interface.F90:437)
+                if self.nnsg > 1:
+                    mean_l = self._mean_land
+                    swdr, lwdr, swdf, lwdf = (mean_l(a) for a in bats_albedo(
+                        self._sub(coszrs), s.bats[0], s.bats[6],
+                        s.bats[4], s.bats[5], self.bats_ss_sub,
+                        self.lnd_sub))
+                    ss_e = self.bats_ss_sub
+                    emis_land = mean_l(ss_e["lndemiss"] - ss_e["seasemi"]
+                                       * fseas_fn(s.bats[0]))
+                else:
+                    swdr, lwdr, swdf, lwdf = bats_albedo(
+                        coszrs, s.bats[0], s.bats[6], s.bats[4], s.bats[5],
+                        self.bats_ss, lnd)
+                    emis_land = self.bats_ss["lndemiss"] \
+                        - self.bats_ss["seasemi"] * fseas_fn(s.bats[0])
+                alb_s = (torch.where(lmm, swdr, alb),
+                         torch.where(lmm, swdf, alb),
+                         torch.where(lmm, lwdr, alb),
+                         torch.where(lmm, lwdf, alb),
+                         torch.where(lmm, self.bats_ss["albvgs"], alb),
+                         torch.where(lmm, self.bats_ss["albvgl"], alb))
+                emis = torch.where(lmm, emis_land, 0.985)
+            else:
+                alb_s = (alb,) * 6
+                emis = torch.full_like(psb, 0.985)
             eccf = atms.get("eccf", 1.0)
             solcon = atms.get("solcon", self.solcon)
             if self.rad_scheme == "ccm3":
@@ -529,12 +809,7 @@ class PhysicsSuite:
                     atms["qhb3"][2] if five else torch.zeros_like(qcb3),
                     pb3, pf3, rh,
                     dzq, cldfra, cldlwc, coszrs, s.tg, lnd, self.xlat,
-                    torch.where(lmm, swdr, alb), torch.where(lmm, swdf, alb),
-                    torch.where(lmm, lwdr, alb), torch.where(lmm, lwdf, alb),
-                    torch.where(lmm, self.bats_ss["albvgs"], alb),
-                    torch.where(lmm, self.bats_ss["albvgl"], alb),
-                    torch.where(lmm, emis_land, 0.985),
-                    self.ghg_mmr, eccf=eccf, solcon=solcon,
+                    *alb_s, emis, self.ghg_mmr, eccf=eccf, solcon=solcon,
                     five_species=five, cache=abem_cache,
                     want_cache=flags.do_abem)
                 if abem_out is not None:
@@ -557,25 +832,9 @@ class PhysicsSuite:
         # -- surface model (dtsrf alarm; :1786-1795)
         hfx, qfx, uvdrag, tg = s.hfx, s.qfx, s.uvdrag, s.tg
         if flags.do_srf:
-            u1, v1, t1, q1, z1 = (atms["ubx3"][kz - 1], atms["vbx3"][kz - 1],
-                                  tb3[kz - 1], qvb3[kz - 1], za[kz - 1])
-            rhox = ps2d / (c.rgas * t1)
-            sf = surface_fluxes(u1, v1, t1, q1, z1, rhox, ps2d, s.tg,
-                                core.sst, lnd, swabs, lwnet, precip,
-                                self.cfg.time.dtsrf,
-                                iocnflx=self.cfg.physics.iocnflx)
-            # full BATS1e over land points (vecbats,
-            # Main/batslib/mod_bats_common.F90:318)
-            bo = vecbats(t1, q1 / (1.0 + q1), u1, v1, z1, rhox, ps2d,
-                         precip + cu["prate"] * m_ci, swabs, -lwnet, swabs,
-                         atms["coszrs"], s.tg, s.bats, self.bats_ss, lnd,
-                         self.cfg.time.dtsrf)
-            hfx = torch.where(lmm, bo.sent, sf.hfx)
-            qfx = torch.where(lmm, torch.clamp(bo.evpr, min=0.0), sf.qfx)
-            uvdrag = torch.where(lmm, bo.drag, sf.uvdrag)
-            tg = torch.where(lmm, bo.tgrd, sf.tg)
-            sfupd.update(bats=bo.bats, hfx=hfx, qfx=qfx, uvdrag=uvdrag,
-                         tg=tg)
+            hfx, qfx, uvdrag, tg = self._surface(
+                core, atms, s, bdy, tb3, qvb3, za, precip, cu["prate"],
+                swabs, lwnet, sfupd)
 
         # -- PBL (:1799-1819)
         utenx, vtenx = cu["utenx"], cu["vtenx"]
@@ -609,7 +868,7 @@ class PhysicsSuite:
                 vtenx = vtenx + hout.vten
             else:
                 uphy, vphy = hout.uten, hout.vten
-        else:
+        elif self.cfg.physics.ibltyp == 2:
             # UW TCM (uwtcm, Main/pbllib/mod_pbl_uwtcm.F90:137):
             # prognostic-TKE moist turbulence from the b-level TKE; its
             # TKE tendency goes back to the core through "_tkephy"
@@ -622,6 +881,29 @@ class PhysicsSuite:
             utenx = utenx + out["uten"]
             vtenx = vtenx + out["vten"]
             sfupd["_tkephy"] = out["tketen"]
+        elif self.cfg.physics.ibltyp == 4:
+            # MYJ (myjpbl, Main/pbllib/mod_pbl_myj.F90:177): level-2.5 TKE
+            # kept as per-layer persistent state, not advected
+            out = run_myj(self, core, atms, s, flags, dt)
+            tphy = tphy + out["tten"] * pfac
+            qvphy = qvphy + out["qvten"] * pfac
+            qcphy = qcphy + out["qcten"] * pfac
+            if core.nqx == 5:
+                qiphy = qiphy + out["qiten"] * pfac
+            utenx = utenx + out["uten"]
+            vtenx = vtenx + out["vten"]
+            sfupd["tke_a"] = out["tke_a"]
+            sfupd["pbl0"] = out["pbl0"]
+        elif self.cfg.physics.ibltyp == 3:
+            # GFS Hong-Pan PBL (pbl_gfs, Main/pbllib/mod_pbl_gfs.F90:98)
+            du, dv, tt, qq, qc = self._gfs(atms, s, tb3, qvb3, qcb3, pb3,
+                                           za, dzq, hfx, qfx, uvdrag, tg,
+                                           dt)
+            tphy = tphy + tt * pfac
+            qvphy = qvphy + qq * pfac
+            qcphy = qcphy + qc * pfac
+            utenx = utenx + du
+            vtenx = vtenx + dv
 
         # -- shallow convection (any icup < 0; mod_tendency.F90:316) on
         #    the total (dynamics + physics) tendencies, on every step

@@ -3,8 +3,10 @@
 
 BATS bulk drag with Richardson-number stability corrections
 (``ocnbats``, ``Main/ocnlib/mod_ocn_bats.F90:18-85``) and a force-restore
-land ground temperature; over ocean the Zeng scheme (iocnflx=2, the
-default and the only ocean option ported) replaces the bulk fluxes.
+land ground temperature. Over ocean the bulk form is the BATS ocean
+flux (iocnflx=1); the Zeng scheme (iocnflx=2, the default) or COARE 3.0
+(iocnflx=3) replaces it. The force-restore ground serves every land
+point when the land scheme is not BATS1e.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import torch
 from ...utils import constants as c
 
 from ...utils.thermo import pfqsat
+from .coare import coare3
 from .zeng import zengocn
 
 ZLND = 0.01     # land roughness (Share/mod_constants.F90:290)
@@ -57,9 +60,6 @@ def surface_fluxes(usw, vsw, tatm, qvatm, ht, rhox, sfps, tg, sst,
     qv (mixing ratio); ht lowest-level height (m); rhox surface air
     density; sfps surface pressure (Pa); sst ocean surface T; swabs
     absorbed SW, lwnet net downward LW (W/m2); dtsrf surface step (s)."""
-    if iocnflx != 2:
-        raise NotImplementedError(
-            f"regcm_tpu_torch ports iocnflx=2 (Zeng) only, got {iocnflx}")
     land = landmask > 0.5
     tgrd = torch.where(land, tg, sst)
     z0 = torch.where(land, tg.new_tensor(ZLND), ZOCE)
@@ -74,12 +74,22 @@ def surface_fluxes(usw, vsw, tatm, qvatm, ht, rhox, sfps, tg, sst,
     sent = -drag * c.cpd * delt
     sent = torch.where(torch.abs(sent) < c.dlowval, 0.0, sent)
     evpr = torch.where(evpr < c.dlowval, 0.0, evpr)
-    # Zeng ocean fluxes replace the bulk form over ocean points
-    zo = zengocn(usw, vsw, tatm, qvatm, ht, sfps, sfps * 0.99, sst,
-                 torch.full_like(ht, 500.0))
-    sent = torch.where(land, sent, zo.sent)
-    evpr = torch.where(land, evpr, torch.clamp(zo.evpr, min=0.0))
-    drag = torch.where(land, drag, torch.clamp(zo.drag, min=1e-5))
+    hpbl = torch.full_like(ht, 500.0)
+    if iocnflx == 2:
+        # Zeng ocean fluxes replace the bulk form over ocean points
+        oc = zengocn(usw, vsw, tatm, qvatm, ht, sfps, sfps * 0.99, sst,
+                     hpbl)
+    elif iocnflx == 3:
+        # COARE3 over ocean points (mod_ocn_coare.F90), sfta = tp3d[kz]:
+        # the air T referenced adiabatically to the surface
+        # (mod_slice.F90:125, mod_lm_interface.F90:339)
+        sfta = tatm * (sfps / (sfps - rhox * c.egrav * ht)) ** c.rovcp
+        oc = coare3(usw, vsw, tatm, qvatm, ht, sfps, sfta, sst, hpbl,
+                    swabs, -lwnet, rhox)
+    if iocnflx in (2, 3):
+        sent = torch.where(land, sent, oc.sent)
+        evpr = torch.where(land, evpr, torch.clamp(oc.evpr, min=0.0))
+        drag = torch.where(land, drag, torch.clamp(oc.drag, min=1e-5))
 
     # land ground temperature: force-restore energy balance
     lh = torch.where(tgrd > c.tzero, tg.new_tensor(c.wlhv), c.wlhs)

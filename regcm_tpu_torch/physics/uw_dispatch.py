@@ -1,5 +1,5 @@
-"""Whole-grid dispatch glue of the UW TCM PBL, torch twin of
-``regcm_tpu/physics/uw_dispatch.py`` (``run_uwtcm``; MYJ is not ported).
+"""Whole-grid dispatch glue of the TKE PBL schemes (the UW TCM and MYJ),
+torch twin of ``regcm_tpu/physics/uw_dispatch.py``.
 
 Maps the PhysicsSuite slice dict onto the column scheme's inputs, the
 way ``mod_pbl_interface.F90:100-185`` stages ``mod_2_pbl``.
@@ -10,6 +10,7 @@ import math
 
 import torch
 
+from .pbl.myj import myjpbl
 from .pbl.uwtcm import UWParams, uwtcm
 
 
@@ -43,3 +44,23 @@ def run_uwtcm(suite, core, atms, s, dt):
     return dict(tten=out.tten, qvten=out.qvten, qcten=out.qcten,
                 qiten=out.qiten, uten=out.uten, vten=out.vten,
                 tketen=out.tketen)
+
+
+def run_myj(suite, core, atms, s, flags, dt):
+    """One MYJ step of the suite: the uncoupled tendencies and the
+    persistent state, the PBL TKE in ``tke_a[:kz]`` (not advected by the
+    core) and the surface-layer thz0/qz0 in ``pbl0``."""
+    kz = core.kz
+    qib3 = atms["qhb3"][2] if core.nqx == 5 \
+        else torch.zeros_like(atms["qcb3"])
+    out = myjpbl(
+        atms["tb3"], atms["qvb3"], atms["qcb3"], qib3,
+        atms["ubx3"], atms["vbx3"], atms["zq"], core.ht,
+        atms["pb3"], atms["pf3"], s.tke_a[:kz], s.tg,
+        atms["qvb3"][kz - 1], s.uvdrag, core.grid_lndocn,
+        s.pbl0[0], s.pbl0[1], dt,
+        five_species=(core.nqx == 5), first=flags.first)
+    return dict(tten=out.tten, qvten=out.qvten, qcten=out.qcten,
+                qiten=out.qiten, uten=out.uten, vten=out.vten,
+                tke_a=torch.cat([out.tkepbl, s.tke_a[kz:]]),
+                pbl0=torch.stack([out.thz0, out.qz0]))

@@ -59,3 +59,8 @@ def pfqsdt(t, p):
 def wlh(t):
     """Latent heat with the SUBEX temperature dependence."""
     return torch.where(t > c.tzero, c.wlhv - 2369.0 * (t - c.tzero), c.wlhs)
+
+
+def cpmf(q):
+    """Specific heat of moist air (Share/cpmf.inc): cpd(1-q) + cpv·q."""
+    return c.cpd * (1.0 - q) + c.cpv * q

@@ -11,6 +11,8 @@ the JAX package, so the ranks never load them.
 import numpy as np
 import torch
 
+from . import _torch_surface_settings as S
+
 # every (dy, dx) of the MOLOCH step's shift/shifte (dynamics/moloch.py)
 # and of cross2dot/dot2cross, and the 2-wide reach of the WAF halo
 SHIFTS = [(0, 1), (1, 0), (0, -1), (-1, 0), (1, -1), (-1, 1), (1, 1),
@@ -111,6 +113,11 @@ HYDRO = {
     "parallel_phys": dict(iy=18, jx=24, ds=60.0, dt=120.0, ipptls=1,
                           perturb=0.2, seed=3, physics=True, solar=None,
                           record=(1, 4)),
+    # tests/test_parallel.py:237-264's band pair: x-periodic, Mercator
+    # about the equator, 18x32x14, six dynamics steps
+    "parallel_band": dict(iy=18, jx=32, ds=60.0, dt=120.0, ipptls=0,
+                          band=True, perturb=0.2, seed=7, physics=False,
+                          first=False, record=(6,)),
 }
 
 
@@ -124,6 +131,9 @@ def hydro_setup(cfg, name):
         cfg.time.dt = st["dt"]
     if "ipptls" in st:
         cfg.physics.ipptls = st["ipptls"]
+    if st.get("band"):
+        cfg.geo.i_band = 1
+        cfg.geo.iproj, cfg.geo.clat = "NORMER", 0.0
     return cfg
 
 
@@ -257,12 +267,15 @@ def icbc_run(kind, paths, mesh=None, device="cpu"):
 # the group (after the decomposed work) so that both sides use the same
 # CPU kernels
 SINGLE = [("icbc", "moloch"), ("icbc", "hydro"), ("dryrun", None),
-          ("model", None)] + [("hydro", name) for name in HYDRO]
+          ("model", None)] + [("hydro", name) for name in HYDRO] \
+    + [("periodic", kind) for kind in S.PERIODIC]
 
 
 def single(kind, arg, icbc_paths):
     if kind == "icbc":
         return icbc_run(arg, icbc_paths[arg])
+    if kind == "periodic":
+        return S.periodic_run(arg)
     if kind == "hydro":
         return hydro_run(arg)
     return dryrun_moloch() if kind == "dryrun" else model_run()
@@ -272,7 +285,8 @@ def two_by_two(rank, iy, jx, k5_inputs, icbc_paths):
     """Everything the 2x2 group checks, in one group: halo extensions,
     a gather to rank 0, every MOLOCH shift, K5a/b/c on the rank's
     blocks, the MOLOCH dryrun trajectory with the halo counters, the
-    MOLOCH Model run, the hydrostatic settings and both ICBC-driven runs;
+    MOLOCH Model run, the hydrostatic settings, both ICBC-driven runs and
+    the periodic runs of ``_torch_surface_settings.PERIODIC``;
     then this rank's share of the undecomposed references (SINGLE)."""
     from regcm_tpu_torch.dynamics.stencil import (cross2dot, dot2cross,
                                                   shift, shifte, topology)
@@ -315,6 +329,13 @@ def two_by_two(rank, iy, jx, k5_inputs, icbc_paths):
     out["icbc"] = {kind: icbc_run(kind, icbc_paths[kind],
                                   rank.mesh(st["iy"], st["jx"]))
                    for kind, st in ICBC.items()}
+    out["periodic"] = {}
+    for kind, st in S.PERIODIC.items():
+        halo.exchanges = 0
+        pmesh = rank.mesh(*S.SHAPE[:2]) if kind == "band_slab" \
+            else rank.mesh(st["iy"], st["jx"])
+        out["periodic"][kind] = S.periodic_run(kind, pmesh)
+        out["periodic"][kind]["exchanges"] = halo.exchanges
     out["single"] = {case: single(*case, icbc_paths)
                      for n, case in enumerate(SINGLE)
                      if n % rank.world == rank.rank}

@@ -575,7 +575,7 @@ def _kf_pair(f_qi):
     want = J.kfpara(J.KFTables.build(5000.0), J.KFParams(),
                     **{k: _j(v) for k, v in a.items()}, dt=150.0, dx=60e3,
                     f_qi=f_qi)
-    got = T.kfpara(T.KFTables.build(5000.0), T.KFParams(),
+    got = T.kfpara(T.KFTables.build(5000.0, "cpu"), T.KFParams(),
                    **{k: _t(v) for k, v in a.items()}, dt=150.0, dx=60e3,
                    f_qi=f_qi)
     return got, want
@@ -612,7 +612,7 @@ def test_kf_tables_equal():
     import regcm_tpu.physics.cumulus.kain_fritsch as J
     import regcm_tpu_torch.physics.cumulus.kain_fritsch as T
     for ptop in (5000.0, 1000.0):
-        want, got = J.KFTables.build(ptop), T.KFTables.build(ptop)
+        want, got = J.KFTables.build(ptop), T.KFTables.build(ptop, "cpu")
         for k in ("ttab", "qstab", "the0k", "alu"):
             np.testing.assert_array_equal(getattr(got, k).numpy(),
                                           np.asarray(getattr(want, k)))
@@ -624,7 +624,7 @@ def test_kf_tables_equal():
 @pytest.fixture(scope="module")
 def kf_tab():
     from regcm_tpu_torch.physics.cumulus.kain_fritsch import KFTables
-    return KFTables.build(5000.0)
+    return KFTables.build(5000.0, "cpu")
 
 
 def _thes_np(t, p, qs):
@@ -698,7 +698,7 @@ def _kf_column(f_qi, **kw):
     from regcm_tpu_torch.physics.cumulus.kain_fritsch import KFTables
     from .test_kf import _sounding
     a = _sounding(**kw)
-    return a, kfpara(KFTables.build(5000.0), KFParams(),
+    return a, kfpara(KFTables.build(5000.0, "cpu"), KFParams(),
                      **{k: _t(v) for k, v in a.items()}, dt=150.0, dx=60e3,
                      f_qi=f_qi)
 
@@ -909,14 +909,14 @@ def test_moloch_accepts_scheme(icup):
     ((("physics", "icup_lnd", -1), ("physics", "icup_ocn", 1)),
      r"icup=1 \(Kuo\) cannot be mixed"),
     ((("physics", "icup_lnd", 7),), r"icup_lnd=7 is not ported"),
-    ((("physics", "ipptls", 3),), r"ipptls=3 \(WSM5\)"),
-    ((("physics", "iocnflx", 3),), r"iocnflx=3 \(COARE\)"),
+    ((("physics", "irrtm", 1),), r"irrtm=1 \(RRTMG"),
+    ((("physics", "ichem", 1),), r"chemistry \(ichem=1"),
 ])
 def test_refusals(overrides, match):
     """What stays refused raises at model build and names it: Kuo on
     MOLOCH, Kuo mixed with another scheme or with none (icup_lnd=-1 is
     shallow convection and no deep scheme over land), an icup beyond 6,
-    WSM5 and COARE."""
+    RRTMG (irrtm=1) and chemistry."""
     from regcm_tpu_torch.driver import Model
     cfg, _ = R.port_grid("C")
     for section, name, val in overrides:

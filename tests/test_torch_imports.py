@@ -1,4 +1,5 @@
 """Import hygiene of the PyTorch port and the kernel wrappers' refusals."""
+import json
 import os
 import subprocess
 import sys
@@ -16,7 +17,7 @@ from regcm_tpu_torch.kernels import waf_advect as k4  # noqa: E402
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-@pytest.mark.parametrize("module", [
+MODULES = [
     "regcm_tpu_torch.driver", "regcm_tpu_torch.physics.suite",
     "regcm_tpu_torch.dynamics.moloch", "regcm_tpu_torch.kernels.pbl_tridiag",
     "regcm_tpu_torch.kernels.emanuel_mixing",
@@ -24,19 +25,67 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     "regcm_tpu_torch.parallel.mesh", "regcm_tpu_torch.parallel.halo",
     "regcm_tpu_torch.parallel.launch", "regcm_tpu_torch.io.ncio",
     "regcm_tpu_torch.preproc.terrain", "regcm_tpu_torch.preproc.icbc",
-    "tests._torch_parallel_ranks"])
-def test_port_imports_no_jax(module):
-    """In a fresh interpreter the module pulls in neither jax nor any
-    module of the JAX package (regcm_tpu or regcm_tpu.*)."""
-    code = (f"import sys; import {module}; "
-            "bad = sorted(m for m in sys.modules if m == 'jax' "
-            "or m.startswith('jax.') or m == 'regcm_tpu' "
-            "or m.startswith('regcm_tpu.')); "
-            "print(bad); sys.exit(1 if bad else 0)")
+    "regcm_tpu_torch.physics.pbl.gfs", "regcm_tpu_torch.physics.pbl.myj",
+    "regcm_tpu_torch.physics.micro.wsm5",
+    "regcm_tpu_torch.physics.surface.coare",
+    "regcm_tpu_torch.physics.surface.lake",
+    "regcm_tpu_torch.physics.surface.seaice",
+    "regcm_tpu_torch.physics.surface.dcsst",
+    "regcm_tpu_torch.physics.surface.slab",
+    "tests._torch_parallel_ranks", "tests._torch_surface_settings"]
+# one interpreter loads torch and numpy, then forks a child for each
+# module, which imports it and reports what of jax and the JAX package
+# its sys.modules then holds; the parent reports its own before the
+# first fork
+_CHILDREN = """
+import importlib, json, os, sys
+import numpy, torch
+
+def bad():
+    return sorted(m for m in sys.modules if m == "jax"
+                  or m.startswith("jax.") or m == "regcm_tpu"
+                  or m.startswith("regcm_tpu."))
+
+out = {"": bad()}
+for module in json.loads(sys.argv[1]):
+    r, w = os.pipe()
+    pid = os.fork()
+    if pid == 0:
+        os.close(r)
+        try:
+            importlib.import_module(module)
+            msg = bad()
+        except BaseException as e:
+            msg = ["import failed: " + repr(e)]
+        os.write(w, json.dumps(msg).encode())
+        os._exit(0)
+    os.close(w)
+    with os.fdopen(r) as f:
+        out[module] = json.loads(f.read() or '["no report"]')
+    os.waitpid(pid, 0)
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def imported():
+    """module -> what of jax and the JAX package a fresh import of it
+    loads, "" -> what the forking interpreter held before."""
     env = dict(os.environ, PYTHONPATH=ROOT)
-    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
-                          capture_output=True, text=True, timeout=120)
+    proc = subprocess.run([sys.executable, "-c", _CHILDREN,
+                           json.dumps(MODULES)], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr + proc.stdout
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("module", MODULES)
+def test_port_imports_no_jax(module, imported):
+    """In an interpreter that holds only torch and numpy, the module pulls
+    in neither jax nor any module of the JAX package (regcm_tpu or
+    regcm_tpu.*)."""
+    assert imported[""] == []
+    assert imported[module] == []
 
 
 def _tridiag(dtype=torch.float64, shape=(2, 5, 3, 4)):

@@ -1,6 +1,11 @@
 """The whole PyTorch model against the JAX package: ``Model`` at the
 golden setup (16×20×14, ds 60 km, dt 150 s, f64, 10 steps), built from
-``RegCMConfig()`` plus overrides, from the same numpy initial state."""
+``RegCMConfig()`` plus overrides, from the same numpy initial state. The
+JAX package's trajectories run in two spawned processes started with the
+module."""
+import multiprocessing as mp
+from concurrent.futures import ProcessPoolExecutor
+
 import numpy as np
 import pytest
 
@@ -38,24 +43,57 @@ def _rel_rms(got, want):
     return rms / (float(np.sqrt(np.mean(want ** 2))) + 1e-30)
 
 
+def _start(conf):
+    """The JAX package's golden initial state (numpy)."""
+    from regcm_tpu.driver import standard_atmosphere_state as jstate
+    jcfg, _ = golden_cfgs(conf)
+    return jax.device_get(jstate(build_grid(jcfg), jcfg, jnp.float64,
+                                 perturb=0.3, seed=2024))
+
+
+def _jax_trajectory(conf, s0):
+    """The JAX package's Model for NSTEPS steps from ``s0`` (a compile for
+    each alarm pattern): the decoupled fields after the first and the
+    last step. Runs in a spawned process, which has not read the
+    conftest's settings."""
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_enable_x64", True)
+    from regcm_tpu.driver import Model as JModel
+    jcfg, _ = golden_cfgs(conf)
+    jm = JModel(jcfg, grid=build_grid(jcfg), dtype=jnp.float64,
+                initial_state=s0)
+    out = {}
+    for n in range(NSTEPS):
+        jm.step()
+        if n in (0, NSTEPS - 1):
+            out[n + 1] = {k: np.asarray(v) for k, v in jm.decoupled().items()}
+    return out
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_started():
+    """The JAX package's two trajectories (default and conf=0), in two
+    spawned processes started with the module, beside the other tests."""
+    starts = {conf: _start(conf) for conf in (None, 0.0)}
+    with ProcessPoolExecutor(2, mp_context=mp.get_context("spawn")) as pool:
+        yield {conf: (s0, pool.submit(_jax_trajectory, conf, s0))
+               for conf, s0 in starts.items()}
+
+
 @pytest.fixture(scope="module")
-def trajectories():
+def trajectories(jax_started):
     """One 10-step trajectory of each package from the same numpy state
     (the JAX side compiles four step variants, one per alarm pattern:
     run it once), plus the port from that state with a 1e-15 relative
     perturbation of T, which measures the trajectory's roundoff spread."""
-    from regcm_tpu.driver import Model as JModel
-    from regcm_tpu.driver import standard_atmosphere_state as jstate
     from regcm_tpu_torch.driver import Model as TModel
 
-    jcfg, tcfg = golden_cfgs()
-    grid, tgrid = build_grid(jcfg), tbuild_grid(tcfg)
-    s0 = jax.device_get(jstate(grid, jcfg, jnp.float64, perturb=0.3,
-                               seed=2024))
+    _, tcfg = golden_cfgs()
+    tgrid = tbuild_grid(tcfg)
+    s0, job = jax_started[None]
     rng = np.random.default_rng(0)
     s1 = s0._replace(t_a=np.asarray(s0.t_a) * (
         1.0 + 1e-15 * rng.standard_normal(np.shape(s0.t_a))))
-    jm = JModel(jcfg, grid=grid, dtype=jnp.float64, initial_state=s0)
     tm = TModel(tcfg, grid=tgrid, device="cpu", dtype=torch.float64,
                 initial_state=s0)
     pm = TModel(tcfg, grid=tgrid, device="cpu", dtype=torch.float64,
@@ -63,12 +101,12 @@ def trajectories():
     flags, out = [], {}
     for n in range(NSTEPS):
         flags.append(tm._flags())
-        jm.step()
         tm.step()
         pm.step()
         if n in (0, NSTEPS - 1):
-            jd = {k: np.asarray(v) for k, v in jm.decoupled().items()}
-            out[n + 1] = (jd, tm.decoupled(), pm.decoupled())
+            out[n + 1] = (tm.decoupled(), pm.decoupled())
+    jd = job.result()
+    out = {n: (jd[n],) + v for n, v in out.items()}
     return dict(steps=out, flags=flags, finite=tm.check_finite())
 
 
@@ -110,26 +148,19 @@ def test_golden_trajectory_matches_jax(field, trajectories):
 
 
 @pytest.fixture(scope="module")
-def dry_trajectories():
+def dry_trajectories(jax_started):
     """Both packages for 10 steps from the golden state with the SUBEX
     saturation adjustment switched off (subexparam conf=0): no cloud
     water forms, so no threshold branch acts on roundoff-level values."""
-    from regcm_tpu.driver import Model as JModel
-    from regcm_tpu.driver import standard_atmosphere_state as jstate
     from regcm_tpu_torch.driver import Model as TModel
 
-    jcfg, tcfg = golden_cfgs(conf=0.0)
-    grid, tgrid = build_grid(jcfg), tbuild_grid(tcfg)
-    s0 = jax.device_get(jstate(grid, jcfg, jnp.float64, perturb=0.3,
-                               seed=2024))
-    jm = JModel(jcfg, grid=grid, dtype=jnp.float64, initial_state=s0)
-    tm = TModel(tcfg, grid=tgrid, device="cpu", dtype=torch.float64,
-                initial_state=s0)
+    _, tcfg = golden_cfgs(conf=0.0)
+    s0, job = jax_started[0.0]
+    tm = TModel(tcfg, grid=tbuild_grid(tcfg), device="cpu",
+                dtype=torch.float64, initial_state=s0)
     for _ in range(NSTEPS):
-        jm.step()
         tm.step()
-    return ({k: np.asarray(v) for k, v in jm.decoupled().items()},
-            tm.decoupled())
+    return job.result()[NSTEPS], tm.decoupled()
 
 
 @pytest.mark.parametrize("field", FIELDS)
@@ -160,31 +191,33 @@ def test_standard_atmosphere_state_matches_jax():
 
 
 def test_model_refuses_unported_options():
-    """Every option the port leaves out raises at model build (Kuo over
-    land beside Emanuel over water: Kuo is never mixed); the
+    """Every option the port leaves out, or the JAX package refuses,
+    raises at model build: Kuo over land beside Emanuel over water (Kuo
+    is never mixed), RRTMG (irrtm=1, item 15), chemistry (item 13), the
+    UW TCM, a periodic domain and the subgrid surface on MOLOCH; the
     decomposed runs (mesh=) also refuse the semi-Lagrangian advection
-    (ROADMAP item 10e) and the periodic topologies (item 10d)."""
+    (ROADMAP item 10e) and chemistry (item 13)."""
     from regcm_tpu_torch.driver import Model
     from regcm_tpu_torch.parallel.mesh import DomainMesh
 
     for overrides in ((("core", "idynamic", 4),),
                       (("physics", "icup_lnd", 1),),
-                      (("physics", "ibltyp", 3),),
-                      (("physics", "ibltyp", 4),),
-                      (("physics", "ipptls", 3),),
-                      (("physics", "iocnflx", 1),),
+                      (("physics", "irrtm", 1),),
+                      (("physics", "ibltyp", 2), ("core", "idynamic", 3)),
+                      (("geo", "i_band", 1), ("core", "idynamic", 3)),
+                      (("geo", "i_crm", 1), ("core", "idynamic", 3)),
                       (("physics", "ichem", 1),),
                       (("physics", "ichem", 1), ("core", "idynamic", 2)),
                       (("physics", "idiffu", 4),),
                       (("physics", "iboudy", 6),),
-                      (("dim", "nsg", 2),)):
+                      (("dim", "nsg", 2), ("core", "idynamic", 3))):
         _, cfg = golden_cfgs()
         for section, name, val in overrides:
             setattr(getattr(cfg, section), name, val)
         with pytest.raises((ValueError, NotImplementedError)):
             Model(cfg, device="cpu")
     for section, name, item in (("physics", "isladvec", "10e"),
-                                ("geo", "i_band", "10d")):
+                                ("physics", "ichem", "13")):
         _, cfg = golden_cfgs()
         setattr(getattr(cfg, section), name, 1)
         mesh = DomainMesh(2, 2, cfg.dim.iy, cfg.dim.jx, rank=0)

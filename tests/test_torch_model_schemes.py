@@ -311,19 +311,24 @@ def test_model_icup5():
     ((("physics", "icup_lnd", 1), ("physics", "icup_ocn", 1),
       ("core", "idynamic", 3)), r"icup=1 \(Kuo\).*MOLOCH"),
     ((("physics", "icup_ocn", 1),), r"icup=1 \(Kuo\) cannot be mixed"),
-    ((("physics", "iocnflx", 3),), r"iocnflx=3 \(COARE\)"),
-    ((("physics", "lakemod", 1),), r"lakemod=1 \(lake model\)"),
-    ((("physics", "iseaice", 1),), r"iseaice=1 \(sea ice\)"),
-    ((("physics", "ibltyp", 3),), r"ibltyp=3 \(GFS\)"),
-    ((("physics", "ibltyp", 4),), r"ibltyp=4 \(MYJ\)"),
-    ((("physics", "ipptls", 3),), r"ipptls=3 \(WSM5\)"),
-    ((("physics", "ibltyp", 2), ("core", "idynamic", 3)), "UW TCM"),
+    ((("physics", "irrtm", 1),), r"irrtm=1 \(RRTMG, ROADMAP.md item 15\)"),
+    ((("physics", "ichem", 1),), r"chemistry \(ichem=1, ROADMAP.md item 13\)"),
+    ((("physics", "ichem", 1), ("core", "idynamic", 3)),
+     r"chemistry \(ichem=1, ROADMAP.md item 13\)"),
+    ((("geo", "i_band", 1), ("core", "idynamic", 3), ("physics", "ibltyp", 1)),
+     "periodic MOLOCH"),
+    ((("geo", "i_crm", 1), ("core", "idynamic", 3), ("physics", "ibltyp", 1)),
+     "periodic MOLOCH"),
+    ((("dim", "nsg", 2), ("core", "idynamic", 3)), r"nsg>1.*MOLOCH"),
+    ((("physics", "ibltyp", 2), ("core", "idynamic", 3)),
+     r"UW TCM.*ROADMAP.md item 12"),
 ])
 def test_unported_schemes_refused(overrides, match):
-    """What stays unported raises at model build and names the scheme:
-    Kuo on MOLOCH and Kuo mixed with another scheme (as the JAX package
-    refuses them), COARE, the lake and sea-ice models, GFS and MYJ, WSM5
-    (although it too has five species), and the UW TCM on MOLOCH."""
+    """What stays refused raises at model build and names the scheme and
+    its ROADMAP item: Kuo on MOLOCH and Kuo mixed with another scheme, the
+    subgrid surface and the UW TCM on MOLOCH (as the JAX package refuses
+    them), RRTMG, chemistry on either core and a periodic MOLOCH domain
+    (which the JAX package has no core to hold a port against)."""
     from regcm_tpu_torch.driver import Model
     cfg, _ = R.port_grid("hydro")
     for section, name, val in overrides:

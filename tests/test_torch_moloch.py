@@ -3,7 +3,11 @@ package, in f64 on the CPU: the core's constants, the initial state, each
 method of the step on the same numpy inputs, a dynamics-only trajectory
 and the whole model (``Model`` with the default physics), on a 16×20×14
 grid (ds 10 km, dt 60 s) over a seeded Gaussian hill of ~800 m, so that
-the terrain slopes and metric terms are not zero."""
+the terrain slopes and metric terms are not zero. The JAX package's
+whole-model runs go in two spawned processes started with the module."""
+import multiprocessing as mp
+from concurrent.futures import ProcessPoolExecutor
+
 import numpy as np
 import pytest
 
@@ -238,27 +242,58 @@ def test_dynamics_ten_steps_match_jax(field, dyn_runs):
     assert np.all(np.isfinite(got))
 
 
+def _slice_start(conf):
+    """The JAX package's initial state (numpy) of the whole-model runs."""
+    from regcm_tpu.driver import Model as JModel
+    jcfg, tcfg = moloch_cfgs(conf)
+    jg, _ = grids(jcfg, tcfg)
+    jm = JModel(jcfg, grid=jg, dtype=jnp.float64)
+    return jax.device_get(jm.core.initial_state(perturb=0.3, seed=1))
+
+
+def _jax_slice(conf, s0):
+    """The JAX package's Model(idynamic=3) for 12 steps from ``s0``: the
+    decoupled fields. Runs in a spawned process, which has not read the
+    conftest's settings."""
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_enable_x64", True)
+    from regcm_tpu.driver import Model as JModel
+    jcfg, tcfg = moloch_cfgs(conf)
+    jg, _ = grids(jcfg, tcfg)
+    jm = JModel(jcfg, grid=jg, dtype=jnp.float64, initial_state=_jstate(s0))
+    for _ in range(12):
+        jm.step()
+    return {k: np.asarray(v) for k, v in jm.decoupled().items()}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def slice_jax_started():
+    """The JAX package's two whole-model runs (default and conf=0; a
+    compile for each alarm pattern of each), in two spawned processes
+    started with the module, beside the other tests."""
+    starts = {conf: _slice_start(conf) for conf in (None, 0.0)}
+    with ProcessPoolExecutor(2, mp_context=mp.get_context("spawn")) as pool:
+        yield {conf: (s0, pool.submit(_jax_slice, conf, s0))
+               for conf, s0 in starts.items()}
+
+
 @pytest.fixture(scope="module")
-def slice_runs():
+def slice_runs(slice_jax_started):
     """The whole model, Model(idynamic=3) with the default physics, 12
     steps (cumulus at steps 0, 5, 10; surface at 0 and 10; radiation and
     absorptivities at 0), run once per package per configuration: the
     default run, the port from a 1e-15 relative perturbation of T (the
     trajectory's roundoff spread) and both packages with the SUBEX
     saturation adjustment off (conf=0)."""
-    from regcm_tpu.driver import Model as JModel
     from regcm_tpu_torch.driver import Model as TModel
 
     out = {}
     for conf in (None, 0.0):
-        jcfg, tcfg = moloch_cfgs(conf)
-        jg, tg = grids(jcfg, tcfg)
-        jm = JModel(jcfg, grid=jg, dtype=jnp.float64)
-        s0 = jax.device_get(jm.core.initial_state(perturb=0.3, seed=1))
-        jm = JModel(jcfg, grid=jg, dtype=jnp.float64,
-                    initial_state=_jstate(s0))
-        runs = [jm, TModel(tcfg, grid=tg, device="cpu", dtype=torch.float64,
-                           initial_state=s0)]
+        _, tcfg = moloch_cfgs(conf)
+        tg = grids(*moloch_cfgs(conf))[1]
+        s0, job = slice_jax_started[conf]
+        runs = [TModel(tcfg, grid=tg, device="cpu", dtype=torch.float64,
+                       initial_state=s0)]
         if conf is None:
             rng = np.random.default_rng(0)
             s1 = s0._replace(t=np.asarray(s0.t) * (
@@ -267,15 +302,14 @@ def slice_runs():
                                dtype=torch.float64, initial_state=s1))
         flags = []
         for _ in range(12):
-            flags.append(runs[1]._flags())
+            flags.append(runs[0]._flags())
             for m in runs:
                 m.step()
-        dec = [{k: np.asarray(v) for k, v in m.decoupled().items()}
-               for m in runs]
+        dec = [job.result()] + [m.decoupled() for m in runs]
         out["dry" if conf == 0.0 else "default"] = dict(
             dec=dec, flags=flags,
-            finite=all(m.check_finite() for m in runs[1:]),
-            heatrt=float(runs[1].state.heatrt.abs().max()))
+            finite=all(m.check_finite() for m in runs),
+            heatrt=float(runs[0].state.heatrt.abs().max()))
     return out
 
 

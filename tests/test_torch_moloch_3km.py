@@ -12,6 +12,9 @@ the JAX package's numbers at four steps (printed by ``pytest -s`` on
 this file); the tests hold the JAX run to them and the port to the JAX
 run step by step. ``chip_smoke.py`` holds
 the port on the card to the same numbers."""
+import multiprocessing as mp
+from concurrent.futures import ProcessPoolExecutor
+
 import numpy as np
 import pytest
 
@@ -51,29 +54,55 @@ def summary(d):
             float(np.abs(d["w"]).max()))
 
 
+def _start():
+    """The JAX package's float32 initial state (numpy), the start of every
+    run."""
+    from regcm_tpu.dynamics.moloch import MolochCore as JCore
+    jcfg, _ = cfgs()
+    with jax.enable_x64(False):
+        jg = build_grid(jcfg)
+        return jax.device_get(JCore(jg, jcfg, dtype=jnp.float32)
+                              .initial_state(perturb=0.3, seed=1))
+
+
+def _jax_side(s0):
+    """The JAX package's run (float32, x64 off) in a spawned process,
+    which has not read the conftest's settings: the summaries at each
+    step of REFERENCE and the decoupled fields at the last step."""
+    jax.config.update("jax_platforms", "cpu")
+    from regcm_tpu.driver import Model as JModel
+    jcfg, _ = cfgs()
+    out = {}
+    with jax.enable_x64(False):
+        jm = JModel(jcfg, grid=build_grid(jcfg), dtype=jnp.float32,
+                    initial_state=jax.tree_util.tree_map(jnp.asarray, s0))
+        for n in range(1, STEPS + 1):
+            jm.step()
+            if n in REFERENCE:
+                jd = {k: np.asarray(v) for k, v in jm.decoupled().items()}
+                out[n] = summary(jd)
+    return out, jd
+
+
 @pytest.fixture(scope="module")
 def runs():
     """(JAX, port, port without physics) summaries at each step of
     REFERENCE, and the decoupled fields at the last step of JAX, the port
     and the port from a 1e-7 relative change of T (its float32 roundoff
-    spread)."""
-    from regcm_tpu.driver import Model as JModel
-    from regcm_tpu.dynamics.moloch import MolochCore as JCore
+    spread). The JAX package runs in a spawned process beside the
+    port."""
     from regcm_tpu_torch.driver import Model as TModel
 
-    jcfg, tcfg = cfgs()
+    _, tcfg = cfgs()
+    s0 = _start()
     out = {"jax": {}, "port": {}}
     # one torch thread: the test workers share the cores, and torch's
     # thread pools stall when oversubscribed at these sizes
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        with jax.enable_x64(False):
-            jg = build_grid(jcfg)
-            s0 = jax.device_get(JCore(jg, jcfg, dtype=jnp.float32)
-                                .initial_state(perturb=0.3, seed=1))
-            jm = JModel(jcfg, grid=jg, dtype=jnp.float32,
-                        initial_state=jax.tree_util.tree_map(jnp.asarray, s0))
+        with ProcessPoolExecutor(1, mp_context=mp.get_context("spawn")) as pool:
+            job = pool.submit(_jax_side, s0)
             tg = tbuild_grid(tcfg)
             tm = TModel(tcfg, grid=tg, device="cpu", dtype=torch.float32,
                         initial_state=s0)
@@ -87,25 +116,25 @@ def runs():
                         initial_state=s0, physics=False)
             out["dyn"] = {}
             for n in range(1, STEPS + 1):
-                for m in (jm, tm, pm, dm):
+                for m in (tm, pm, dm):
                     m.step()
                 if n in REFERENCE:
-                    jd = {k: np.asarray(v) for k, v in jm.decoupled().items()}
-                    td = tm.decoupled()
-                    out["jax"][n], out["port"][n] = summary(jd), summary(td)
+                    out["port"][n] = summary(tm.decoupled())
                     out["dyn"][n] = summary(dm.decoupled())
-                    print(f"step {n}: JAX ps {out['jax'][n][0]:.4f}.."
-                          f"{out['jax'][n][1]:.4f} hPa wmax "
-                          f"{out['jax'][n][2]:.5f} m/s; port ps "
-                          f"{out['port'][n][0]:.4f}..{out['port'][n][1]:.4f} "
-                          f"hPa wmax {out['port'][n][2]:.5f} m/s; port "
-                          f"without physics ps {out['dyn'][n][0]:.4f}.."
-                          f"{out['dyn'][n][1]:.4f} hPa wmax "
-                          f"{out['dyn'][n][2]:.5f} m/s")
-            out["fields"] = (jd, td, pm.decoupled())
-            out["finite"] = tm.check_finite() and pm.check_finite()
+            out["jax"], jd = job.result()
     finally:
         torch.set_num_threads(threads)
+    for n in sorted(REFERENCE):
+        print(f"step {n}: JAX ps {out['jax'][n][0]:.4f}.."
+              f"{out['jax'][n][1]:.4f} hPa wmax "
+              f"{out['jax'][n][2]:.5f} m/s; port ps "
+              f"{out['port'][n][0]:.4f}..{out['port'][n][1]:.4f} "
+              f"hPa wmax {out['port'][n][2]:.5f} m/s; port "
+              f"without physics ps {out['dyn'][n][0]:.4f}.."
+              f"{out['dyn'][n][1]:.4f} hPa wmax "
+              f"{out['dyn'][n][2]:.5f} m/s")
+    out["fields"] = (jd, tm.decoupled(), pm.decoupled())
+    out["finite"] = tm.check_finite() and pm.check_finite()
     return out
 
 

@@ -9,7 +9,11 @@ past step 24 into a state far from any real atmosphere (T beyond
 180-340 K by step 90), and both packages blow up shortly before step
 100. The port tracks the reference through step 90 and fails within a
 few steps of it: a 60-step radiation cycle cannot be run from this
-state, by either package."""
+state, by either package. The JAX package's run goes in a spawned
+process beside the port's."""
+import multiprocessing as mp
+from concurrent.futures import ProcessPoolExecutor
+
 import numpy as np
 import pytest
 
@@ -46,49 +50,73 @@ def summary(d):
             float(d["t"].max()))
 
 
+def _start():
+    """The JAX package's float32 initial state (numpy), the start of both
+    runs."""
+    from regcm_tpu.dynamics.moloch import MolochCore as JCore
+    jcfg, _ = cfgs()
+    with jax.enable_x64(False):
+        jg = build_grid(jcfg)
+        return jax.device_get(JCore(jg, jcfg, dtype=jnp.float32)
+                              .initial_state(perturb=0.3, seed=1))
+
+
+def _step_until_blowup(m, to_numpy):
+    """Summaries of ``m`` at CHECKS and the first step after which its
+    state holds a non-finite value (None if it never did)."""
+    out = {}
+    for n in range(1, MAX_STEPS + 1):
+        m.step()
+        if not m.check_finite():
+            return out, n
+        if n in CHECKS:
+            out[n] = summary({k: to_numpy(v)
+                              for k, v in m.decoupled().items()})
+    return out, None
+
+
+def _jax_side(s0):
+    """The JAX package's run (float32, x64 off) in a spawned process,
+    which has not read the conftest's settings."""
+    jax.config.update("jax_platforms", "cpu")
+    from regcm_tpu.driver import Model as JModel
+    jcfg, _ = cfgs()
+    with jax.enable_x64(False):
+        m = JModel(jcfg, grid=build_grid(jcfg), dtype=jnp.float32,
+                   initial_state=jax.tree_util.tree_map(jnp.asarray, s0))
+        return _step_until_blowup(m, np.asarray)
+
+
 @pytest.fixture(scope="module")
 def runs():
     """Summaries of both packages at CHECKS, and the first step after
-    which each state holds a non-finite value (None if it never did)."""
-    from regcm_tpu.driver import Model as JModel
-    from regcm_tpu.dynamics.moloch import MolochCore as JCore
+    which each state holds a non-finite value (None if it never did).
+    The JAX package runs in a spawned process beside the port."""
     from regcm_tpu_torch.driver import Model as TModel
 
-    jcfg, tcfg = cfgs()
-    out = {"jax": {}, "port": {}, "blowup": {"jax": None, "port": None}}
-    # one torch thread: the test workers share the cores, and torch's
-    # thread pools stall when oversubscribed at these sizes
+    _, tcfg = cfgs()
+    s0 = _start()
+    # two torch threads: the test workers share the cores, and torch's
+    # thread pools stall when oversubscribed at these sizes; this file of
+    # five tests is among the last that --dist loadfile hands out (it
+    # orders the files by their number of tests), when most workers are
+    # done, and on one thread the port's run is the longer side
     threads = torch.get_num_threads()
-    torch.set_num_threads(1)
+    torch.set_num_threads(2)
     try:
-        with jax.enable_x64(False):
-            jg = build_grid(jcfg)
-            s0 = jax.device_get(JCore(jg, jcfg, dtype=jnp.float32)
-                                .initial_state(perturb=0.3, seed=1))
-            js0 = jax.tree_util.tree_map(jnp.asarray, s0)
-            models = {
-                "jax": JModel(jcfg, grid=jg, dtype=jnp.float32,
-                              initial_state=js0),
-                "port": TModel(tcfg, grid=tbuild_grid(tcfg), device="cpu",
-                               dtype=torch.float32, initial_state=s0)}
-            for n in range(1, MAX_STEPS + 1):
-                for name, m in models.items():
-                    if out["blowup"][name] is not None:
-                        continue
-                    m.step()
-                    if not m.check_finite():
-                        out["blowup"][name] = n
-                    elif n in CHECKS:
-                        out[name][n] = summary({
-                            k: np.asarray(v)
-                            for k, v in m.decoupled().items()})
-                if n in CHECKS:
-                    print(f"step {n}: JAX {out['jax'].get(n)}, port "
-                          f"{out['port'].get(n)}")
-                if None not in out["blowup"].values():
-                    break
+        with ProcessPoolExecutor(1, mp_context=mp.get_context("spawn")) as pool:
+            job = pool.submit(_jax_side, s0)
+            port = _step_until_blowup(
+                TModel(tcfg, grid=tbuild_grid(tcfg), device="cpu",
+                       dtype=torch.float32, initial_state=s0), np.asarray)
+            ref = job.result()
     finally:
         torch.set_num_threads(threads)
+    out = {"jax": ref[0], "port": port[0],
+           "blowup": {"jax": ref[1], "port": port[1]}}
+    for n in CHECKS:
+        print(f"step {n}: JAX {out['jax'].get(n)}, port "
+              f"{out['port'].get(n)}")
     print(f"first non-finite step: {out['blowup']}")
     return out
 

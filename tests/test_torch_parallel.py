@@ -2,7 +2,8 @@
 groups of ``torch.distributed`` (gloo) started by ``parallel.launch.spawn``,
 held against the undecomposed port and against the JAX package's
 sharded kernels, MOLOCH core and hydrostatic core in f64, from a rest
-state and from ICBC files.
+state and from ICBC files, on the bounded and the periodic topologies
+(the band on both sigma-p cores, the doubly periodic CRM).
 
 The ranks run ``tests/_torch_parallel_ranks.py`` and never import jax;
 one 2x2 group does every 2x2 check and, after it, the undecomposed runs
@@ -41,6 +42,7 @@ from regcm_tpu_torch.parallel.halo import extend_block  # noqa: E402
 from regcm_tpu_torch.parallel.mesh import DomainMesh, factor2d  # noqa: E402
 
 from . import _torch_parallel_ranks as R  # noqa: E402
+from . import _torch_surface_settings as S  # noqa: E402
 from ._torch_icbc_files import write_files  # noqa: E402
 
 IY, JX = 16, 16                   # the 2x2 checks: 8x8 blocks
@@ -395,15 +397,32 @@ def test_model_mesh_matches_single_rank(field, group22, model_single):
 
 @pytest.mark.parametrize("topology", ["i_band", "i_crm"])
 def test_model_mesh_refuses_the_periodic_topologies(topology):
-    """The band and CRM topologies are not decomposed yet: Model(mesh=)
-    raises, naming the ROADMAP item that will lift it."""
+    """The band and CRM topologies decompose on the sigma-p cores (the
+    cases below); MOLOCH refuses them on one rank and under a mesh
+    alike, since the JAX package's MolochCore has no periodic domain to
+    hold a port against (ROADMAP.md Queue 3)."""
     from regcm_tpu_torch.config.params import RegCMConfig
     from regcm_tpu_torch.driver import Model
     cfg = RegCMConfig()
+    cfg.core.idynamic = 3
     setattr(cfg.geo, topology, 1)
     mesh = DomainMesh(2, 2, cfg.dim.iy, cfg.dim.jx, rank=0)
-    with pytest.raises(NotImplementedError, match="item 10d"):
+    with pytest.raises(NotImplementedError, match="periodic MOLOCH"):
         Model(cfg, device="cpu", mesh=mesh, physics=False)
+
+
+@pytest.mark.parametrize("kind", list(S.PERIODIC))
+def test_periodic_mesh_matches_single_rank(kind, group22):
+    """The periodic topologies decomposed (ROADMAP item 10d): the band
+    on the hydrostatic core with COARE and the slab ocean, the band on
+    the NH core (dynamics) and the doubly periodic CRM, 2x2 against one
+    rank, every compared field: 1e-12 relative (bit-identical
+    expected); every rank exchanged halos, across the seam too."""
+    want = _single(group22, ("periodic", kind))
+    got = group22[0]["periodic"][kind]
+    assert got["finite"] and want["finite"]
+    _every_field(got["fields"], want["fields"], 1e-12, kind)
+    assert all(r["periodic"][kind]["exchanges"] > 0 for r in group22)
 
 
 def _every_field(got, want, bound, what):

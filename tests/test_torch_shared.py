@@ -1,6 +1,6 @@
 """The port's own copies of the JAX package's JAX-free modules (config,
 grid, constants, projections, vertical, calendar, sun, vmodes, GHG and
-CCM3 tables) give what the originals give. Both sides run the same numpy
+CCM3 tables, the lake cold start) give what the originals give. Both sides run the same numpy
 code on the same inputs, so every comparison is exact."""
 import dataclasses
 
@@ -247,3 +247,22 @@ def test_icbc_matches_jax(tmp_path):
         want = readers[0].record_at(when)
         for r, d in zip(readers[1:], (when, when_t, when_t)):
             _equal(want, r.record_at(d), f"record at +{hour} h")
+
+
+def test_init_lake_and_lake_grid_match_jax():
+    """The port's numpy copy of the lake cold start (``init_lake``) and its
+    ``build_grid`` with a DOMAIN lake depth give the JAX package's
+    arrays."""
+    from regcm_tpu.physics.surface.lake import init_lake as jinit
+    from regcm_tpu_torch.physics.surface.lake import init_lake
+    rng = np.random.default_rng(3)
+    dh = rng.uniform(0.0, 150.0, (6, 7))
+    xlat = rng.uniform(-60.0, 60.0, (6, 7))
+    tg = rng.uniform(270.0, 305.0, (6, 7))
+    _equal(init_lake(dh, xlat, tg, 60), jinit(dh, xlat, tg, 60), "init_lake")
+    jcfg, tcfg = configs(OVERRIDES["golden"])
+    dh = rng.uniform(0.0, 30.0, (15, 19))
+    jg = jgrid.build_grid(jcfg, dhlake=dh)
+    tg = tgrid.build_grid(tcfg, dhlake=dh)
+    _equal(np.asarray(tg.extras["dhlake"]), np.asarray(jg.extras["dhlake"]),
+           "dhlake")

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""The decomposed phases of ``chip_smoke.py`` (10-12, 14c, 15e, 16d) alone,
-with only what they are held to: the single card's first 12 MOLOCH
-flagship steps (phase 6), the ICBC-driven runs (phase 13), the NH
-flagship on one card (phase 14a) and configurations A's and C's first 12
-steps on one card (phases 15a, 16b).
+"""The decomposed phases of ``chip_smoke.py`` (10-12, 14c, 15e, 16d, 17b)
+alone, with only what they are held to: the single card's first 12
+MOLOCH flagship steps (phase 6), the ICBC-driven runs (phase 13), the NH
+flagship on one card (phase 14a) and configurations A's, C's and D's
+first 12 steps on one card (phases 15a, 16b, 17a).
 
 For a host with four or more cards, where phases 10-12 run under gloo and
 under nccl (a card a rank): it spares the four-card call the phases that
@@ -70,9 +70,15 @@ def main():
         c.run_icbc(cs.HYDRO_CHECK[0])                        # phase 16b
         c16 = c.decoupled()
         del a, c
+        paths.update(cs.write_band_files(tmp))
+        d = cs.band_model(paths, dev)
+        d.run_icbc(cs.D_CHECK)                               # phase 17a
+        d17 = d.decoupled()
+        del d
+        torch.cuda.empty_cache()
         cs.run_decomposed(dev, smi, single12, paths, icbc13,
-                          nh14["single12"], a15,
-                          c16)                   # 10-12, 14c, 15e, 16d
+                          nh14["single12"], a15, c16,
+                          d17)           # 10-12, 14c, 15e, 16d, 17b
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
