@@ -132,6 +132,24 @@ Phases (any failure raises and the script exits nonzero):
      step's device kernels; (d) the three Model settings of the CPU
      tests on the card against the CPU in f64 at 16x20x14, 3 steps, as
      16c;
+ 18. restart, output and the decomposed semi-Lagrangian advection, f32:
+     (a) restart chains at full width riding on earlier runs, each SAV
+     loaded into a fresh Model and run on, every state and boundary
+     field held bit for bit to the uninterrupted run: test_001 from
+     phase 13's files saved at step 72 and run to 150, past the update
+     after step 144 (13a); the MOLOCH flagship from its ICBC start, 12
+     + 12 steps (13b); the NH flagship at dt 15 s, 12 + 12 steps (14a);
+     the SAV's size and its write and read seconds; (b) in the
+     decomposed group, test_001 with isladvec=1 on 2x2 ranks: a SAV at
+     step 12 and a fresh Model to step 24, bit for bit to the
+     uninterrupted 2x2 run, which is bit for bit one card's; (c)
+     run_with_output at the MOLOCH flagship from 13b's SAV over 24
+     steps, ATM, SRF and RAD every 6, on NetCDF and on Zarr: the ms of
+     plain and output steps and of each writer, the writer thread's
+     encoding and the bytes, the Zarr stores equal to the NetCDF files
+     and the last ATM record equal to Model.decoupled() cut and rotated;
+     (d) in the decomposed group, the same test_001 with iqmsl 0 and 1
+     bit for bit one card's at step 12;
 then a JSON line of the kernels and the result line.
 """
 import json
@@ -323,6 +341,18 @@ NEW_CASES = (
           icldfrac=0), {}, 2, False))
 # 17a: the timing repetitions of K1 and K2 on D's operands
 D_REPS = 10
+# phase 18a: each restart chain's SAV step and end, riding on an earlier
+# phase's run (13a, 13b, 14a)
+CHAIN_STEPS = {"test_001": (72, HYDRO_ICBC_STEPS),
+               "MOLOCH": (DECOMP_STEPS, STEPS), "NH": (DECOMP_STEPS, STEPS)}
+# 18c: run_with_output over 24 MOLOCH steps, a record every 6 (3 min at
+# dt 30 s) on ATM, SRF and RAD: four besides the first
+OUTPUT_STEPS = 24
+OUTPUT_EVERY = 6
+# 18b, 18d: test_001 from phase 13's files with the semi-Lagrangian
+# advection on 2x2 ranks: iqmsl 0 and 1 to step 12; with iqmsl 1 a SAV
+# at 12 and the chain to 24
+SL_STEPS = (12, 24)
 
 
 def nvidia_smi_line():
@@ -914,17 +944,20 @@ def hydro_icbc_model(paths, device, mesh=None, dtype=None, physics=None):
     return m
 
 
-def icbc_steps(model, until, record=(), stop_non_finite=False):
+def icbc_steps(model, until, record=(), stop_non_finite=False, chain=None):
     """run_icbc one step at a time up to step ``until``: each step's
     number, whether radiation ran and its wall ms (synchronised), the
     decoupled fields after the steps in ``record``, and the first step
     after which the state was not finite (None if it stayed finite; with
-    ``stop_non_finite`` the run checks each step and stops there)."""
+    ``stop_non_finite`` the run checks each step and stops there). A
+    phase 18a ``Chain`` sees the model after each (untimed)."""
     steps, rec, bad = [], {}, None
     while model.nstep < until:
         rad = model._flags().do_rad
         _, wall = model.run_icbc(1)
         steps.append((model.nstep - 1, rad, 1000.0 * wall))
+        if chain is not None:
+            chain(model)
         if stop_non_finite and not model.check_finite():
             bad = model.nstep
             break
@@ -939,9 +972,11 @@ def mean_ms(steps, lo, hi, rad):
     return sum(ms) / len(ms), len(ms)
 
 
-def run_icbc_single(dev, smi, paths, mods):
+def run_icbc_single(dev, smi, paths, mods, chains=None):
     """Phase 13: the ICBC-driven runs on one card; returns 13a's decoupled
-    fields at HYDRO_CHECK and its mean ms/step from step 12 on."""
+    fields at HYDRO_CHECK and its mean ms/step from step 12 on. Phase
+    18a's ``chains`` ("test_001", "MOLOCH") ride on 13a and 13b."""
+    chains = chains or {}
     import torch
     # -- 13a. test_001 from the ICBC file, f32, through step 150
     t0 = time.time()
@@ -950,7 +985,8 @@ def run_icbc_single(dev, smi, paths, mods):
     print(f"ICBC test_001: {model.grid.jx}x{model.grid.iy}x{model.grid.kz}"
           f", set-up and init_from_icbc {time.time() - t0:.1f} s")
     reset(mods)
-    steps, rec, _ = icbc_steps(model, HYDRO_ICBC_STEPS, HYDRO_CHECK)
+    steps, rec, _ = icbc_steps(model, HYDRO_ICBC_STEPS, HYDRO_CHECK,
+                               chain=chains.get("test_001"))
     launches = read(mods)
     print(f"ICBC test_001 path: {HYDRO_ICBC_STEPS} steps, launches "
           f"{launches}, boundary clock {model.xbctime:.0f} s after the "
@@ -975,23 +1011,17 @@ def run_icbc_single(dev, smi, paths, mods):
     torch.cuda.empty_cache()
 
     # -- 13b. the MOLOCH flagship from its ICBC file, f32, through step 61
-    from regcm_tpu_torch.core.grid import build_grid
-    from regcm_tpu_torch.driver import Model
-    from regcm_tpu_torch.preproc.icbc import ICBCReader
-    mcfg = flagship_cfg()
-    mcfg.globdat.gdate2 = ICBC_END
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.time()
-    model = Model(mcfg, grid=build_grid(mcfg), device=dev,
-                  dtype=torch.float32)
-    model.init_from_icbc(ICBCReader(paths["moloch"], mcfg.globdat.calendar))
+    model = moloch_icbc_model(paths, dev)
     torch.cuda.synchronize()
     print(f"ICBC MOLOCH 192x192x41: set-up and init_from_icbc "
           f"{time.time() - t0:.1f} s")
     reset(mods)
     marks = (12, 24, 36, 48, MOLOCH_ICBC_STEPS)
     steps, mrec, bad = icbc_steps(model, MOLOCH_ICBC_STEPS, marks,
-                                  stop_non_finite=True)
+                                  stop_non_finite=True,
+                                  chain=chains.get("MOLOCH"))
     mlaunch = read(mods)
     print(f"ICBC MOLOCH path: {len(steps)} steps, launches {mlaunch}")
     if min(mlaunch.values()) <= 0:
@@ -1030,6 +1060,23 @@ def run_icbc_single(dev, smi, paths, mods):
     return dict(rec=rec, window_ms=sum(window) / len(window))
 
 
+def moloch_icbc_model(paths, device, init=True):
+    """The MOLOCH flagship in f32 over phase 13's one-day ICBC window,
+    cold-started from its ICBC file unless ``init`` is false."""
+    import torch
+    from regcm_tpu_torch.core.grid import build_grid
+    from regcm_tpu_torch.driver import Model
+    from regcm_tpu_torch.preproc.icbc import ICBCReader
+    mcfg = flagship_cfg()
+    mcfg.globdat.gdate2 = ICBC_END
+    model = Model(mcfg, grid=build_grid(mcfg), device=device,
+                  dtype=torch.float32)
+    if init:
+        model.init_from_icbc(ICBCReader(paths["moloch"],
+                                        mcfg.globdat.calendar))
+    return model
+
+
 def hydro_spread(dev, paths):
     """The f32 rule's spread: phase 13a's run again with T changed by
     1e-7 relative right after the cold start; its decoupled fields at
@@ -1048,13 +1095,14 @@ def hydro_spread(dev, paths):
 
 
 def decomposed_rank(rank, time_steps, paths):
-    """Phases 10-12 and 14c on one rank of a 2x2 group: the flagship in f32 for
-    DECOMP_STEPS steps (counters reset just before, read just after), the
-    whole domain's fields at the end (on rank 0), the ms/step of
-    ``time_steps`` further steps; the f64 MOLOCH dryrun; the f64
-    hydrostatic dryruns; test_001 from the ICBC files in ``paths``
-    (counters reset just before, read just after) with the whole domain's
-    fields at HYDRO_CHECK (on rank 0) and the ms/step after step 12."""
+    """Phases 10-12, 14c, 15e, 16d, 17b, 18b and 18d on one rank of a 2x2
+    group: the flagship in f32 for DECOMP_STEPS steps (counters reset
+    just before, read just after), the whole domain's fields at the end
+    (on rank 0), the ms/step of ``time_steps`` further steps; the f64
+    MOLOCH dryrun; the f64 hydrostatic dryruns; test_001 from the ICBC
+    files in ``paths`` (counters reset just before, read just after)
+    with the whole domain's fields at HYDRO_CHECK (on rank 0) and the
+    ms/step after step 12; then the later phases' rank functions."""
     import torch
     import torch.distributed as dist
     from regcm_tpu_torch.core.grid import build_grid
@@ -1139,6 +1187,7 @@ def decomposed_rank(rank, time_steps, paths):
     out["schemes"] = schemes_rank(rank, paths)
     out["cumulus"] = cumulus_rank(rank, paths)
     out["band"] = band_rank(rank, paths)
+    out["sl"] = sl_rank(rank, paths)
     return out
 
 
@@ -1184,14 +1233,15 @@ def nh_rank(rank, time_steps):
 
 
 def run_decomposed(dev, smi, single12, paths, icbc13, nh12, a15, c16, d17):
-    """Phases 10-12, 14c, 15e, 16d and 17b: the 2x2 groups of
+    """Phases 10-12, 14c, 15e, 16d, 17b, 18b and 18d: the 2x2 groups of
     ``decomposed_rank`` on every backend the host allows, held bit for
     bit to the single card's step-12 fields ``single12`` and to its f64
     dryruns, test_001 from ICBC to phase 13a's run ``icbc13``, the NH
     flagship bit for bit to phase 14a's step-12 fields ``nh12``,
     configurations A, C and D to their single-card step-12 fields
-    ``a15``, ``c16`` and ``d17``, and the CRM to one card in f64;
-    returns each backend's rank results."""
+    ``a15``, ``c16`` and ``d17``, the CRM to one card in f64, and the
+    semi-Lagrangian test_001 to one card (``sl_single``); returns each
+    backend's rank results."""
     import torch
     from regcm_tpu_torch.core.grid import build_grid
     from regcm_tpu_torch.parallel.launch import spawn
@@ -1201,6 +1251,7 @@ def run_decomposed(dev, smi, single12, paths, icbc13, nh12, a15, c16, d17):
     ref64 = dryrun(hcfg, hgrid, dev)
     href = {ph: hydro_dryrun(dev, ph) for ph in (False, True)}
     crm_ref = crm_run(dev)                   # 17b's single-card CRM
+    sl_ref = sl_single(dev, paths)           # 18b, 18d's single card
     spread = None                 # the f32 rule's spread run, if needed
     ncards = torch.cuda.device_count()
     world = GRID[0] * GRID[1]
@@ -1410,6 +1461,8 @@ def run_decomposed(dev, smi, single12, paths, icbc13, nh12, a15, c16, d17):
                                      f"{f} at step {n}")
         # -- 17b. configuration D and the CRM on 2x2 ranks
         check_band_decomposed(res, backend, d17, crm_ref)
+        # -- 18b, 18d. the semi-Lagrangian advection on 2x2 ranks
+        check_sl_decomposed(res, backend, sl_ref)
         decomp[backend] = res
     return decomp
 
@@ -1455,9 +1508,10 @@ def nh_summary(d):
             float(d["t"].min()), float(d["t"].max()))
 
 
-def run_nh_single(dev, smi, mods):
+def run_nh_single(dev, smi, mods, chain=None):
     """Phase 14a: the NH flagship on one card; returns its step-12
-    fields (14c is held to them) and its launches a step."""
+    fields (14c is held to them) and its launches a step. Phase 18a's
+    NH ``chain`` rides on its first 24 steps."""
     import torch
     from regcm_tpu_torch.core.grid import build_grid
     cfg = nh_flagship_cfg()
@@ -1471,8 +1525,12 @@ def run_nh_single(dev, smi, mods):
     reset(mods)
     model.run(DECOMP_STEPS)
     single12 = nh_fields(model)
+    if chain is not None:
+        chain(model)
     model.run(STEPS - DECOMP_STEPS)
     launches = read(mods)
+    if chain is not None:
+        chain(model)
     print(f"NH path: {STEPS} steps, launches {launches}")
     if not model.check_finite():
         raise AssertionError("non-finite NH state after the f32 run")
@@ -2751,6 +2809,314 @@ def check_band_decomposed(res, backend, d17, crm_ref):
 
 
 
+class Chain:
+    """Phase 18a's restart chain riding on an earlier phase's run: the
+    model writes its SAV after step ``at`` (the write's seconds kept)
+    and its state and boundary are kept on the card after step
+    ``end``."""
+
+    def __init__(self, name, directory):
+        self.name = name
+        self.at, self.end = CHAIN_STEPS[name]
+        self.path = os.path.join(directory, f"{name}_SAV.nc")
+        self.write_s = None
+        self.want = None
+
+    def __call__(self, model):
+        import torch
+        if model.nstep == self.at:
+            torch.cuda.synchronize()
+            t0 = time.time()
+            model.save_restart(self.path)
+            self.write_s = time.time() - t0
+        elif model.nstep == self.end:
+            self.want = [{k: v.clone() for k, v in nt._asdict().items()
+                          if v is not None}
+                         for nt in (model.state, model.bdy)]
+
+
+def run_restart_chains(dev, smi, paths, chains):
+    """Phase 18a: each chain's SAV loaded into a fresh Model (the ICBC
+    reader re-attached), run to the chain's end and held to the
+    uninterrupted run bit for bit in every state and boundary field."""
+    import torch
+    from regcm_tpu_torch.core.grid import build_grid
+    from regcm_tpu_torch.preproc.icbc import ICBCReader
+    for name, ch in chains.items():
+        if ch.write_s is None or ch.want is None:
+            raise AssertionError(f"restart chain {name}: the earlier run "
+                                 f"did not pass steps {ch.at} and {ch.end}")
+        if name == "test_001":
+            model = hydro_icbc_model(paths, dev)
+        elif name == "MOLOCH":
+            model = moloch_icbc_model(paths, dev, init=False)
+        else:
+            cfg = nh_flagship_cfg()
+            model = nh_model(cfg, build_grid(cfg), dev)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        model.load_restart(ch.path)
+        torch.cuda.synchronize()
+        read_s = time.time() - t0
+        t0 = time.time()
+        if name == "NH":
+            model.run(ch.end - model.nstep)
+        else:
+            icbc = paths["hydro" if name == "test_001" else "moloch"]
+            model.attach_icbc(ICBCReader(icbc, model.cfg.globdat.calendar))
+            model.run_icbc(ch.end - model.nstep)
+        run_s = time.time() - t0
+        bad = [f"{part}.{k}" for part, nt, want in
+               (("state", model.state, ch.want[0]),
+                ("bdy", model.bdy, ch.want[1]))
+               for k, v in nt._asdict().items()
+               if v is not None and not torch.equal(v, want[k])]
+        nfield = len(ch.want[0]) + len(ch.want[1])
+        print(f"restart chain {name} (f32): SAV after step {ch.at}, "
+              f"{os.path.getsize(ch.path) / 1e6:.1f} MB, written in "
+              f"{ch.write_s:.2f} s, read in {read_s:.2f} s; steps "
+              f"{ch.at}..{ch.end - 1} after the load in {run_s:.2f} s; "
+              + ("every one of the " + str(nfield) + " state and boundary "
+                 "fields bit-identical to the uninterrupted run"
+                 if not bad else f"DIFFERENT: {bad}") + f", on {smi}")
+        if bad:
+            raise AssertionError(f"restart chain {name} differs from the "
+                                 f"uninterrupted run in {bad}")
+        del model
+        ch.want = None
+        torch.cuda.empty_cache()
+
+
+def timed(fn, log):
+    """``fn`` with each call's synchronised host-clock ms added to
+    ``log``."""
+    import torch
+
+    def wrapped(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        log.append(1000.0 * (time.time() - t0))
+        return out
+    return wrapped
+
+
+def run_output(dev, smi, paths, sav, directory):
+    """Phase 18c: run_with_output at the MOLOCH flagship from the SAV
+    ``sav`` (step 12) over OUTPUT_STEPS steps, ATM, SRF and RAD every
+    OUTPUT_EVERY steps, on the NetCDF and the Zarr backend in turn: the
+    ms of plain and output steps and of each writer (the device record
+    and its host copy), the writer thread's encoding, the bytes; then
+    the Zarr stores against the NetCDF files record for record, and the
+    last ATM record against Model.decoupled() cut and rotated."""
+    import torch
+    from regcm_tpu_torch.io.ncio import read_nc
+    from regcm_tpu_torch.io.zarrio import read_zarr
+    from regcm_tpu_torch.preproc.icbc import ICBCReader
+    dirs = {}
+    for backend in ("netcdf", "zarr"):
+        model = moloch_icbc_model(paths, dev, init=False)
+        model.load_restart(sav)
+        model.attach_icbc(ICBCReader(paths["moloch"],
+                                     model.cfg.globdat.calendar))
+        o = model.cfg.out
+        o.atmfrq = o.srffrq = o.radfrq = OUTPUT_EVERY * model.dtsec / 3600.0
+        dirs[backend] = os.path.join(directory, f"out_{backend}")
+        st = model.open_output(dirs[backend], backend=backend)
+        writers, encode = {}, {}
+        for w in ("atm", "srf", "rad"):
+            writers[w] = []
+            setattr(st, f"write_{w}", timed(getattr(st, f"write_{w}"),
+                                            writers[w]))
+            encode[w] = []
+            sw = getattr(st, w)
+            sw.write_record = timed(sw.write_record, encode[w])
+        start = model.nstep
+        steps = []
+        for _ in range(OUTPUT_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            model.run_with_output(1)
+            torch.cuda.synchronize()
+            steps.append((model.nstep, 1000.0 * (time.time() - t0)))
+        t0 = time.time()
+        st.close()
+        drain_s = time.time() - t0
+        if not model.check_finite():
+            raise AssertionError(f"18c ({backend}): non-finite state")
+        plain = [ms for n, ms in steps[1:] if n % OUTPUT_EVERY]
+        alarm = [ms for n, ms in steps[1:] if not n % OUTPUT_EVERY]
+        size = {}
+        for f in os.listdir(dirs[backend]):
+            p = os.path.join(dirs[backend], f)
+            size[f.split("_")[-1].split(".")[0]] = sum(
+                os.path.getsize(os.path.join(d, x))
+                for d, _, xs in os.walk(p) for x in xs) \
+                if os.path.isdir(p) else os.path.getsize(p)
+        mean = lambda xs: sum(xs) / max(len(xs), 1)
+        g = model.grid
+        print(f"18c MOLOCH {g.jx}x{g.iy}x{g.kz} f32 run_with_output, "
+              f"{backend}: steps "
+              f"{start}..{model.nstep - 1}, {st.atm.nrec} ATM records; "
+              f"plain step {mean(plain):.3f} ms ({len(plain)}), output "
+              f"step {mean(alarm):.3f} ms ({len(alarm)}); writers (device "
+              f"record + host copy, synchronised) "
+              + ", ".join(f"{w} {mean(v):.3f} ms" for w, v in writers.items())
+              + "; encoding on the writer thread "
+              + ", ".join(f"{w} {mean(v):.3f} ms" for w, v in encode.items())
+              + f"; close (drain) {drain_s:.2f} s; bytes "
+              + ", ".join(f"{k} {v / 1e6:.2f} MB" for k, v in
+                          sorted(size.items()))
+              + f", on {smi}")
+        if st.atm.nrec != OUTPUT_STEPS // OUTPUT_EVERY + 1:
+            raise AssertionError(f"18c ({backend}): {st.atm.nrec} ATM "
+                                 "records")
+        if backend == "netcdf":
+            dec = model.decoupled()
+            cut = lambda a: a[..., :g.iy - 1, :g.jx - 1]
+            f32 = lambda k: cut(np.asarray(g.extras[k])).astype(np.float32)
+            rc, rs = f32("rotcos"), f32("rotsin")
+            u, v = cut(dec["u"]), cut(dec["v"])
+            want = dict(ta=cut(dec["t"]), hus=cut(dec["qv"]),
+                        clw=cut(dec["qc"]), ps=cut(dec["ps"]),
+                        ua=u * rc - v * rs, va=v * rc + u * rs)
+            atm = read_nc(os.path.join(dirs[backend], [
+                f for f in os.listdir(dirs[backend]) if "_ATM." in f][0]))
+            bad = [k for k, w in want.items()
+                   if not np.array_equal(atm[k][-1], w)]
+            print(f"18c last ATM record (step {model.nstep}) against "
+                  f"Model.decoupled() cut and rotated: "
+                  + ("equal in " + ", ".join(want) if not bad
+                     else f"DIFFERENT in {bad}"))
+            if bad:
+                raise AssertionError(f"18c: the ATM record differs from "
+                                     f"the decoupled state in {bad}")
+        del model, st
+        torch.cuda.empty_cache()
+    names = sorted(os.listdir(dirs["netcdf"]))
+    bad = []
+    for fn in names:
+        nc = read_nc(os.path.join(dirs["netcdf"], fn))
+        zr = read_zarr(os.path.join(dirs["zarr"],
+                                    fn.replace(".nc", ".zarr")))
+        # a variable without a record (STS before its first day
+        # boundary) has no array in the store yet
+        bad += [f"{fn}:{k}" for k, v in nc.items()
+                if (k in zr or v.size) and not (
+                    k in zr and np.array_equal(zr[k], v))]
+    print(f"18c Zarr stores against the NetCDF files ({len(names)} "
+          f"streams, every variable with records, record for record): "
+          + ("equal" if not bad else f"DIFFERENT in {bad}"))
+    if bad:
+        raise AssertionError(f"18c: Zarr differs from NetCDF in {bad}")
+
+
+def sl_physics(iqmsl):
+    return dict(isladvec=1, iqmsl=iqmsl)
+
+
+def sl_single(dev, paths):
+    """Phases 18b and 18d's one-card references: test_001 from phase 13's
+    files with the semi-Lagrangian advection, the decoupled fields at
+    step 12 with iqmsl 0 and 1, and at step 24 with iqmsl 1."""
+    import torch
+    ref = {}
+    for q in (0, 1):
+        model = hydro_icbc_model(paths, dev, physics=sl_physics(q))
+        model.run_icbc(SL_STEPS[0])
+        ref[q] = model.decoupled()
+        if q == 1:
+            model.run_icbc(SL_STEPS[1] - SL_STEPS[0])
+            ref["chain"] = model.decoupled()
+        del model
+    torch.cuda.empty_cache()
+    return ref
+
+
+def sl_rank(rank, paths):
+    """Phases 18b and 18d on one rank of a 2x2 group: test_001 with the
+    semi-Lagrangian advection, iqmsl 0 and 1, to step 12 (the whole
+    domain's decoupled fields on rank 0); with iqmsl 1 a SAV at step 12
+    (rank 0 writes it), the run on to step 24, and a fresh Model loaded
+    from the SAV run to step 24, held to it on every rank's block bit for
+    bit; K5c's launches."""
+    import torch
+    import torch.distributed as dist
+    from regcm_tpu_torch.kernels import pbl_tridiag as k1
+    from regcm_tpu_torch.preproc.icbc import ICBCReader
+    dev = rank.device
+    out = {}
+    for q in (0, 1):
+        model = hydro_icbc_model(paths, dev, rank.mesh(34, 48),
+                                 physics=sl_physics(q))
+        k1.launches_sharded = 0
+        model.run_icbc(SL_STEPS[0])
+        out[f"k5c_{q}"] = k1.launches_sharded
+        dec = model.decoupled()
+        out[q] = dec if rank.rank == 0 else None
+        if q != 1:
+            continue
+        sav = os.path.join(paths["phase18"], f"sl_{rank.backend}_SAV.nc")
+        model.save_restart(sav)
+        model.run_icbc(SL_STEPS[1] - SL_STEPS[0])
+        dec = model.decoupled()
+        out["chain"] = dec if rank.rank == 0 else None
+        fresh = hydro_icbc_model(paths, dev, rank.mesh(34, 48),
+                                 physics=sl_physics(q))
+        fresh.load_restart(sav)
+        fresh.attach_icbc(ICBCReader(paths["hydro"],
+                                     fresh.cfg.globdat.calendar))
+        fresh.run_icbc(SL_STEPS[1] - SL_STEPS[0])
+        same = torch.tensor(int(all(
+            torch.equal(a, b) for nt0, nt1 in ((model.state, fresh.state),
+                                               (model.bdy, fresh.bdy))
+            for a, b in zip(nt0, nt1) if a is not None)))
+        dist.all_reduce(same, op=dist.ReduceOp.MIN)
+        out["chain_same"] = bool(same)
+        dist.barrier()
+        if rank.rank == 0:
+            os.remove(sav)
+        del model, fresh
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_sl_decomposed(res, backend, ref):
+    """Phases 18b and 18d's checks of a 2x2 group's ``sl_rank`` results
+    against the one-card references ``ref``."""
+    out = res[0]["sl"]
+    for r, o in enumerate(res):
+        s = o["sl"]
+        if min(s["k5c_0"], s["k5c_1"]) <= 0:
+            raise AssertionError(f"rank {r} ({backend}): the decomposed "
+                                 f"semi-Lagrangian run bypassed K5c")
+    for key, step in ((0, SL_STEPS[0]), (1, SL_STEPS[0]),
+                      ("chain", SL_STEPS[1])):
+        what = (f"iqmsl {key}" if key != "chain"
+                else "iqmsl 1 (restart chain's run)")
+        bad = [f for f in HYDRO_FIELDS
+               if not np.array_equal(out[key][f], ref[key][f])]
+        print(f"  18{'d' if key != 'chain' else 'b'} test_001 isladvec=1 "
+              f"{what} f32 step {step}, {backend} 2x2 vs one card: "
+              + ("bit-identical in " + ", ".join(HYDRO_FIELDS) if not bad
+                 else "DIFFERENT in " + ", ".join(
+                     f"{f} (rel-RMS {rel_rms(out[key][f], ref[key][f]):.3e})"
+                     for f in bad)))
+        if bad:
+            raise AssertionError(f"decomposed semi-Lagrangian test_001 "
+                                 f"({backend}, {what}) differs from one "
+                                 f"card in {bad}")
+    chain = all(o["sl"]["chain_same"] for o in res)
+    print(f"  18b 2x2 restart chain ({backend}, SAV at step {SL_STEPS[0]}, "
+          f"fresh Model to step {SL_STEPS[1]}): every state and boundary "
+          f"field " + ("bit-identical to the uninterrupted 2x2 run"
+                       if chain else "NOT bit-identical"))
+    if not chain:
+        raise AssertionError(f"18b ({backend}): the restarted 2x2 run "
+                             f"differs from the uninterrupted one")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2988,17 +3354,24 @@ def main():
     stats.update(k5_stats)
     compare_uneven(dev, k4)
 
-    # -- 13. the ICBC-driven runs on one card (phase 12 is held to 13a)
+    # -- 13. the ICBC-driven runs on one card (phase 12 is held to 13a);
+    # phase 18's SAV files and output streams (~2.5 GB) go to the
+    # git-ignored _phase18 beside this script and are deleted at the end
     tmp = tempfile.mkdtemp(prefix="chip_smoke_icbc_")
+    p18 = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "_phase18")
+    os.makedirs(p18, exist_ok=True)
     try:
         t0 = time.time()
         paths = write_icbc_files(tmp)
+        paths["phase18"] = p18
         print(f"ICBC files (port's terrain and icbc, one day) written in "
               f"{time.time() - t0:.1f} s")
-        icbc13 = run_icbc_single(dev, smi, paths, mods)
+        chains = {name: Chain(name, p18) for name in CHAIN_STEPS}
+        icbc13 = run_icbc_single(dev, smi, paths, mods, chains)
 
         # -- 14a, 14b, 14d. the NH core on one card
-        nh14 = run_nh_single(dev, smi, mods)
+        nh14 = run_nh_single(dev, smi, mods, chains["NH"])
         nh_card_vs_cpu(dev)
         options_card_vs_cpu(dev)
 
@@ -3023,12 +3396,19 @@ def main():
         new_card_vs_cpu(dev)
         print(f"phase 17a, 17c, 17d took {time.time() - t17:.1f} s")
 
+        # -- 18a, 18c. restart chains and output streams on one card
+        t18 = time.time()
+        run_restart_chains(dev, smi, paths, chains)
+        run_output(dev, smi, paths, chains["MOLOCH"].path, p18)
+        print(f"phase 18a, 18c took {time.time() - t18:.1f} s")
+
         # -- 10, 11, 12, 14c, 15e, 16d, 17b. the decomposed runs
         decomp = run_decomposed(dev, smi, single12, paths, icbc13,
                                 nh14["single12"], a15["rec"],
                                 cu16["c_single12"], d17["rec"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(p18, ignore_errors=True)
 
     if "jax" in sys.modules or any(
             m == "regcm_tpu" or m.startswith("regcm_tpu.")

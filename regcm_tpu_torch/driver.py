@@ -12,18 +12,29 @@ resting standard atmosphere (the NH core: from its reference atmosphere,
 ``nh_initial_state``) and holds the boundary at the initial state;
 ``init_from_icbc(reader)`` cold-starts from the ICBC record at mdate1
 and ``run_icbc(n)`` steps with the boundary-input alarm every ibdyfrq
-hours (``update_boundary``), as the reference's ``bdyin`` does. Restart
-and output are not ported.
+hours (``update_boundary``), as the reference's ``bdyin`` does.
+
+``save_restart``/``load_restart`` write and read the JAX package's SAV
+format (``io.restart``), so that a restarted run continues the
+uninterrupted one bit for bit; ``attach_icbc`` re-attaches the boundary
+input after a load. ``open_output`` and ``run_with_output`` write the
+ATM, SRF, RAD, STS, LAK, SUB and SLABOC streams (``io.output``) to
+NetCDF or to a Zarr store. ``globdatparam ensemble_run`` perturbs the
+topography and the ICBC records (``utils.ensemble``), and ``attach_som``
+feeds a SOM q-flux file to the slab ocean. Chemistry (its boundary
+input, ``set_chem_bc``) is not ported.
 
 ``Model(cfg, mesh=DomainMesh(...))`` runs any of the cores decomposed over a
 (y, x) grid of ranks, one ``Model`` in each rank's process
 (``parallel.launch``): the rank holds its block of the state; the
 initial state, the ICBC records and the solar zenith angles are formed
 on the whole grid and cut to it; ``check_finite`` and ``decoupled`` look
-at the whole domain.
+at the whole domain; rank 0 writes the restart and NetCDF output files of
+the whole domain, and each rank its block's chunks of a Zarr store.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Dict, Optional
 
@@ -45,6 +56,7 @@ from .physics.surface.bats import bats_init_state
 from .physics.surface.lake import init_lake, lake_layers
 from .utils import constants as c
 from .utils.calendar import Date
+from .utils.ensemble import randify
 from .utils.sun import coszrs as _coszrs, solar_state
 from .utils.thermo import pfwsat
 
@@ -152,14 +164,23 @@ class Model:
             raise ValueError(
                 f"coreparam idynamic={cfg.core.idynamic} is not a core "
                 "(1 hydrostatic, 2 MM5 non-hydrostatic, 3 MOLOCH)")
+        self.cfg = cfg
+        self.grid = grid or build_grid(cfg)
+        # O'Brien (2010) ensemble perturbation (mod_ensemble.F90 via
+        # mod_ncio.F90:176-940): multiplicative noise on the topography
+        # at set-up and on every ICBC field read, drawn on the whole
+        # domain from one generator in the JAX package's order
+        self._perturb_rng = None
         pp = cfg.perturb
         if cfg.globdat.ensemble_run and any(
                 getattr(pp, f"lperturb_{n}") for n in
                 ("topo", "ts", "ps", "t", "q", "u", "v")):
-            raise NotImplementedError("ensemble perturbations are not "
-                                      "ported to regcm_tpu_torch")
-        self.cfg = cfg
-        self.grid = grid or build_grid(cfg)
+            self._perturb_rng = np.random.default_rng(pp.extras.get("seed"))
+            if pp.lperturb_topo and grid is None:
+                # the stored geopotential; the diffusion's topography
+                # factor keeps the unperturbed base, as in the JAX package
+                self.grid = dataclasses.replace(self.grid, ht=randify(
+                    self.grid.ht, pp.perturb_frac_topo, self._perturb_rng))
         if mesh is not None and (mesh.iy, mesh.jx) != (self.grid.iy,
                                                        self.grid.jx):
             raise ValueError(f"{mesh} does not cover the "
@@ -216,6 +237,8 @@ class Model:
                                     tg0, lake_layers(cfg.physics))
             self.state = self.state._replace(tlak=torch.as_tensor(
                 tlak0, dtype=dtype, device=self.device))
+        # the cached solar forcing's day, and the date it was computed at
+        self._solar_key = self._solar_date = None
         if bdy is None:
             bdy = moloch_bdy_from_state(self.state) if self.idynamic == 3 \
                 else bdy_from_state(self.state)
@@ -226,6 +249,7 @@ class Model:
             bdy = _as_state(bdy, BdyState, bdy_from_numpy, mesh,
                             self.device, dtype)
         self.bdy = bdy
+        self._som_qflx = None        # the SOM file's monthly q-flux
         self.start_date = Date.from_int(cfg.restart.mdate1,
                                         cfg.globdat.calendar)
         self.date = self.start_date
@@ -245,9 +269,25 @@ class Model:
         """A whole-domain host tensor as the rank's block on the device."""
         return self._local(t).to(self.device)
 
+    def _maybe_perturb(self, rec):
+        """randify each enabled ICBC field of the whole domain on read
+        (mod_ncio.F90:863-940), in the order ts, ps, t, q, u, v."""
+        if self._perturb_rng is None:
+            return rec
+        pp = self.cfg.perturb
+        out = dict(rec)
+        for name, key in (("ts", "ts"), ("ps", "ps"), ("t", "t"),
+                          ("q", "qv"), ("u", "u"), ("v", "v")):
+            if getattr(pp, "lperturb_" + name) and key in out:
+                out[key] = randify(out[key],
+                                   getattr(pp, "perturb_frac_" + name),
+                                   self._perturb_rng)
+        return out
+
     def _icbc_to_state_fields(self, rec):
         """An ICBC record coupled into the hydrostatic prognostics (p*,
         p*-coupled u, v at dot points, T, qv), and the surface T."""
+        rec = self._maybe_perturb(rec)
         T = self._host
         with stencil.topology(self.core.periodic_x, self.core.periodic_y):
             ps = fix_cross_pad(T(rec["ps"]) / 1000.0 - self.grid.ptop)
@@ -261,6 +301,7 @@ class Model:
 
     def _icbc_to_moloch_fields(self, rec):
         """An ICBC sigma-level record on the MOLOCH zita levels."""
+        rec = self._maybe_perturb(rec)
         f = self.core.fields_from_sigma(rec["ps"], rec["t"], rec["qv"],
                                         rec["u"], rec["v"], self.grid.sigma)
         return {k: self._block(v) for k, v in f.items()}
@@ -318,6 +359,8 @@ class Model:
         for b0, k in pairs.items():
             kw[b0] = f0[k]
             kw[b0[:-1] + "t"] = tend(f1[k] - f0[k])
+        if cls is BdyState and self._som_qflx is not None:
+            kw["qflb0"] = self._som_value()
         self.bdy = cls(**kw)
         self.xbctime = 0.0
 
@@ -358,6 +401,7 @@ class Model:
         self.nstep += 1
         self.xbctime += self.dtsec
         self.date = self.date.add_seconds(self.dtsec)
+        self.last_diags = diags     # the ATM stream's omega
         return diags
 
     def _local(self, a):
@@ -368,16 +412,22 @@ class Model:
     def _solar(self):
         """Daily-cached solar forcing (solar1 on the alarm_day cadence,
         Main/mod_sun.F90:318-326)."""
-        key = (self.date.year, self.date.month, self.date.day)
-        if getattr(self, "_solar_key", None) != key:
-            ph = self.cfg.physics
-            self._solar_val = solar_state(
-                self.date, year_offset=int(ph.year_offset),
-                ifixsolar=int(ph.ifixsolar),
-                fixedsolarval=float(ph.fixedsolarval),
-                isolconst=int(ph.isolconst))
-            self._solar_key = key
+        if self._solar_key != (self.date.year, self.date.month,
+                               self.date.day):
+            self._set_solar(self.date)
         return self._solar_val
+
+    def _set_solar(self, date):
+        """The day's solar forcing, computed at ``date`` (the solar
+        constant moves within the day, so a SAV file keeps the date)."""
+        ph = self.cfg.physics
+        self._solar_val = solar_state(
+            date, year_offset=int(ph.year_offset),
+            ifixsolar=int(ph.ifixsolar),
+            fixedsolarval=float(ph.fixedsolarval),
+            isolconst=int(ph.isolconst))
+        self._solar_key = (date.year, date.month, date.day)
+        self._solar_date = date
 
     def _flags(self) -> StepFlags:
         """Physics cadence flags (syncro_rad/srf/cum alarms,
@@ -395,16 +445,159 @@ class Model:
                          first=(self.nstep == 0),
                          do_abem=do_rad and hit(tp.dtabem_sec))
 
-    def run(self, nsteps: int):
-        """Step ``nsteps`` times; returns (last diags, wall seconds) with
-        the device synchronised at the end."""
+    def run(self, nsteps: int, log_every: int = 0):
+        """Step ``nsteps`` times, printing the scalar diagnostics every
+        ``log_every`` steps (0: never); returns (last diags, wall seconds)
+        with the device synchronised at the end."""
         t0 = time.time()
         diags = None
-        for _ in range(nsteps):
+        for n in range(nsteps):
             diags = self.step()
+            if log_every and (n + 1) % log_every == 0:
+                d = {k: float(v) for k, v in diags.items()
+                     if torch.as_tensor(v).dim() == 0}
+                print(f"step {self.nstep} {self.date}: "
+                      + " ".join(f"{k}={v:.6g}" for k, v in d.items()))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return diags, time.time() - t0
+
+    # -- checkpoint/resume (mod_savefile; the JAX package's SAV format) --
+    def save_restart(self, path: str):
+        """Write the state, the boundary pair, the date, the step count
+        and the boundary clock to the SAV file ``path``. Under a mesh
+        every rank sends its blocks and rank 0 writes."""
+        from .io.restart import write_savefile
+
+        def whole(nt):
+            if self.mesh is None:
+                return nt
+            return type(nt)(*(v if v is None or v.numel() == 0
+                              else self.mesh.gather(v, dst=0) for v in nt))
+        state, bdy = whole(self.state), whole(self.bdy)
+        if self.mesh is None or self.mesh.rank == 0:
+            write_savefile(path, state, self.date, self.nstep, self.xbctime,
+                           bdy=bdy, solar_date=self._solar_date)
+        if self.mesh is not None:
+            torch.distributed.barrier(self.mesh.group)
+
+    def load_restart(self, path: str):
+        """Continue from the SAV file ``path`` (written by either package):
+        every rank reads it and keeps its block. Fields the file lacks
+        (the zero-size tracers) keep the model's template; the boundary
+        pair is the file's; the day's solar forcing is computed at the
+        file's solar date (without one, at the next step's date)."""
+        from .io.restart import read_savefile
+        fields, date, nstep, xbctime, bdy_fields, solar = \
+            read_savefile(path)
+        g = (self.grid.iy, self.grid.jx)
+        cur = self.state
+        st = type(cur)(*(
+            fields[k] if k in fields
+            else np.zeros(tuple(v.shape[:-2]) + g)
+            for k, v in cur._asdict().items()))
+        cls, from_numpy = (MolochState, moloch_state_from_numpy) \
+            if self.idynamic == 3 else (HydroState, state_from_numpy)
+        st = _as_state(st, cls, from_numpy, self.mesh, self.device,
+                       self.dtype)
+        self.state = st._replace(**{k: v for k, v in cur._asdict().items()
+                                    if k not in fields})
+        self.date = date
+        self.nstep = nstep
+        self.xbctime = xbctime
+        self._solar_key = self._solar_date = None
+        if solar is not None:
+            self._set_solar(solar)
+        if bdy_fields:
+            cls, from_numpy = (MolochBdy, moloch_bdy_from_numpy) \
+                if self.idynamic == 3 else (BdyState, bdy_from_numpy)
+            b = cls(**{k: bdy_fields.get(k) for k in cls._fields})
+            self.bdy = _as_state(b, cls, from_numpy, self.mesh, self.device,
+                                 self.dtype)
+
+    def attach_icbc(self, reader):
+        """Re-attach the ICBC input after a restart: the SAV holds the
+        current boundary pair and clock, so the next update comes at the
+        next ibdyfrq alarm."""
+        self._icbc = reader
+
+    # -- SOM q-flux (open_som/read_som, Main/mod_ncio.F90:753-770,
+    # 1130-1169) ------------------------------------------------------------
+    def attach_som(self, path: str):
+        """Attach a SOM monthly q-flux file, the slab ocean's
+        ``do_qflux_adj`` heat-flux adjustment: the 12 monthly records are
+        mid-month nodes, and the month-interpolated value goes into
+        ``bdy.qflb0`` at every boundary update."""
+        from .io.ncio import read_nc
+        q = np.asarray(read_nc(path)["qflx"], dtype=np.float64)
+        if q.shape[0] != 12:
+            raise ValueError(f"SOM file {path}: expected 12 monthly qflx "
+                             f"records, got {q.shape[0]}")
+        iy, jx = self.grid.iy, self.grid.jx
+        if q.shape[-2:] != (iy, jx):
+            # an interior-extent file: edge-replicated to the full grid
+            q = np.pad(q, ((0, 0), (0, iy - q.shape[-2]),
+                           (0, jx - q.shape[-1])), mode="edge")
+        self._som_qflx = torch.as_tensor(self._local(q), dtype=self.dtype,
+                                         device=self.device)
+        if self.bdy is not None and hasattr(self.bdy, "qflb0"):
+            self.bdy = self.bdy._replace(qflb0=self._som_value())
+
+    def _som_value(self):
+        """Mid-month linear interpolation of the monthly qflx (som_search's
+        month bracketing, mod_ncio.F90:1080-1128)."""
+        d = self.date
+        pos = d.month + (d.day - 15) / 30.0          # mid-month nodes
+        m0 = int(np.floor(pos)) if pos >= 1 else 12
+        w = pos - np.floor(pos)
+        i0, i1 = (m0 - 1) % 12, m0 % 12
+        return (1.0 - w) * self._som_qflx[i0] + w * self._som_qflx[i1]
+
+    # -- output streams (output(), Main/mod_output.F90:73) ---------------
+    def open_output(self, outdir: Optional[str] = None, append: bool = False,
+                    backend: Optional[str] = None):
+        """Open the output streams in ``outdir`` (outparam dirout by
+        default); ``append`` continues a restarted run's files;
+        ``backend`` "netcdf" or "zarr" (outparam backend by default)."""
+        from .io.output import OutputStreams
+        outdir = outdir or self.cfg.out.dirout
+        backend = backend or self.cfg.out.backend
+        self.streams = OutputStreams(self, outdir, self.cfg.terrain.domname,
+                                     append=append, backend=backend)
+        return self.streams
+
+    def run_with_output(self, nsteps: int):
+        """Step with the output alarms: ATM every atmfrq hours, SRF, LAK,
+        SUB and SLABOC every srffrq, RAD every radfrq; STS accumulates
+        every step and writes at each day boundary. A run that has written
+        no record yet writes the initial one first."""
+        if not hasattr(self, "streams"):
+            self.open_output()
+        o = self.cfg.out
+        every = lambda hours: max(int(hours * 3600.0 / self.dtsec), 1)
+        atm_every, srf_every, rad_every = (every(o.atmfrq),
+                                           every(o.srffrq),
+                                           every(o.radfrq))
+        st = self.streams
+        if st.atm.nrec == 0:
+            for w in (st.write_atm, st.write_srf, st.write_rad,
+                      st.write_lak, st.write_che, st.write_opt,
+                      st.write_slaboc):
+                w()
+        for _ in range(nsteps):
+            self.step()
+            st.sts_accumulate()
+            if self.nstep % atm_every == 0:
+                st.write_atm()
+            if self.nstep % srf_every == 0:
+                st.write_srf()
+                st.write_lak()
+                st.write_sub()
+            if self.nstep % rad_every == 0:
+                st.write_rad()
+            if self.nstep % srf_every == 0:
+                st.write_slaboc()
+        return st
 
     def check_finite(self) -> bool:
         """Whether every field is finite (on every rank)."""

@@ -29,7 +29,8 @@ happen on the ranks that hold those edges, and the diagnostics are
 reduced over the ranks. The periodic topologies (the band, i_band=1,
 periodic in x; the CRM, i_crm=1, in x and y) decompose as the others,
 the first and last ranks of a periodic axis exchanging across the seam;
-the semi-Lagrangian advection is not decomposed.
+the semi-Lagrangian advection gathers its departure points from the
+b-level species extended by the stencil's reach.
 """
 from __future__ import annotations
 
@@ -46,7 +47,7 @@ from ..device import resolve_device
 from ..utils import constants as c
 from ..utils.thermo import pfwsat, wlh
 from . import stencil
-from .sladvection import sl_weights, slhadv
+from .sladvection import extend as sl_extend, sl_weights, slhadv
 from .sound import NHBaseState, make_base_state, sound, \
     upper_radiation_tables
 from .stencil import (shift, shifte, cross2dot, dot2cross, halo_pad,
@@ -101,7 +102,7 @@ def cpmf(qv):
     return c.cpd * (1.0 + 0.80 * qv)
 
 
-def _refuse_options(cfg: RegCMConfig, mesh):
+def _refuse_options(cfg: RegCMConfig):
     """Raise for every sigma-p core option this port leaves out."""
     p = cfg.physics
     if int(getattr(p, "idiffu", 1)) not in (1, 2, 3):
@@ -116,10 +117,6 @@ def _refuse_options(cfg: RegCMConfig, mesh):
          f"coreparam idynamic={cfg.core.idynamic} in HydroCore (1: "
          "hydrostatic, 2: MM5 non-hydrostatic; MOLOCH is MolochCore)"),
         (int(p.ichem) != 0, "chemistry (ichem=1, ROADMAP.md item 13)"),
-        (mesh is not None and cfg.core.idynamic == 1
-         and int(p.isladvec) == 1,
-         "a decomposed run (mesh=) of the semi-Lagrangian advection "
-         "(isladvec=1) yet (ROADMAP.md Queue 1, item 10e)"),
     ]
     for bad, what in refused:
         if bad:
@@ -133,7 +130,7 @@ class HydroCore:
     def __init__(self, grid: ModelGrid, cfg: RegCMConfig,
                  device="cuda", dtype=torch.float64,
                  physics: Optional[Callable] = None, mesh=None):
-        _refuse_options(cfg, mesh)
+        _refuse_options(cfg)
         device = resolve_device(device)
         self.grid = grid
         self.cfg = cfg
@@ -591,9 +588,14 @@ class HydroCore:
         # coupled b level, mod_tendency.F90:1283,1361-1380) + vadv on
         # coupled
         if self.isladvec == 1:
-            slw = sl_weights(ud, vd, self.msfx, self.dx, dt, *psa.shape)
-            qvhadv = slhadv(s.qx_b[IQV], slw, dt,
-                            qmsl=self.iqmsl == 1) * self.m_ci
+            # the departure points in the whole domain's coordinates; the
+            # b-level species extended once (by the stencil's reach under
+            # a mesh) serve both gathers
+            slw = sl_weights(ud, vd, self.msfx, self.dx, dt,
+                             self.grid.iy, self.grid.jx, mesh=self.mesh)
+            qxb_ext = sl_extend(s.qx_b, self.mesh)
+            qvhadv = slhadv(s.qx_b[IQV], slw, dt, qmsl=self.iqmsl == 1,
+                            src=qxb_ext[IQV]) * self.m_ci
         else:
             qvhadv = self._hadv_scalar(qvdec, uavg1, uavg2, vavg1, vavg2,
                                        ps=psa)
@@ -610,8 +612,8 @@ class HydroCore:
         qvten = qvhadv if self._kuo_defer() else qvhadv + qv_vadv
         # hydrometeors: hadv + vadv4d with the upstream sign guard
         if self.isladvec == 1:
-            qhten = slhadv(s.qx_b[1:], slw, dt,
-                           qmsl=self.iqmsl == 1) * self.m_ci
+            qhten = slhadv(s.qx_b[1:], slw, dt, qmsl=self.iqmsl == 1,
+                           src=qxb_ext[1:]) * self.m_ci
         else:
             qhten = self._hadv_scalar(qhdec, uavg1, uavg2, vavg1, vavg2,
                                       ps=psa)

@@ -12,8 +12,14 @@ the upstream value is rebuilt with the reference's mixed cubic/bilinear
 4×4 stencil, optionally clipped to the bilinear box's extremes (QMSL).
 The tendency is (upstream − var)/dt on the coupled field, as
 ``slhadv_x``. The departure points become flat (y, x) indices read by
-``torch.gather``; the indices are the whole domain's, so the scheme runs
-on one rank only (a decomposed run refuses it).
+``torch.gather``.
+
+Under a ``DomainMesh`` the departure points are formed in the whole
+domain's coordinates and clipped to its edges, as on one rank, then
+turned into indices of the rank's block extended by ``HALO`` rows and
+columns (|offset| ≤ 1 plus the stencil's two points beyond it): the
+advected fields are extended once a step (``extend``) and gathered
+there, so every column reads the values one rank would.
 """
 from __future__ import annotations
 
@@ -21,12 +27,28 @@ from typing import Dict
 
 import torch
 
+from ..parallel.halo import halo_expand2d
 from .stencil import dot2cross, shifte
 
+# the departure stencil's reach beyond a point: the offset (|n| ≤ 1) and
+# the two points the cubic reads past it (xnnm2, xnnp1)
+HALO = 3
 
-def sl_weights(ud, vd, msfx, dx, dt, iy, jx) -> Dict[str, torch.Tensor]:
+
+def extend(var, mesh):
+    """``var`` (..., ly, lx) extended by ``HALO`` from the neighbouring
+    ranks (the block itself without a mesh), the source ``slhadv`` reads.
+    The halo beyond a domain edge is never read: the departure points
+    are clipped inside the domain."""
+    return var if mesh is None else halo_expand2d(var, mesh, HALO)
+
+
+def sl_weights(ud, vd, msfx, dx, dt, iy, jx,
+               mesh=None) -> Dict[str, torch.Tensor]:
     """Departure-point flat indices and interpolation weights on the
-    cross grid (trajcalc_x). ud/vd: decoupled dot winds (kz, iy, jx)."""
+    cross grid (trajcalc_x). ud/vd: decoupled dot winds (kz, ly, lx), the
+    whole (iy, jx) domain or, under ``mesh``, the rank's block; the
+    indices address the plane of ``extend``'s source."""
     uadv = dot2cross(ud) / msfx[None]
     vadv = dot2cross(vd) / msfx[None]
     dtsq = dt * dt
@@ -51,8 +73,10 @@ def sl_weights(ud, vd, msfx, dx, dt, iy, jx) -> Dict[str, torch.Tensor]:
     xnp, alfax, xsn = split(xdis)
     ynp, betay, ysn = split(ydis)
     dev = ud.device
-    jj = torch.arange(jx, device=dev)[None, None, :]
-    ii = torch.arange(iy, device=dev)[None, :, None]
+    kz, ly, lx = ud.shape
+    y0, x0, h = (0, 0, 0) if mesh is None else (mesh.y0, mesh.x0, HALO)
+    jj = torch.arange(x0, x0 + lx, device=dev)[None, None, :]
+    ii = torch.arange(y0, y0 + ly, device=dev)[None, :, None]
     clipx = lambda a: torch.clamp(a, 0, jx - 2)
     clipy = lambda a: torch.clamp(a, 0, iy - 2)
     xndp = clipx(jj + xnp)
@@ -63,9 +87,11 @@ def sl_weights(ud, vd, msfx, dx, dt, iy, jx) -> Dict[str, torch.Tensor]:
     ynnm1 = clipy(yndp + ysn)
     y = dict(yndp=yndp, ynnm1=ynnm1, ynnm2=clipy(ynnm1 + ysn),
              ynnp1=clipy(yndp - ysn))
-    kz = ud.shape[0]
-    # the (row, column) pairs the stencil reads, as flat plane indices
-    pairs = {(yk, xk): (y[yk] * jx + x[xk]).reshape(kz, iy * jx)
+    # the (row, column) pairs the stencil reads, as flat indices of the
+    # (ly + 2h, lx + 2h) plane whose corner is the point (y0 - h, x0 - h)
+    wx = lx + 2 * h
+    pairs = {(yk, xk): ((y[yk] - (y0 - h)) * wx
+                        + (x[xk] - (x0 - h))).reshape(kz, ly * lx)
              for yk, xk in (("ynnp1", "xnnm1"), ("ynnp1", "xndp"),
                             ("ynnm2", "xnnm1"), ("ynnm2", "xndp"),
                             ("yndp", "xnnm2"), ("yndp", "xnnm1"),
@@ -85,13 +111,16 @@ def sl_weights(ud, vd, msfx, dx, dt, iy, jx) -> Dict[str, torch.Tensor]:
                 bm2=bm2, bm1=bm1w, b0=b0, bp1=bp1w, pairs=pairs)
 
 
-def slhadv(var, w: Dict[str, torch.Tensor], dt, qmsl: bool = True):
+def slhadv(var, w: Dict[str, torch.Tensor], dt, qmsl: bool = True,
+           src=None):
     """SL horizontal advective tendency of a coupled cross field
-    (slhadv_x3d/x4d). var: (kz, iy, jx) or (n, kz, iy, jx)."""
-    flat = var.reshape(var.shape[:-2] + (-1,))
+    (slhadv_x3d/x4d). var: (kz, ly, lx) or (n, kz, ly, lx); ``src`` its
+    ``extend``-ed form (``var`` itself by default, as without a mesh)."""
+    src = var if src is None else src
+    flat = src.reshape(src.shape[:-2] + (-1,))
 
     def g(yk, xk):
-        idx = w["pairs"][(yk, xk)].expand(flat.shape)
+        idx = w["pairs"][(yk, xk)].expand(flat.shape[:-1] + (-1,))
         return torch.gather(flat, -1, idx).reshape(var.shape)
     al = w["alffbl"]
     # bilinear on the outer y rows (:355-360)

@@ -78,8 +78,8 @@ SUPPORTED = dict(
     icldfrac={0, 1, 2, 3, 4, 5, 6},
     irrtm={0},                     # CCM3 (RRTMG: ROADMAP item 15)
 )
-# the dynamical cores refuse what they leave out (HydroCore: a decomposed
-# semi-Lagrangian run, item 10e; MolochCore: periodic domains)
+# the dynamical cores refuse what they leave out (HydroCore: chemistry;
+# MolochCore: periodic domains)
 
 
 def validate_physics(cfg):

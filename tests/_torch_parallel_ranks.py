@@ -113,6 +113,14 @@ HYDRO = {
     "parallel_phys": dict(iy=18, jx=24, ds=60.0, dt=120.0, ipptls=1,
                           perturb=0.2, seed=3, physics=True, solar=None,
                           record=(1, 4)),
+    # parallel_dyn with the semi-Lagrangian moisture advection, without
+    # and with the QMSL limiter (ROADMAP item 10e)
+    "parallel_sl0": dict(iy=18, jx=24, ds=60.0, dt=120.0, ipptls=0,
+                         isladvec=1, iqmsl=0, perturb=0.2, seed=3,
+                         physics=False, first=False, record=(10,)),
+    "parallel_sl1": dict(iy=18, jx=24, ds=60.0, dt=120.0, ipptls=0,
+                         isladvec=1, iqmsl=1, perturb=0.2, seed=3,
+                         physics=False, first=False, record=(10,)),
     # tests/test_parallel.py:237-264's band pair: x-periodic, Mercator
     # about the equator, 18x32x14, six dynamics steps
     "parallel_band": dict(iy=18, jx=32, ds=60.0, dt=120.0, ipptls=0,
@@ -129,8 +137,9 @@ def hydro_setup(cfg, name):
     if "ds" in st:
         cfg.geo.ds = st["ds"]
         cfg.time.dt = st["dt"]
-    if "ipptls" in st:
-        cfg.physics.ipptls = st["ipptls"]
+    for name in ("ipptls", "isladvec", "iqmsl"):
+        if name in st:
+            setattr(cfg.physics, name, st[name])
     if st.get("band"):
         cfg.geo.i_band = 1
         cfg.geo.iproj, cfg.geo.clat = "NORMER", 0.0
@@ -238,13 +247,10 @@ def icbc_setup(cfg, kind):
     return cfg
 
 
-def icbc_run(kind, paths, mesh=None, device="cpu"):
-    """An ICBC setting driven by the port's Model from the files in
-    ``paths`` (``icbc``, and ``domain`` for the grid where the setting
-    has one): the whole domain's state and boundary after
-    ``init_from_icbc`` ("init", "bdy0"), then after each recorded step of
-    ``run_icbc`` the state, boundary, decoupled fields, step count and
-    boundary clock (on every rank of a mesh)."""
+def icbc_model(kind, paths, mesh=None, device="cpu", init=True):
+    """The port's Model of an ICBC setting (f64) on the grid of the files
+    in ``paths`` (``icbc``, and ``domain`` where the setting has one),
+    cold-started from the ICBC file unless ``init`` is false."""
     from regcm_tpu_torch.config.params import RegCMConfig
     from regcm_tpu_torch.driver import Model
     from regcm_tpu_torch.preproc.icbc import ICBCReader
@@ -253,14 +259,142 @@ def icbc_run(kind, paths, mesh=None, device="cpu"):
     grid = build_grid_from_domain(cfg, paths["domain"]) \
         if "domain" in paths else None
     m = Model(cfg, grid=grid, device=device, dtype=torch.float64, mesh=mesh)
-    m.init_from_icbc(ICBCReader(paths["icbc"], cfg.globdat.calendar))
+    if init:
+        m.init_from_icbc(ICBCReader(paths["icbc"], cfg.globdat.calendar))
+    return m
+
+
+# restart chains: the ICBC hydrostatic run writes a SAV after step 22,
+# and a fresh Model loaded from it runs to the run's step 25, past the
+# hourly update after step 24 and the radiation step 24; MOLOCH at
+# dryrun_multichip's size from noon, saved at step 3 and run to 6, with
+# radiation at 4 and surface and cumulus every two steps
+HYDRO_SAV_STEP = 22
+MOLOCH_CHAIN = (3, 6)
+
+
+def _clock(m):
+    return (m.nstep, m.xbctime, m.date.to_seconds())
+
+
+def icbc_run(kind, paths, mesh=None, device="cpu", workdir=None):
+    """An ICBC setting driven by the port's Model from the files in
+    ``paths``: the whole domain's state and boundary after
+    ``init_from_icbc`` ("init", "bdy0"), then after each recorded step of
+    ``run_icbc`` the state, boundary, decoupled fields, step count and
+    boundary clocks (on every rank of a mesh). Given a ``workdir``, the
+    hydrostatic run is also a restart chain: it writes a SAV there after
+    HYDRO_SAV_STEP, and "restart" holds a fresh Model loaded from it
+    (the reader re-attached) and run to the last recorded step."""
+    from regcm_tpu_torch.preproc.icbc import ICBCReader
+    m = icbc_model(kind, paths, mesh, device)
     out = dict(init=_whole(m.state, mesh), bdy0=_whole(m.bdy, mesh))
+    chain = workdir is not None and kind == "hydro"
+    sav = f"{workdir}/{kind}_{'single' if mesh is None else 'mesh'}_SAV.nc"
     for n in ICBC[kind]["record"]:
+        if chain and m.nstep < HYDRO_SAV_STEP <= n:
+            m.run_icbc(HYDRO_SAV_STEP - m.nstep)
+            m.save_restart(sav)
         m.run_icbc(n - m.nstep)
         out[n] = dict(state=_whole(m.state, mesh), bdy=_whole(m.bdy, mesh),
                       dec=m.decoupled(), finite=m.check_finite(),
-                      nstep=m.nstep, xbctime=m.xbctime)
+                      nstep=m.nstep, xbctime=m.xbctime, clock=_clock(m))
+    if chain:
+        b = icbc_model(kind, paths, mesh, device, init=False)
+        b.load_restart(sav)
+        b.attach_icbc(ICBCReader(paths["icbc"], b.cfg.globdat.calendar))
+        b.run_icbc(m.nstep - HYDRO_SAV_STEP)
+        out["restart"] = dict(state=_whole(b.state, mesh),
+                              bdy=_whole(b.bdy, mesh), clock=_clock(b))
     return out
+
+
+def moloch_chain_model(mesh=None):
+    """The MOLOCH restart chain's model (f64, on the rank's block)."""
+    from regcm_tpu_torch.core.grid import build_grid
+    from regcm_tpu_torch.driver import Model
+    from regcm_tpu_torch.dynamics.moloch import MolochCore
+    cfg = moloch_cfg()
+    cfg.restart.mdate1 = 1990060112         # the sun up over the domain
+    cfg.time.dtrad = 4.0                    # minutes: steps 0 and 4
+    cfg.time.dtsrf = cfg.time.dtcum = 120.0
+    grid = build_grid(cfg, ht=hill(cfg.dim.iy, cfg.dim.jx))
+    st = MolochCore(grid, cfg, device="cpu").initial_state(perturb=0.3,
+                                                             seed=1)
+    return Model(cfg, grid=grid, device="cpu", initial_state=st, mesh=mesh)
+
+
+def moloch_chain(workdir, mesh=None):
+    """The MOLOCH restart chain: run A to MOLOCH_CHAIN's end with a SAV at
+    its middle step, run B loaded from the SAV to the same end; the whole
+    domain's state, boundary and clocks of each (on every rank)."""
+    mid, end = MOLOCH_CHAIN
+    sav = f"{workdir}/moloch_{'single' if mesh is None else 'mesh'}_SAV.nc"
+    a = moloch_chain_model(mesh)
+    a.run(mid)
+    a.save_restart(sav)
+    a.run(end - mid)
+    b = moloch_chain_model(mesh)
+    b.load_restart(sav)
+    b.run(end - mid)
+    return {k: dict(state=_whole(m.state, mesh), bdy=_whole(m.bdy, mesh),
+                    clock=_clock(m)) for k, m in (("a", a), ("b", b))}
+
+
+# the output streams: the hydrostatic core at 16x16x14 (dt 150 s, the
+# dynamics alone), a record every two steps on ATM, SRF and RAD over four
+# steps, then the day's STS statistics so far
+OUTPUT_STEPS = 4
+
+
+def output_run(workdir, backend, mesh=None):
+    """run_with_output on one rank or 2x2 into its own directory; returns
+    the directory."""
+    from regcm_tpu_torch.config.params import RegCMConfig
+    from regcm_tpu_torch.core.grid import build_grid
+    from regcm_tpu_torch.driver import Model
+    cfg = RegCMConfig()
+    cfg.dim.iy, cfg.dim.jx, cfg.dim.kz = 16, 16, 14
+    cfg.out.atmfrq = cfg.out.srffrq = cfg.out.radfrq = \
+        2 * cfg.time.dt / 3600.0
+    m = Model(cfg, grid=build_grid(cfg, ht=hill(16, 16)), device="cpu",
+              physics=False, mesh=mesh)
+    d = f"{workdir}/out_{backend}_{'single' if mesh is None else 'mesh'}"
+    m.open_output(d, backend=backend)
+    m.run_with_output(OUTPUT_STEPS)
+    m.streams.write_sts()
+    m.streams.close()
+    return d
+
+
+def ensemble_cfg(cfg):
+    """The ICBC hydrostatic setting (a RegCMConfig of either package)
+    with every ensemble perturbation, 1% each, seed 1234."""
+    icbc_setup(cfg, "hydro")
+    cfg.globdat.ensemble_run = True
+    for n in ("topo", "ts", "ps", "t", "q", "u", "v"):
+        setattr(cfg.perturb, f"lperturb_{n}", True)
+        setattr(cfg.perturb, f"perturb_frac_{n}", 0.01)
+    cfg.perturb.extras["seed"] = 1234
+    return cfg
+
+
+def ensemble_run(icbc_paths, mesh=None):
+    """An ensemble member from the ICBC file on its own (flat) grid, the
+    dynamics alone: the whole domain's state and boundary after the cold
+    start and 3 steps, and its mass budget (summed over the ranks)."""
+    from regcm_tpu_torch.config.params import RegCMConfig
+    from regcm_tpu_torch.driver import Model
+    from regcm_tpu_torch.preproc.icbc import ICBCReader
+    from regcm_tpu_torch.utils.service import mass_budget
+    cfg = ensemble_cfg(RegCMConfig())
+    m = Model(cfg, device="cpu", physics=False, mesh=mesh)
+    m.init_from_icbc(ICBCReader(icbc_paths["hydro"]["icbc"],
+                                cfg.globdat.calendar))
+    m.run_icbc(3)
+    b = mass_budget(m.state, m.grid, m.grid.dsigma, mesh)
+    return dict(state=_whole(m.state, mesh), bdy=_whole(m.bdy, mesh),
+                mass={k: float(v) for k, v in b.items()})
 
 
 # the undecomposed runs the 2x2 group is held to, each run on one rank of
@@ -268,26 +402,36 @@ def icbc_run(kind, paths, mesh=None, device="cpu"):
 # CPU kernels
 SINGLE = [("icbc", "moloch"), ("icbc", "hydro"), ("dryrun", None),
           ("model", None)] + [("hydro", name) for name in HYDRO] \
-    + [("periodic", kind) for kind in S.PERIODIC]
+    + [("periodic", kind) for kind in S.PERIODIC] \
+    + [("moloch_chain", None)] \
+    + [("output", b) for b in ("netcdf", "zarr")] + [("ensemble", None)]
 
 
-def single(kind, arg, icbc_paths):
+def single(kind, arg, icbc_paths, workdir):
     if kind == "icbc":
-        return icbc_run(arg, icbc_paths[arg])
+        return icbc_run(arg, icbc_paths[arg], workdir=workdir)
     if kind == "periodic":
         return S.periodic_run(arg)
     if kind == "hydro":
         return hydro_run(arg)
+    if kind == "moloch_chain":
+        return moloch_chain(workdir)
+    if kind == "output":
+        return output_run(workdir, arg)
+    if kind == "ensemble":
+        return ensemble_run(icbc_paths)
     return dryrun_moloch() if kind == "dryrun" else model_run()
 
 
-def two_by_two(rank, iy, jx, k5_inputs, icbc_paths):
+def two_by_two(rank, iy, jx, k5_inputs, icbc_paths, workdir):
     """Everything the 2x2 group checks, in one group: halo extensions,
     a gather to rank 0, every MOLOCH shift, K5a/b/c on the rank's
     blocks, the MOLOCH dryrun trajectory with the halo counters, the
-    MOLOCH Model run, the hydrostatic settings, both ICBC-driven runs and
-    the periodic runs of ``_torch_surface_settings.PERIODIC``;
-    then this rank's share of the undecomposed references (SINGLE)."""
+    MOLOCH Model run, the hydrostatic settings, both ICBC-driven runs,
+    the periodic runs of ``_torch_surface_settings.PERIODIC``, the
+    restart chains, the output streams on both backends and an ensemble
+    member (files under ``workdir``); then this rank's share of the
+    undecomposed references (SINGLE)."""
     from regcm_tpu_torch.dynamics.stencil import (cross2dot, dot2cross,
                                                   shift, shifte, topology)
     from regcm_tpu_torch.kernels import pbl_tridiag as k1
@@ -327,7 +471,8 @@ def two_by_two(rank, iy, jx, k5_inputs, icbc_paths):
         out["hydro"][name] = hydro_run(name, rank.mesh(st["iy"], st["jx"]))
         out["hydro"][name]["exchanges"] = halo.exchanges
     out["icbc"] = {kind: icbc_run(kind, icbc_paths[kind],
-                                  rank.mesh(st["iy"], st["jx"]))
+                                  rank.mesh(st["iy"], st["jx"]),
+                                  workdir=workdir)
                    for kind, st in ICBC.items()}
     out["periodic"] = {}
     for kind, st in S.PERIODIC.items():
@@ -336,7 +481,13 @@ def two_by_two(rank, iy, jx, k5_inputs, icbc_paths):
             else rank.mesh(st["iy"], st["jx"])
         out["periodic"][kind] = S.periodic_run(kind, pmesh)
         out["periodic"][kind]["exchanges"] = halo.exchanges
-    out["single"] = {case: single(*case, icbc_paths)
+    out["moloch_chain"] = moloch_chain(workdir, rank.mesh(16, 16))
+    omesh = rank.mesh(16, 16)
+    out["output"] = {b: output_run(workdir, b, omesh)
+                     for b in ("netcdf", "zarr")}
+    out["ensemble"] = ensemble_run(icbc_paths, rank.mesh(
+        ICBC["hydro"]["iy"], ICBC["hydro"]["jx"]))
+    out["single"] = {case: single(*case, icbc_paths, workdir)
                      for n, case in enumerate(SINGLE)
                      if n % rank.world == rank.rank}
     return out

@@ -32,6 +32,9 @@ MODULES = [
     "regcm_tpu_torch.physics.surface.seaice",
     "regcm_tpu_torch.physics.surface.dcsst",
     "regcm_tpu_torch.physics.surface.slab",
+    "regcm_tpu_torch.io.restart", "regcm_tpu_torch.io.output",
+    "regcm_tpu_torch.io.zarrio", "regcm_tpu_torch.utils.service",
+    "regcm_tpu_torch.utils.ensemble", "regcm_tpu_torch.coupling",
     "tests._torch_parallel_ranks", "tests._torch_surface_settings"]
 # one interpreter loads torch and numpy, then forks a child for each
 # module, which imports it and reports what of jax and the JAX package

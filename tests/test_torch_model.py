@@ -195,8 +195,8 @@ def test_model_refuses_unported_options():
     raises at model build: Kuo over land beside Emanuel over water (Kuo
     is never mixed), RRTMG (irrtm=1, item 15), chemistry (item 13), the
     UW TCM, a periodic domain and the subgrid surface on MOLOCH; the
-    decomposed runs (mesh=) also refuse the semi-Lagrangian advection
-    (ROADMAP item 10e) and chemistry (item 13)."""
+    decomposed runs (mesh=) also refuse chemistry (item 13), and build
+    the semi-Lagrangian advection's core (ROADMAP item 10e, ported)."""
     from regcm_tpu_torch.driver import Model
     from regcm_tpu_torch.parallel.mesh import DomainMesh
 
@@ -216,13 +216,17 @@ def test_model_refuses_unported_options():
             setattr(getattr(cfg, section), name, val)
         with pytest.raises((ValueError, NotImplementedError)):
             Model(cfg, device="cpu")
-    for section, name, item in (("physics", "isladvec", "10e"),
-                                ("physics", "ichem", "13")):
-        _, cfg = golden_cfgs()
-        setattr(getattr(cfg, section), name, 1)
-        mesh = DomainMesh(2, 2, cfg.dim.iy, cfg.dim.jx, rank=0)
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            Model(cfg, device="cpu", mesh=mesh, physics=False)
+    _, cfg = golden_cfgs()
+    cfg.physics.ichem = 1
+    mesh = DomainMesh(2, 2, cfg.dim.iy, cfg.dim.jx, rank=0)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        Model(cfg, device="cpu", mesh=mesh, physics=False)
+    from regcm_tpu_torch.dynamics.hydrostatic import HydroCore
+    _, cfg = golden_cfgs()
+    cfg.physics.isladvec = 1
+    core = HydroCore(tbuild_grid(cfg), cfg, device="cpu", mesh=mesh,
+                     physics=None)
+    assert core.isladvec == 1 and core.mesh is mesh
 
 
 def test_state_round_trip_through_numpy():

@@ -127,9 +127,10 @@ def icbc_paths(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def group22_started(background, k5, icbc_paths):
+def group22_started(background, k5, icbc_paths, tmp_path_factory):
+    work = str(tmp_path_factory.mktemp("group22"))
     return background[0].submit(launch.spawn, R.two_by_two, 2, 2, "gloo",
-                                "cpu", args=(IY, JX, k5, icbc_paths),
+                                "cpu", args=(IY, JX, k5, icbc_paths, work),
                                 timeout=900)
 
 
@@ -494,6 +495,98 @@ def test_icbc_mesh_matches_single_rank(kind, group22):
     last = got[max(R.ICBC[kind]["record"])]
     assert last["xbctime"] < 3600.0
     assert not np.array_equal(last["bdy"]["u0"], got["bdy0"]["u0"])
+
+
+def _chain(group, kind, mesh):
+    """(A, B) of a restart chain, each its state, boundary and clocks:
+    the 2x2 run's (``mesh``) or one rank's."""
+    if kind == "moloch":
+        out = group[0]["moloch_chain"] if mesh \
+            else _single(group, ("moloch_chain", None))
+        return out["a"], out["b"]
+    run = group[0]["icbc"]["hydro"] if mesh \
+        else _single(group, ("icbc", "hydro"))
+    return run[max(R.ICBC["hydro"]["record"])], run["restart"]
+
+
+def _same_chain(a, b, kind):
+    assert b["clock"] == a["clock"]
+    for part in ("state", "bdy"):
+        assert set(b[part]) == set(a[part])
+        for k, w in a[part].items():
+            np.testing.assert_array_equal(b[part][k], w,
+                                          err_msg=f"{kind} {part} {k}")
+
+
+@pytest.mark.parametrize("kind", ["hydro", "moloch"])
+def test_restart_chain_on_one_rank(kind, group22):
+    """tests/test_io.py:96's twin on one rank: test_001 from ICBC files
+    saved at step 22 and continued by a fresh Model that only
+    re-attaches the reader, past the hourly update after step 24 and
+    the radiation step 24; MOLOCH from noon past a radiation, surface
+    and cumulus step: bit for bit the uninterrupted run."""
+    a, b = _chain(group22, kind, mesh=False)
+    _same_chain(a, b, kind)
+    if kind == "hydro":
+        assert a["clock"][1] < 3600.0       # updated after step 24
+
+
+@pytest.mark.parametrize("kind", ["hydro", "moloch"])
+def test_restart_chain_on_mesh(kind, group22):
+    """Restart chains on 2x2 ranks: rank 0 writes the gathered SAV, every
+    rank loads its block into a fresh Model; the continued run equals the
+    uninterrupted 2x2 run bit for bit (the ICBC setting past its hourly
+    boundary update and a radiation step, MOLOCH past a radiation,
+    surface and cumulus step), which equals one rank's 1e-12 relative
+    (measured: bit-identical)."""
+    a, b = _chain(group22, kind, mesh=True)
+    _same_chain(a, b, kind)
+    one, _ = _chain(group22, kind, mesh=False)
+    assert one["clock"] == a["clock"]
+    for part in ("state", "bdy"):
+        _every_field(a[part], one[part], 1e-12, f"{kind} {part}")
+
+
+@pytest.mark.parametrize("backend", ["netcdf", "zarr"])
+def test_output_mesh_matches_single_rank(backend, group22):
+    """run_with_output on 2x2 ranks writes the one-rank run's files:
+    every stream's variables, statics and time axis equal, exactly; the
+    NetCDF files from rank 0's gathered records, the Zarr stores from
+    each rank's chunks (four a 2-D record)."""
+    from regcm_tpu_torch.io.ncio import read_nc
+    from regcm_tpu_torch.io.zarrio import read_zarr
+    mesh_dir = group22[0]["output"][backend]
+    one_dir = _single(group22, ("output", backend))
+    names = sorted(os.listdir(one_dir))
+    assert names == sorted(os.listdir(mesh_dir))
+    assert len(names) == 4            # ATM, SRF, RAD, STS
+    read = read_nc if backend == "netcdf" else read_zarr
+    for fn in names:
+        want = read(os.path.join(one_dir, fn))
+        got = read(os.path.join(mesh_dir, fn))
+        assert set(got) == set(want), fn
+        assert want["time"].shape[0] >= 1, fn
+        for k, w in want.items():
+            np.testing.assert_array_equal(got[k], w, err_msg=f"{fn} {k}")
+    if backend == "zarr":
+        atm = [f for f in names if "_ATM." in f][0]
+        chunks = [f for f in os.listdir(os.path.join(mesh_dir, atm, "ps"))
+                  if not f.startswith(".")]
+        assert len(chunks) == 4 * (R.OUTPUT_STEPS // 2 + 1)
+
+
+def test_ensemble_mesh_matches_single_rank(group22):
+    """An ensemble member on 2x2 ranks, each rank drawing the whole
+    record's noise and keeping its block: the state and boundary after
+    the cold start and three steps equal one rank's 1e-12 relative
+    (measured: bit-identical), and the mass budget, summed over the
+    ranks, 1e-12."""
+    got = group22[0]["ensemble"]
+    want = _single(group22, ("ensemble", None))
+    for part in ("state", "bdy"):
+        _every_field(got[part], want[part], 1e-12, f"ensemble {part}")
+    for k, w in want["mass"].items():
+        assert abs(got["mass"][k] / w - 1.0) <= 1e-12, k
 
 
 def test_mesh_refusals():

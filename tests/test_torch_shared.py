@@ -1,8 +1,10 @@
 """The port's own copies of the JAX package's JAX-free modules (config,
 grid, constants, projections, vertical, calendar, sun, vmodes, GHG and
-CCM3 tables, the lake cold start) give what the originals give. Both sides run the same numpy
+CCM3 tables, the lake cold start, the Zarr writer, the ensemble
+perturbation) give what the originals give. Both sides run the same numpy
 code on the same inputs, so every comparison is exact."""
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -266,3 +268,54 @@ def test_init_lake_and_lake_grid_match_jax():
     tg = tgrid.build_grid(tcfg, dhlake=dh)
     _equal(np.asarray(tg.extras["dhlake"]), np.asarray(jg.extras["dhlake"]),
            "dhlake")
+
+
+@pytest.mark.parametrize("seed", [0, 7])
+def test_ensemble_matches_jax(seed):
+    """randify and random_pick of each package, from generators of one
+    seed: the same numbers, exactly."""
+    from regcm_tpu.utils import ensemble as jens
+    from regcm_tpu_torch.utils import ensemble as tens
+    a = np.random.default_rng(3).normal(size=(4, 6, 5))
+    gens = [np.random.default_rng(seed) for _ in range(2)]
+    for frac in (0.001, 0.05):
+        _equal(jens.randify(a, frac, gens[0]), tens.randify(a, frac, gens[1]),
+               f"randify {frac}")
+    for total, nv in ((1.0, 5), (0.0, 3), (42.0, 9)):
+        _equal(jens.random_pick(total, nv, gens[0]),
+               tens.random_pick(total, nv, gens[1]), f"random_pick {nv}")
+
+
+def test_zarr_store_matches_jax(tmp_path):
+    """A store written by each package's ZarrWriter (statics, two
+    records, then one more appended) has the same files, byte for byte,
+    and reads back the same through either read_zarr."""
+    from regcm_tpu.io import zarrio as jz
+    from regcm_tpu_torch.io import zarrio as tz
+    rng = np.random.default_rng(1)
+    topo = rng.normal(size=(5, 7))
+    recs = [rng.normal(size=(3, 5, 7)) for _ in range(3)]
+    stores = {}
+    for name, mod in (("jax", jz), ("port", tz)):
+        p = str(tmp_path / f"{name}.zarr")
+        w = mod.ZarrWriter(p, {"kz": 3, "iy": 5, "jx": 7}, {"title": "t"})
+        w.def_static("topo", ("iy", "jx"), topo, "m", "Surface elevation")
+        w.def_time_var("t", ("kz", "iy", "jx"), "K", "Temperature")
+        for n in range(2):
+            w.write_record(6.0 * n, {"t": recs[n]})
+        w = mod.ZarrWriter(p, {"kz": 3, "iy": 5, "jx": 7}, append=True)
+        w.bind_time_var("t")
+        w.write_record(12.0, {"t": recs[2]})
+        stores[name] = p
+    files = {}
+    for name, p in stores.items():
+        files[name] = {os.path.relpath(os.path.join(d, f), p):
+                       open(os.path.join(d, f), "rb").read()
+                       for d, _, fs in os.walk(p) for f in fs}
+    assert files["jax"] == files["port"]
+    for p in stores.values():
+        _equal(jz.read_zarr(p, with_attrs=True),
+               tz.read_zarr(p, with_attrs=True), p)
+    d = tz.read_zarr(stores["port"])
+    np.testing.assert_array_equal(d["time"], [0.0, 6.0, 12.0])
+    np.testing.assert_array_equal(d["t"], np.asarray(recs, np.float32))

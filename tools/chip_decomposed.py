@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-"""The decomposed phases of ``chip_smoke.py`` (10-12, 14c, 15e, 16d, 17b)
-alone, with only what they are held to: the single card's first 12
-MOLOCH flagship steps (phase 6), the ICBC-driven runs (phase 13), the NH
-flagship on one card (phase 14a) and configurations A's, C's and D's
-first 12 steps on one card (phases 15a, 16b, 17a).
+"""The decomposed phases of ``chip_smoke.py`` (10-12, 14c, 15e, 16d, 17b,
+18b, 18d) alone, with only what they are held to: the single card's
+first 12 MOLOCH flagship steps (phase 6), the ICBC-driven runs (phase
+13), the NH flagship on one card (phase 14a), configurations A's, C's
+and D's first 12 steps on one card (phases 15a, 16b, 17a) and the
+semi-Lagrangian test_001 on one card (18b, 18d).
 
 For a host with four or more cards, where phases 10-12 run under gloo and
 under nccl (a card a rank): it spares the four-card call the phases that
 need one card only. Run from the repository root:
 
-    python3 tools/chip_decomposed.py
+    python3 tools/chip_decomposed.py            # every decomposed phase
+    python3 tools/chip_decomposed.py --phase18  # 18b and 18d alone
 
 It exits nonzero if a phase fails, as ``chip_smoke.py`` does.
 """
@@ -22,6 +24,28 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 import chip_smoke as cs  # noqa: E402
+
+
+def sl_group(rank, paths):
+    """One rank of 18b and 18d's group (``chip_smoke.sl_rank``)."""
+    return dict(sl=cs.sl_rank(rank, paths))
+
+
+def run_sl_alone(dev, smi, paths):
+    """Phases 18b and 18d alone: the one-card references, then a 2x2
+    group on every backend the host allows."""
+    import torch
+    from regcm_tpu_torch.parallel.launch import spawn
+    ref = cs.sl_single(dev, paths)
+    backends = ["gloo"] + (["nccl"] if torch.cuda.device_count() >= 4
+                           else [])
+    for backend in backends:
+        t0 = time.time()
+        res = spawn(sl_group, *cs.GRID, backend, "cuda", args=(paths,),
+                    timeout=900)
+        print(f"18b, 18d: {backend} group ran in {time.time() - t0:.1f} s "
+              f"on {smi}")
+        cs.check_sl_decomposed(res, backend, ref)
 
 
 def main():
@@ -43,6 +67,15 @@ def main():
     print(f"{smi}; {torch.cuda.device_count()} card(s)")
     for m in mods.values():
         m.build()
+    if "--phase18" in sys.argv[1:]:
+        tmp = tempfile.mkdtemp(prefix="chip_decomposed_")
+        try:
+            paths = cs.write_icbc_files(tmp)
+            paths["phase18"] = tmp
+            run_sl_alone(dev, smi, paths)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        return
     # phase 10's reference: the flagship's first 12 steps on one card
     mcfg = cs.flagship_cfg()
     mgrid = build_grid(mcfg)
@@ -61,6 +94,7 @@ def main():
     tmp = tempfile.mkdtemp(prefix="chip_decomposed_")
     try:
         paths = cs.write_icbc_files(tmp)
+        paths["phase18"] = tmp
         icbc13 = cs.run_icbc_single(dev, smi, paths, mods)   # phase 13
         nh14 = cs.run_nh_single(dev, smi, mods)              # phase 14a
         a = cs.hydro_icbc_model(paths, dev, physics=cs.SCHEME_A)
