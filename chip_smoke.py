@@ -47,12 +47,15 @@ Phases (any failure raises and the script exits nonzero):
  12. the decomposed hydrostatic core in the same groups: (a) f64 at
      dryrun_multichip's 16x16x14 settings (dynamics, and full physics
      with every alarm at step 0), 2x2 against one card; (b) test_001
-     (34x48x18, f32) from phase 13's ICBC files for 150 steps, past the
-     6-hourly boundary update after step 144, held at steps 12 and 150
-     to phase 13's single-card run bit for bit or, where it is not, by
-     the f32 rule (four times the single card's rel-RMS spread under a
-     1e-7 change of T); the ms/step, halo exchanges and bytes a step and
-     each rank's K5c and K2 launches;
+     (34x48x18, f32) from phase 13's ICBC files for 48 steps (four
+     radiation cycles), held at steps 12 and 48 to phase 13's
+     single-card run bit for bit or, where it is not, by the f32 rule
+     (four times the single card's rel-RMS spread under a 1e-7 change
+     of T); then phase 13a's SAV after step 132 loaded on 2x2 ranks and
+     run past the 6-hourly boundary update after step 144 to step 150,
+     bit for bit 13a's step 150 with its boundary clock; the ms/step,
+     halo exchanges and bytes a step and each rank's K5c and K2
+     launches;
  13. ICBC-driven runs on one card (run before phase 12, which is held to
      13a): (a) test_001 from a DOMAIN file of a 500 m hill and a
      one-day ICBC file (10 m/s jet) written by the port's preprocessors,
@@ -136,8 +139,8 @@ Phases (any failure raises and the script exits nonzero):
      (a) restart chains at full width riding on earlier runs, each SAV
      loaded into a fresh Model and run on, every state and boundary
      field held bit for bit to the uninterrupted run: test_001 from
-     phase 13's files saved at step 72 and run to 150, past the update
-     after step 144 (13a); the MOLOCH flagship from its ICBC start, 12
+     phase 13's files saved at step 132 and run to 150, past the update
+     after step 144 (13a; 12b loads the same SAV on 2x2 ranks); the MOLOCH flagship from its ICBC start, 12
      + 12 steps (13b); the NH flagship at dt 15 s, 12 + 12 steps (14a);
      the SAV's size and its write and read seconds; (b) in the
      decomposed group, test_001 with isladvec=1 on 2x2 ranks: a SAV at
@@ -150,6 +153,32 @@ Phases (any failure raises and the script exits nonzero):
      and the last ATM record equal to Model.decoupled() cut and rotated;
      (d) in the decomposed group, the same test_001 with iqmsl 0 and 1
      bit for bit one card's at step 12;
+ 19. the aerosol chemistry and its tracer transport, after phase 18 and,
+     for 19e, in the decomposed group: (a) configuration E = D plus AERO
+     (RegT-Band with chemistry, BASELINE.json's fifth configuration)
+     from phase 17's files, the land desert, the start moistened (qv
+     1.9 times the files', so that Emanuel convects), the carbon and
+     sulfur tracers seeded, 48 steps: launches (K1 twice a step, Holtslag's
+     fields and the tracers at ns = ntr; K2 in its tracer form on the
+     cumulus steps), the ms/step of each alarm class, a chemistry step's
+     device kernels and busy share, the peak memory, each tracer group's
+     burden, emission and deposition (dust and sea salt must emit,
+     convective rain fall and dust wash out), then K1 at ns = ntr and
+     K2's tracer form against their plain versions on the operands of
+     one of E's cumulus steps (some column convecting), f32 1e-5 and f64
+     1e-12,
+     with device time and bound; (b) the test_008 setting (DUST,
+     idirect=2) on test_001 from phase 13's files at noon, 24 steps,
+     with a dust layer: the surface SW against idirect=0; (c) the MOLOCH
+     flagship with DUST from phase 13's ICBC file, 24 steps through K1-K4
+     with the tracers in K4's stack (nf = 11), the ms/step; (d) the CPU
+     tests' chemistry settings (the nine chemsimtypes, DUST on MOLOCH,
+     Grell's columns under cumtran) on the card against the CPU in f64
+     at 16x20x14, 3 steps, held as 16c; (e) E's settings on test_001's
+     widths on 2x2 ranks, bit for bit one card's at step 12, with K5c's
+     launches and the exchanges a step; (f) run_with_output on (b) with
+     CHE and OPT every 6 steps on NetCDF and on Zarr, equal record for
+     record;
 then a JSON line of the kernels and the result line.
 """
 import json
@@ -230,7 +259,9 @@ UNEVEN = ((7, 14, 34, 48), (0, 11, 23, 34), (0, 20, 48))
 # HYDRO_CHECK; the MOLOCH flagship runs through the radiation step 60
 ICBC_END = 1990060200
 HYDRO_ICBC_STEPS = 150
-HYDRO_CHECK = (12, HYDRO_ICBC_STEPS)
+# 12b's steps on 2x2 ranks from the ICBC start (four radiation cycles);
+# its run past the update starts from 13a's SAV after step 132 (18a's)
+HYDRO_CHECK = (12, 48)
 MOLOCH_ICBC_STEPS = RAD_STEP + 1
 HYDRO_FIELDS = ("ps", "t", "qv", "u", "v")
 # phase 14: the NH flagship's dt. At 30 s the acoustic solver's substeps
@@ -342,8 +373,8 @@ NEW_CASES = (
 # 17a: the timing repetitions of K1 and K2 on D's operands
 D_REPS = 10
 # phase 18a: each restart chain's SAV step and end, riding on an earlier
-# phase's run (13a, 13b, 14a)
-CHAIN_STEPS = {"test_001": (72, HYDRO_ICBC_STEPS),
+# phase's run (13a, 13b, 14a); 12b runs test_001's SAV on 2x2 ranks too
+CHAIN_STEPS = {"test_001": (132, HYDRO_ICBC_STEPS),
                "MOLOCH": (DECOMP_STEPS, STEPS), "NH": (DECOMP_STEPS, STEPS)}
 # 18c: run_with_output over 24 MOLOCH steps, a record every 6 (3 min at
 # dt 30 s) on ATM, SRF and RAD: four besides the first
@@ -353,6 +384,23 @@ OUTPUT_EVERY = 6
 # advection on 2x2 ranks: iqmsl 0 and 1 to step 12; with iqmsl 1 a SAV
 # at 12 and the chain to 24
 SL_STEPS = (12, 24)
+# phase 19: configuration E = D plus AERO (RegT-Band with chemistry,
+# BASELINE.json's fifth configuration; RegCM4 Testing/test_009.in and
+# test_010.in) for E_STEPS steps, 19e on 2x2 ranks to E_CHECK; the AERO
+# tracers seeded (carbon and sulfur: no emission inventory here) and the
+# groups whose burdens are printed; 19b and 19f's test_008 setting at
+# noon on test_001 (the sun up), CHEM_STEPS steps, CHE and OPT every
+# CHEM_EVERY; 19c's MOLOCH steps; 19d's size
+E_STEPS = 48
+E_CHECK = 12
+E_QVFAC = CU_QVFAC                  # E's start moistened, so that it convects
+E_SEEDED = list(range(6))           # BC_HL, BC_HB, OC_HL, OC_HB, SO2, SO4
+E_GROUPS = ("BC", "OC", "SO2", "SO4", "DUST", "SSLT")
+CHEM_NOON = 1990060112
+CHEM_STEPS = 24
+CHEM_EVERY = 6
+CHEM_CPU_SHAPE = (16, 20, 14)
+CHEM_WIND = 10.0                    # m/s westerly added to the ICBC start
 
 
 def nvidia_smi_line():
@@ -369,6 +417,11 @@ def rel_err(got, want):
         float((got - want).abs().max())
 
 
+# device_ms's calls whose kernels no profiler trace showed, timed with
+# CUDA events instead (printed before the kernels line)
+EVENT_TIMED = []
+
+
 def time_ms(fn, reps=20):
     import torch
     fn()
@@ -383,14 +436,17 @@ def time_ms(fn, reps=20):
     return t0.elapsed_time(t1) / reps
 
 
-def device_ms(fn, kernels, reps=20, tries=3):
+def device_ms(fn, kernels, reps=20, tries=5):
     """The device time of one call's kernels: for each name in
     ``kernels``, the mean duration of torch.profiler's CUDA kernel
     events of that name over ``reps`` calls after a warm-up, summed over
     the names (no host time in it). A trace that holds no event of a
     name is taken again, up to ``tries`` traces (the card's tracer now
     and then returns a trace without the kernel events of a run whose
-    results were checked just before)."""
+    results were checked just before). If every trace misses a name, the
+    call is timed with CUDA events instead (``time_ms``: the whole call,
+    its host launch and any copies included, so an upper bound on the
+    kernels' time) and the fallback is recorded in EVENT_TIMED."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -410,8 +466,12 @@ def device_ms(fn, kernels, reps=20, tries=3):
         print(f"device_ms: trace {attempt} of {tries} holds no event of "
               f"{missing}")
     else:
-        raise AssertionError(f"the profiler saw no launch of {missing} in "
-                             f"{tries} traces")
+        ms = time_ms(fn, reps)
+        EVENT_TIMED.append(dict(kernels=list(kernels), ms=ms))
+        print(f"device_ms: the profiler saw no launch of {missing} in "
+              f"{tries} traces; the whole call timed with CUDA events "
+              f"instead: {ms:.4f} ms")
+        return ms
     total = sum(sum(e.time_range.elapsed_us() for e in evs) / len(evs)
                 for evs in ev.values())
     return total / 1e3
@@ -974,7 +1034,8 @@ def mean_ms(steps, lo, hi, rad):
 
 def run_icbc_single(dev, smi, paths, mods, chains=None):
     """Phase 13: the ICBC-driven runs on one card; returns 13a's decoupled
-    fields at HYDRO_CHECK and its mean ms/step from step 12 on. Phase
+    fields at HYDRO_CHECK and step 150, its boundary clock at step 150
+    and its mean ms/step over HYDRO_CHECK's window. Phase
     18a's ``chains`` ("test_001", "MOLOCH") ride on 13a and 13b."""
     chains = chains or {}
     import torch
@@ -985,7 +1046,8 @@ def run_icbc_single(dev, smi, paths, mods, chains=None):
     print(f"ICBC test_001: {model.grid.jx}x{model.grid.iy}x{model.grid.kz}"
           f", set-up and init_from_icbc {time.time() - t0:.1f} s")
     reset(mods)
-    steps, rec, _ = icbc_steps(model, HYDRO_ICBC_STEPS, HYDRO_CHECK,
+    steps, rec, _ = icbc_steps(model, HYDRO_ICBC_STEPS,
+                               HYDRO_CHECK + (HYDRO_ICBC_STEPS,),
                                chain=chains.get("test_001"))
     launches = read(mods)
     print(f"ICBC test_001 path: {HYDRO_ICBC_STEPS} steps, launches "
@@ -1006,7 +1068,9 @@ def run_icbc_single(dev, smi, paths, mods, chains=None):
     print(f"ICBC test_001 ms/step (f32, 34x48x18, steps 1..149, each "
           f"synchronised): {plain:.3f} over the {n_plain} steps without "
           f"radiation, {rad:.3f} over the {n_rad} radiation steps, on {smi}")
-    window = [t for n, _, t in steps if n >= HYDRO_CHECK[0]]
+    window = [t for n, _, t in steps
+              if HYDRO_CHECK[0] <= n < HYDRO_CHECK[1]]
+    xbctime = model.xbctime
     del model
     torch.cuda.empty_cache()
 
@@ -1057,7 +1121,8 @@ def run_icbc_single(dev, smi, paths, mods, chains=None):
         del d
     del model
     torch.cuda.empty_cache()
-    return dict(rec=rec, window_ms=sum(window) / len(window))
+    return dict(rec=rec, window_ms=sum(window) / len(window),
+                xbctime=xbctime)
 
 
 def moloch_icbc_model(paths, device, init=True):
@@ -1088,7 +1153,7 @@ def hydro_spread(dev, paths):
     noise = torch.as_tensor(rng.standard_normal(tuple(t.shape)),
                             dtype=t.dtype, device=t.device)
     model.state = model.state._replace(t_a=t * (1.0 + 1e-7 * noise))
-    _, rec, _ = icbc_steps(model, HYDRO_ICBC_STEPS, HYDRO_CHECK)
+    _, rec, _ = icbc_steps(model, HYDRO_CHECK[1], HYDRO_CHECK)
     del model
     torch.cuda.empty_cache()
     return rec
@@ -1102,7 +1167,9 @@ def decomposed_rank(rank, time_steps, paths):
     MOLOCH dryrun; the f64 hydrostatic dryruns; test_001 from the ICBC
     files in ``paths`` (counters reset just before, read just after)
     with the whole domain's fields at HYDRO_CHECK (on rank 0) and the
-    ms/step after step 12; then the later phases' rank functions."""
+    ms/step after step 12, and from phase 13a's SAV after step 132 past
+    the boundary update to step 150; then the later phases' rank
+    functions."""
     import torch
     import torch.distributed as dist
     from regcm_tpu_torch.core.grid import build_grid
@@ -1113,6 +1180,7 @@ def decomposed_rank(rank, time_steps, paths):
     from regcm_tpu_torch.kernels import tridiag_w as k3
     from regcm_tpu_torch.kernels import waf_advect as k4
     from regcm_tpu_torch.parallel import halo
+    from regcm_tpu_torch.preproc.icbc import ICBCReader
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = rank.device
@@ -1157,7 +1225,7 @@ def decomposed_rank(rank, time_steps, paths):
     hd = {ph: hydro_dryrun(dev, ph, rank.mesh(16, 16))
           for ph in (False, True)}
     out["hydro_dryrun"] = hd if rank.rank == 0 else None
-    # -- 12b. test_001 from the ICBC files, f32, 150 steps
+    # -- 12b. test_001 from the ICBC files, f32, HYDRO_CHECK[1] steps
     model = hydro_icbc_model(paths, dev, rank.mesh(34, 48))
     for m in mods.values():
         m.launches = 0
@@ -1166,7 +1234,7 @@ def decomposed_rank(rank, time_steps, paths):
     model.run_icbc(HYDRO_CHECK[0])
     dec = {HYDRO_CHECK[0]: model.decoupled()}
     dist.barrier()
-    _, wall = model.run_icbc(HYDRO_ICBC_STEPS - HYDRO_CHECK[0])
+    _, wall = model.run_icbc(HYDRO_CHECK[1] - HYDRO_CHECK[0])
     launches = {k: m.launches for k, m in mods.items()}
     launches.update(K5a=k4.launches_sharded, K5b=k3.launches_sharded,
                     K5c=k1.launches_sharded)
@@ -1175,12 +1243,26 @@ def decomposed_rank(rank, time_steps, paths):
     out["hydro"] = dict(
         launches=launches, finite=model.check_finite(),
         xbctime=model.xbctime,
-        exchanges_per_step=halo.exchanges / HYDRO_ICBC_STEPS,
-        bytes_per_step=halo.bytes_sent / HYDRO_ICBC_STEPS,
+        exchanges_per_step=halo.exchanges / HYDRO_CHECK[1],
+        bytes_per_step=halo.bytes_sent / HYDRO_CHECK[1],
         ms_per_step=1000.0 * max(walls)
-        / (HYDRO_ICBC_STEPS - HYDRO_CHECK[0]))
-    dec[HYDRO_ICBC_STEPS] = model.decoupled()
+        / (HYDRO_CHECK[1] - HYDRO_CHECK[0]))
+    dec[HYDRO_CHECK[1]] = model.decoupled()
     out["hydro"]["dec"] = dec if rank.rank == 0 else None
+    del model
+    # -- 12b. the boundary update under the mesh: phase 13a's SAV after
+    # step CHAIN_STEPS["test_001"][0] (phase 18a's) into a fresh 2x2
+    # Model, run past the update after step 144 to step 150
+    model = hydro_icbc_model(paths, dev, rank.mesh(34, 48))
+    model.load_restart(os.path.join(paths["phase18"], "test_001_SAV.nc"))
+    model.attach_icbc(ICBCReader(paths["hydro"],
+                                 model.cfg.globdat.calendar))
+    k1.launches_sharded = 0
+    model.run_icbc(HYDRO_ICBC_STEPS - model.nstep)
+    dec = model.decoupled()
+    out["hydro"]["update"] = dict(
+        finite=model.check_finite(), xbctime=model.xbctime,
+        k5c=k1.launches_sharded, dec=dec if rank.rank == 0 else None)
     del model
     torch.cuda.empty_cache()
     out["nh"] = nh_rank(rank, time_steps)
@@ -1188,6 +1270,7 @@ def decomposed_rank(rank, time_steps, paths):
     out["cumulus"] = cumulus_rank(rank, paths)
     out["band"] = band_rank(rank, paths)
     out["sl"] = sl_rank(rank, paths)
+    out["chem"] = chem_rank(rank, paths)
     return out
 
 
@@ -1232,16 +1315,18 @@ def nh_rank(rank, time_steps):
     return nh
 
 
-def run_decomposed(dev, smi, single12, paths, icbc13, nh12, a15, c16, d17):
+def run_decomposed(dev, smi, single12, paths, icbc13, nh12, a15, c16, d17,
+                   e19):
     """Phases 10-12, 14c, 15e, 16d, 17b, 18b and 18d: the 2x2 groups of
     ``decomposed_rank`` on every backend the host allows, held bit for
     bit to the single card's step-12 fields ``single12`` and to its f64
     dryruns, test_001 from ICBC to phase 13a's run ``icbc13``, the NH
     flagship bit for bit to phase 14a's step-12 fields ``nh12``,
     configurations A, C and D to their single-card step-12 fields
-    ``a15``, ``c16`` and ``d17``, the CRM to one card in f64, and the
-    semi-Lagrangian test_001 to one card (``sl_single``); returns each
-    backend's rank results."""
+    ``a15``, ``c16`` and ``d17``, the CRM to one card in f64, the
+    semi-Lagrangian test_001 to one card (``sl_single``) and E's settings
+    on test_001's widths to one card's step-12 fields ``e19``; returns
+    each backend's rank results."""
     import torch
     from regcm_tpu_torch.core.grid import build_grid
     from regcm_tpu_torch.parallel.launch import spawn
@@ -1346,8 +1431,9 @@ def run_decomposed(dev, smi, single12, paths, icbc13, nh12, a15, c16, d17):
                 raise AssertionError(f"rank {r} ({backend}): the "
                                      f"decomposed test_001 path bypassed "
                                      f"K5c or K2: {h['launches']}")
-            if h["xbctime"] >= 6 * 3600.0:
-                raise AssertionError(f"rank {r}: no boundary update")
+            if h["xbctime"] != HYDRO_CHECK[1] * hydro_icbc_cfg().dtsec:
+                raise AssertionError(f"rank {r}: the boundary clock is "
+                                     f"{h['xbctime']} s")
         dec = res[0]["hydro"]["dec"]
         same = all(np.array_equal(dec[n][f], icbc13["rec"][n][f])
                    for n in HYDRO_CHECK for f in HYDRO_FIELDS)
@@ -1374,10 +1460,37 @@ def run_decomposed(dev, smi, single12, paths, icbc13, nh12, a15, c16, d17):
               + ("bit for bit" if same else
                  "by the f32 rule (four times the single card's rel-RMS "
                  "spread under a 1e-7 change of T; not bit-identical)"))
+        # the boundary update under the mesh: 13a's SAV after step
+        # CHAIN_STEPS["test_001"][0] run on 2x2 ranks to step 150
+        at = CHAIN_STEPS["test_001"][0]
+        for r, out in enumerate(res):
+            u = out["hydro"]["update"]
+            if not u["finite"] or u["k5c"] <= 0:
+                raise AssertionError(f"rank {r} ({backend}): the update "
+                                     f"run is not finite or bypassed K5c: "
+                                     f"{u['k5c']}")
+            if u["xbctime"] != icbc13["xbctime"]:
+                raise AssertionError(f"rank {r} ({backend}): boundary clock "
+                                     f"{u['xbctime']} s after step "
+                                     f"{HYDRO_ICBC_STEPS}, one card "
+                                     f"{icbc13['xbctime']} s")
+        dec = res[0]["hydro"]["update"]["dec"]
+        want = icbc13["rec"][HYDRO_ICBC_STEPS]
+        bad = [f for f in HYDRO_FIELDS if not np.array_equal(dec[f], want[f])]
+        print(f"  test_001 ICBC f32 from phase 13a's SAV after step {at} on "
+              f"2x2 ranks ({backend}), past the boundary update after step "
+              f"144 (boundary clock {res[0]['hydro']['update']['xbctime']:.0f}"
+              f" s), step {HYDRO_ICBC_STEPS} vs one card: "
+              + (f"bit-identical in {', '.join(HYDRO_FIELDS)}" if not bad
+                 else f"DIFFERENT in {bad}"))
+        if bad:
+            raise AssertionError(f"decomposed test_001 ({backend}) after the "
+                                 f"boundary update differs from one card "
+                                 f"in {bad}")
         print(f"  decomposed test_001 ms/step (f32, 34x48x18 from ICBC on "
               f"2x2 ranks, {backend}, steps {HYDRO_CHECK[0]}.."
-              f"{HYDRO_ICBC_STEPS - 1}: radiation every 12, the boundary "
-              f"update after 144; synchronised, slowest rank): "
+              f"{HYDRO_CHECK[1] - 1}: radiation every 12; synchronised, "
+              f"slowest rank): "
               f"{res[0]['hydro']['ms_per_step']:.3f}, one card "
               f"{icbc13['window_ms']:.3f} (phase 13a, the same steps), on "
               f"{smi}")
@@ -1463,6 +1576,8 @@ def run_decomposed(dev, smi, single12, paths, icbc13, nh12, a15, c16, d17):
         check_band_decomposed(res, backend, d17, crm_ref)
         # -- 18b, 18d. the semi-Lagrangian advection on 2x2 ranks
         check_sl_decomposed(res, backend, sl_ref)
+        # -- 19e. the chemistry on 2x2 ranks
+        check_chem_decomposed(res, backend, e19)
         decomp[backend] = res
     return decomp
 
@@ -2476,9 +2591,9 @@ def check_d_operands(model, mods):
     sites = (("K1", holtslag, NAMES["K1"]), ("K2", emanuel, NAMES["K2"]))
 
     def recording(k, fn):
-        def call(*args):
+        def call(*args, **kw):
             seen.setdefault(k, [a.clone() for a in args])
-            return fn(*args)
+            return fn(*args, **kw)
         return call
 
     for k, site, name in sites:
@@ -2498,9 +2613,11 @@ def check_d_operands(model, mods):
             # D's start is dry (no rain in 48 steps): K2 also takes phase
             # 3's synthetic profiles, a deep cloud in every column, at
             # D's shape
-            ncloud = int(seen[k][-1].any(dim=1).sum())
-            print(f"17a K2: {ncloud} of {shape[0]} columns of D's cumulus "
-                  f"step in cloud")
+            nconv = int((seen[k][9] > 0.0).any(dim=1).sum())
+            print(f"17a K2: {nconv} of {shape[0]} columns of D's cumulus "
+                  f"step with a mass flux"
+                  + (" (none: D's operands hold K2 on zeros)"
+                     if nconv == 0 else ""))
             cases.append(("clouds at D's shape",
                           k2_inputs(shape, torch.float32, model.device)))
         for label, args in cases:
@@ -3117,6 +3234,583 @@ def check_sl_decomposed(res, backend, ref):
                              f"differs from the uninterrupted one")
 
 
+# -- phase 19: the aerosol chemistry and its tracer transport ------------
+def chem_setup(cfg, sim, idirect=0):
+    """ichem=1 with chemsimtype ``sim`` on ``cfg``."""
+    cfg.physics.ichem = 1
+    cfg.chem.chemsimtype = sim
+    cfg.chem.idirect = idirect
+    return cfg
+
+
+def desert(grid):
+    """The land of ``grid`` marked desert (landuse 8), as the JAX
+    package's tests/test_chem.py does, so that dust emits."""
+    grid.extras["lveg"] = np.where(np.asarray(grid.lndocn) > 0.5, 8, 15)
+    return grid
+
+
+def westerly(model, wind=CHEM_WIND):
+    """``wind`` m/s added to the zonal wind at every level (the ICBC
+    files' jet is calm at the surface, where the dust and the sea salt
+    are lifted; tests/test_chem.py's runs set 12 m/s the same way)."""
+    import torch
+    from regcm_tpu_torch.dynamics import stencil
+    s = model.state
+    if model.idynamic == 3:
+        model.state = s._replace(u=s.u + wind)
+        return model
+    with stencil.topology(model.core.periodic_x, model.core.periodic_y,
+                          mesh=model.mesh):
+        psd = stencil.cross2dot(s.ps_a)
+    du = wind * psd[None] * torch.ones_like(s.u_a)
+    model.state = s._replace(u_a=s.u_a + du, u_b=s.u_b + du)
+    return model
+
+
+def seed_tracers(model, which, peak=1.0e-9):
+    """A seeded initial profile of the tracers ``which`` (no emission
+    inventory is in the repository, so the JAX package's carbon and
+    sulfur sources are zero): ``peak`` kg/kg at the surface falling off
+    over four levels, horizontally uniform, on both time levels."""
+    import torch
+    s = model.state
+    kz = model.grid.kz
+    prof = torch.as_tensor(peak * np.exp(-((np.arange(kz) - (kz - 1))
+                                           / 4.0) ** 2),
+                           dtype=s.chi_b.dtype, device=s.chi_b.device)
+    if model.idynamic == 3:
+        chi = s.chi_b.clone()
+        chi[which] = prof[:, None, None]
+        model.state = s._replace(chi_b=chi)
+        return model
+    chi = s.chi_a.clone()
+    chi[which] = prof[:, None, None] * s.ps_a[None]
+    model.state = s._replace(chi_a=chi, chi_b=chi.clone())
+    return model
+
+
+def e_model(paths, device, mesh=None, dtype=None, files="band"):
+    """Configuration E (D plus AERO) in f32 from phase 17's DOMAIN and
+    ICBC files (``files="band"``) or on test_001's widths from phase 13's
+    (``files="test_001"``, 19e), the land desert, a 10 m/s westerly added,
+    the start moistened by ``moisten`` (qv E_QVFAC times the files': the
+    ICBC start alone does not convect, and E's Emanuel columns would
+    then move no tracer and wash none out), the carbon and sulfur
+    tracers seeded (the rank's block under a mesh)."""
+    import torch
+    from regcm_tpu_torch.driver import Model
+    from regcm_tpu_torch.preproc.icbc import ICBCReader
+    from regcm_tpu_torch.preproc.terrain import build_grid_from_domain
+    if files == "band":
+        cfg, dom, icbc = band_cfg(), paths["band_domain"], paths["band"]
+    else:
+        cfg = with_physics(hydro_icbc_cfg(), SCHEME_D)
+        dom, icbc = paths["domain"], paths["hydro"]
+    cfg = chem_setup(cfg, "AERO")
+    grid = desert(build_grid_from_domain(cfg, dom))
+    m = Model(cfg, grid=grid, device=device, dtype=dtype or torch.float32,
+              mesh=mesh)
+    m.init_from_icbc(ICBCReader(icbc, cfg.globdat.calendar))
+    m = westerly(m)
+    m.state = moisten(m.state, m.idynamic, E_QVFAC)
+    return seed_tracers(m, E_SEEDED)
+
+
+def chem_fields(model):
+    """The decoupled fields and the tracers (both levels) and the
+    accumulators of the whole domain, host arrays."""
+    d = model.decoupled()
+    for k in ("chi_a", "chi_b", "chemdiag"):
+        v = getattr(model.state, k)
+        if model.mesh is not None:
+            v = model.mesh.gather(v)
+        d[k] = v.cpu().numpy()
+    return d
+
+
+def burdens(model):
+    """Each AERO tracer group's domain-mean column burden and its mean
+    accumulated emission, dry and wet deposition (kg/m²)."""
+    import torch
+    from regcm_tpu_torch.chem.species import build_species
+    s = model.state
+    dsig = torch.as_tensor(np.asarray(model.grid.dsigma), dtype=s.chi_a.dtype,
+                           device=s.chi_a.device)[None, :, None, None]
+    col = (s.chi_a * dsig).sum(dim=1) * 1000.0 / 9.80665
+    names = build_species(model.cfg.chem.chemsimtype).names
+    out = {}
+    for group in E_GROUPS:
+        idx = [n for n, nm in enumerate(names) if nm.startswith(group)]
+        out[group] = [float(col[idx].sum(dim=0).mean())] + [
+            float(s.chemdiag[a][idx].sum(dim=0).mean()) for a in range(3)]
+    return out
+
+
+def run_chem_e(dev, smi, paths, mods):
+    """Phase 19a: configuration E at full width from phase 17's files for
+    E_STEPS steps: launches (K1 twice a step: Holtslag's fields and the
+    tracers; K2 in its tracer form on the cumulus steps), the ms/step of
+    each alarm class, a chemistry step's device kernels and busy share,
+    the peak memory, each tracer group's burden and accumulators; then K1
+    (ns = ntr) and K2's tracer form against their plain versions on the
+    operands of one of E's cumulus steps, in f32 and f64, timed."""
+    import torch
+    from regcm_tpu_torch.kernels import emanuel_mixing as k2
+    t0 = time.time()
+    model = e_model(paths, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    g = model.grid
+    shape = f"{g.jx}x{g.iy}x{g.kz}"
+    print(f"19a. configuration E = D {SCHEME_D} plus AERO ({model.core.ntr} "
+          f"tracers), the tropical band at {shape} (ds {model.cfg.geo.ds} "
+          f"km, dt {model.cfg.dtsec} s, f32, the land desert, carbon and "
+          f"sulfur seeded; from ICBC moistened (qv x {E_QVFAC}), set-up "
+          f"{time.time() - t0:.1f} s)")
+    reset(mods)
+    k2.launches_tracers = 0
+    rows, rec = timed_steps(model, E_STEPS, (E_CHECK,))
+    launches = read(mods)
+    tracer_k2 = k2.launches_tracers
+    ncum = sum(1 for row in rows if row[3])
+    print(f"19a path: {E_STEPS} steps, launches {launches} (K1 "
+          f"{launches['K1'] / E_STEPS:.2f} a step; K2 {tracer_k2} in the "
+          f"tracer form over {ncum} cumulus steps)")
+    if not model.check_finite():
+        raise AssertionError("19a: non-finite state")
+    if launches["K1"] != 2 * E_STEPS or tracer_k2 != ncum \
+            or launches["K2"] != ncum:
+        raise AssertionError(f"19a bypassed K1's tracer solve or K2's "
+                             f"tracer form: {launches}, {tracer_k2}")
+    ms = class_ms(rows, "19a", smi, shape)
+    b = burdens(model)
+    for group, (burden, em, dd, wd) in b.items():
+        print(f"19a step {E_STEPS} {group}: mean burden {burden:.4e} kg/m2, "
+              f"emitted {em:.4e}, dry-deposited {dd:.4e}, wet-deposited "
+              f"{wd:.4e} kg/m2")
+    if not (b["DUST"][1] > 0.0 and b["SSLT"][1] > 0.0):
+        raise AssertionError(f"19a: no dust or sea-salt emission: {b}")
+    rainc = float(model.state.rainc.max())
+    print(f"19a step {E_STEPS}: convective rain max {rainc:.4f} mm, "
+          f"large-scale {float(model.state.rainnc.max()):.4f} mm")
+    if not (rainc > 0.0 and b["DUST"][3] > 0.0):
+        raise AssertionError(f"19a: E rained no convective rain or washed "
+                             f"no dust out: rainc {rainc}, {b}")
+    next_cumulus_step(model)
+    nker, busy, wall = step_kernels(model, lambda: model.run_icbc(1))
+    print(f"19a cumulus step {model.nstep - 1} (chemistry every step) under "
+          f"the profiler: {nker} device kernels, device busy {busy:.2f} ms "
+          f"of {wall:.1f} ms wall ({100.0 * busy / wall:.1f}%)")
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    print(f"19a peak device memory {peak:.2f} GiB on {smi}")
+    operands = check_e_operands(model, mods)
+    del model
+    torch.cuda.empty_cache()
+    return dict(ms=ms, rec=rec[E_CHECK], peak_gib=peak,
+                per_step=dict(K1=launches["K1"] / E_STEPS,
+                              K2=tracer_k2 / ncum),
+                tracer_launches=tracer_k2, operands=operands)
+
+
+def check_e_operands(model, mods):
+    """19a's kernels on E's own operands: the next cumulus step runs with
+    the tracers' K1 call (ns = ntr) and K2's tracer-form call recorded
+    (copies of the inputs); then each kernel, and K2's tracer form on
+    synthetic clouds at E's shape, against its plain version in f32
+    (1e-5) and in f64 (the operands cast; 1e-12, and K2's eight terms at
+    their 1e-10), timed in f32 with its device time beside its bound.
+    Runs after the main path's counts were read."""
+    import torch
+    from regcm_tpu_torch.physics.cumulus import emanuel
+    from regcm_tpu_torch.physics.pbl import holtslag
+    ntr = model.core.ntr
+    next_cumulus_step(model)
+    seen = {}
+    k1f, k2f = mods["K1"].pbl_tridiag, mods["K2"].emanuel_mixing
+
+    def k1_rec(*args):
+        if args[3].shape[0] == ntr:
+            seen.setdefault("K1", [a.clone() for a in args])
+        return k1f(*args)
+
+    def k2_rec(*args, **kw):
+        if kw.get("tra") is not None:
+            seen.setdefault("K2", ([a.clone() for a in args],
+                                   {k: v.clone() for k, v in kw.items()}))
+        return k2f(*args, **kw)
+
+    holtslag.pbl_tridiag, emanuel.emanuel_mixing = k1_rec, k2_rec
+    try:
+        model.run_icbc(1)
+    finally:
+        holtslag.pbl_tridiag, emanuel.emanuel_mixing = k1f, k2f
+    out = {}
+    cases = []
+    for k in ("K1", "K2"):
+        if k not in seen:
+            raise AssertionError(f"19a: E's cumulus step made no {k} "
+                                 f"tracer call")
+        cases.append((k, "E's operands", *((seen[k], {}) if k == "K1"
+                                          else seen[k])))
+    # E's operands must hold convection (a mass flux m > 0 in some
+    # column, else the tracer form's contraction is of zeros); K2's
+    # tracer form also takes phase 3's synthetic profiles, a deep cloud
+    # in every column, at E's shape with seeded tracers
+    ncol, L, ntr = seen["K2"][1]["tra"].shape
+    rng = np.random.default_rng(12)
+    nconv = int((seen["K2"][0][9] > 0.0).any(dim=1).sum())
+    print(f"19a K2: {nconv} of {ncol} columns of E's cumulus step with a "
+          f"mass flux")
+    if nconv == 0:
+        raise AssertionError("19a: E's cumulus step has no convecting "
+                             "column, so K2's tracer form would be held on "
+                             "zeros")
+    cases.append(("K2", "clouds at E's shape",
+                  k2_inputs((ncol, L), torch.float32, model.device),
+                  {n: torch.as_tensor(rng.uniform(0.0, 1e-6, sh),
+                                      dtype=torch.float32,
+                                      device=model.device)
+                   for n, sh in (("tra", (ncol, L, ntr)),
+                                 ("trank", (ncol, ntr)))}))
+    for k, label, args, kw in cases:
+        mod = mods[k]
+        kern = getattr(mod, NAMES[k])
+        plain = getattr(mod, NAMES[k] + "_plain")
+        for dtype in (torch.float32, torch.float64):
+            cast = lambda a: a.to(dtype) if a.is_floating_point() else a
+            a_ = [cast(a) for a in args]
+            kw_ = {n: cast(v) for n, v in kw.items()}
+            got = kern(*a_, **kw_)
+            counts = {}
+            want = plain(*a_, counts=counts, **kw_) if k == "K2" \
+                else plain(*a_)
+            torch.cuda.synchronize()
+            tol = 1e-5 if dtype == torch.float32 else 1e-12
+            if k == "K2":
+                rel, ab = rel_err(got["sum_tra"], want["sum_tra"])
+                rel8 = max(rel_err(got[key], want[key])[0]
+                           for key in mod.KEYS)
+                if not rel8 <= max(tol, TOL[str(dtype).split(".")[-1]]["K2"]):
+                    raise AssertionError(f"19a: K2's eight terms disagree "
+                                         f"in the tracer form: {rel8}")
+            else:
+                rel, ab = rel_err(got, want)
+            shape = tuple(args[3].shape) if k == "K1" \
+                else tuple(kw["tra"].shape)
+            print(f"19a {k} tracer call on {label} {shape} "
+                  f"({dtype}): max rel err {rel:.3e} (max abs {ab:.3e}, tol "
+                  f"{tol:g})")
+            if not rel <= tol:
+                raise AssertionError(f"19a: {k}'s tracer call disagrees with "
+                                     f"its plain version: {rel}")
+            if dtype == torch.float32:
+                b_ms, b_by, byt, ops = tracer_bound(k, shape, 4, counts)
+                st = dict(shape=list(shape), max_abs_err=ab, max_rel_err=rel,
+                          ms=time_ms(lambda: kern(*a_, **kw_), D_REPS),
+                          device_ms=device_ms(lambda: kern(*a_, **kw_),
+                                              KERNELS[k], reps=D_REPS),
+                          plain_ms=time_ms(lambda: plain(*a_, **kw_),
+                                           D_REPS),
+                          bound_ms=b_ms, bound_by=b_by, bytes=byt, ops=ops)
+                print(f"19a {k} tracer call on {label} f32: kernel "
+                      f"{st['ms']:.4f} ms (device {st['device_ms']:.4f} ms), "
+                      f"plain {st['plain_ms']:.4f} ms, bound {b_ms:.4f} ms "
+                      f"({b_by}: {byt / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP)")
+                out.setdefault(k, {})[label] = st
+    return out
+
+
+def tracer_bound(k, shape, b, counts=None):
+    """The bound of K1 at ns = ntr (``work``'s) and of K2's tracer form:
+    K2's eight-term work plus tra in and sum_tra out (2 L ntr values a
+    column) and trank; per valid pair the weights w1, w2c (4) and the
+    ntr products and sums (2 ntr), per pair the mentc sum (1), per level
+    and tracer the closing terms (4)."""
+    if k == "K1":
+        return bound("K1", shape, b)
+    ncol, L, ntr = shape
+    byt, ops = work("K2", (ncol, L), b, counts)
+    byt += (2 * L * ntr + ntr) * ncol * b
+    ops += ncol * L * L + counts["valid"] * (4 + 2 * ntr) + 4 * ncol * L * ntr
+    t_b, t_o = byt / HBM_BYTES_PER_S, ops / F32_FLOPS
+    return (1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations",
+            byt, ops)
+
+
+def dust_test001(paths, device, idirect, dtype=None):
+    """19b's model: test_001 from phase 13's files at noon (1990060112)
+    with DUST and the land desert, a dust layer of 2e-5 kg/kg in levels
+    10-13 as tests/test_chem.py's direct-effect test lays it."""
+    import torch
+    from regcm_tpu_torch.driver import Model
+    from regcm_tpu_torch.preproc.icbc import ICBCReader
+    from regcm_tpu_torch.preproc.terrain import build_grid_from_domain
+    cfg = chem_setup(hydro_icbc_cfg(), "DUST", idirect)
+    cfg.restart.mdate1 = CHEM_NOON
+    cfg.out.chemfrq = CHEM_EVERY * cfg.dtsec / 3600.0
+    grid = desert(build_grid_from_domain(cfg, paths["domain"]))
+    m = Model(cfg, grid=grid, device=device, dtype=dtype or torch.float32)
+    m.init_from_icbc(ICBCReader(paths["hydro"], cfg.globdat.calendar))
+    westerly(m)
+    chi = m.state.chi_a.clone()
+    chi[:, 10:14] = 2e-5 * m.state.ps_a[None, None]
+    m.state = m.state._replace(chi_a=chi, chi_b=chi.clone())
+    return m
+
+
+def run_chem_b_f(dev, smi, paths, directory):
+    """Phases 19b and 19f: the test_008 setting (DUST, idirect=2) on
+    test_001 from phase 13's files for CHEM_STEPS steps at noon, with
+    run_with_output writing CHE and OPT every CHEM_EVERY steps on NetCDF
+    and then on Zarr (the stores equal record for record); the same run
+    with idirect=0: the dust cuts the surface SW."""
+    import torch
+    from regcm_tpu_torch.io.ncio import read_nc
+    from regcm_tpu_torch.io.zarrio import read_zarr
+    sw = {}
+    for run, idirect, backend in (("netcdf", 2, "netcdf"),
+                                  ("zarr", 2, "zarr"), ("clean", 0, None)):
+        m = dust_test001(paths, dev, idirect)
+        t0 = time.time()
+        if backend is None:
+            m.run_icbc(CHEM_STEPS)
+        else:
+            m.open_output(os.path.join(directory, run), backend=backend)
+            m.run_with_output(CHEM_STEPS)
+            m.streams.close()
+        torch.cuda.synchronize()
+        if not m.check_finite():
+            raise AssertionError(f"19b: non-finite ({run})")
+        sw[run] = m.state.swsfc.cpu().numpy()
+        print(f"19b {run} (idirect={idirect}): {CHEM_STEPS} steps in "
+              f"{time.time() - t0:.2f} s, dust emitted "
+              f"{float(m.state.chemdiag[0].sum()):.4e} kg/m2 summed over "
+              f"the grid, max surface SW {sw[run].max():.2f} W/m2")
+        del m
+    day = sw["clean"] > 50.0
+    cut = float((sw["clean"] - sw["netcdf"])[day].mean())
+    print(f"19b surface SW at step {CHEM_STEPS}, idirect=0 minus idirect=2 "
+          f"over {int(day.sum())} day points: {cut:.3f} W/m2 (tests/"
+          f"test_chem.py:162 asks > 0.5) on {smi}")
+    if not cut > 0.5:
+        raise AssertionError(f"19b: the dust did not cut the surface SW: "
+                             f"{cut}")
+    for stream in ("CHE", "OPT"):
+        fn = f"domain_{stream}.{CHEM_NOON // 100:08d}00"
+        nc = read_nc(os.path.join(directory, "netcdf", fn + ".nc"))
+        zr = read_zarr(os.path.join(directory, "zarr", fn + ".zarr"))
+        nrec = len(nc["time"])
+        if set(nc) != set(zr) or nrec != CHEM_STEPS // CHEM_EVERY + 1:
+            raise AssertionError(f"19f {stream}: stores differ or "
+                                 f"{nrec} records")
+        for k, v in nc.items():
+            if not np.array_equal(zr[k], v):
+                raise AssertionError(f"19f {stream} {k}: the Zarr store "
+                                     f"differs from the NetCDF file")
+        print(f"19f {stream}: {nrec} records on NetCDF and Zarr, equal "
+              f"record for record ({len(nc)} variables)")
+        if stream == "OPT" and not float(nc["aod"][-1].max()) > 0.0:
+            raise AssertionError("19f: zero aerosol optical depth")
+
+
+def run_chem_moloch(dev, smi, paths, mods):
+    """Phase 19c: the MOLOCH flagship with DUST from phase 13's ICBC file
+    (10 m/s jet, the land desert) for CHEM_STEPS steps through K1 (twice a
+    step), K2 (tracer form), K3 and K4 with the tracers in its stack (nf =
+    5 + nqx + ntr = 11, counter and stack checked), and the ms/step."""
+    import torch
+    from regcm_tpu_torch.core.grid import build_grid
+    from regcm_tpu_torch.driver import Model
+    from regcm_tpu_torch.dynamics import moloch
+    from regcm_tpu_torch.kernels import emanuel_mixing as k2
+    from regcm_tpu_torch.preproc.icbc import ICBCReader
+    cfg = chem_setup(flagship_cfg(), "DUST")
+    cfg.globdat.gdate2 = ICBC_END
+    model = Model(cfg, grid=desert(build_grid(cfg)), device=dev,
+                  dtype=torch.float32)
+    model.init_from_icbc(ICBCReader(paths["moloch"], cfg.globdat.calendar))
+    westerly(model)
+    seen = set()
+    k4f = moloch.waf_advect
+
+    def k4_rec(*args):
+        seen.add(args[0].shape[0])
+        return k4f(*args)
+    moloch.waf_advect = k4_rec
+    try:
+        reset(mods)
+        k2.launches_tracers = 0
+        _, wall = model.run_icbc(CHEM_STEPS)
+        launches = read(mods)
+    finally:
+        moloch.waf_advect = k4f
+    print(f"19c. MOLOCH flagship with DUST ({cfg.dim.jx}x{cfg.dim.iy}x"
+          f"{cfg.dim.kz}, f32, from ICBC): {CHEM_STEPS} steps, launches "
+          f"{launches} (K2 {k2.launches_tracers} in the tracer form), K4's "
+          f"stack nf {sorted(seen)}; ms/step (steps 0..{CHEM_STEPS - 1}, "
+          f"radiation at 0, synchronised at the end) "
+          f"{1000.0 * wall / CHEM_STEPS:.3f} on {smi}")
+    if not model.check_finite():
+        raise AssertionError("19c: non-finite MOLOCH state")
+    if seen != {5 + model.core.nqx + model.core.ntr} \
+            or launches["K4"] <= 0 or launches["K3"] <= 0 \
+            or launches["K1"] != 2 * CHEM_STEPS \
+            or k2.launches_tracers <= 0:
+        raise AssertionError(f"19c: the chemistry path bypassed a kernel or "
+                             f"K4 ran at nf {seen}: {launches}")
+    print(f"19c step {CHEM_STEPS}: dust emitted "
+          f"{float(model.state.chemdiag[0].sum()):.4e} kg/m2 summed over the "
+          f"grid, max chi {float(model.state.chi_b.max()):.4e} kg/kg")
+    del model
+    torch.cuda.empty_cache()
+    return dict(per_step_k1=launches["K1"] / CHEM_STEPS, nf=sorted(seen))
+
+
+def _chem_cpu_run(name, start, conf=None, seed=None):
+    """One of 19d's CPU runs (a spawned worker): the setting ``name`` at
+    CHEM_CPU_SHAPE from ``start``, perturbed with ``seed`` if given."""
+    import torch
+    from tests import _torch_chem_settings as S
+    torch.set_num_threads(1)
+    S.SHAPE = CHEM_CPU_SHAPE
+    if seed is not None:
+        start = S.perturbed(name, start, seed)
+    return S.port_run(name, start, conf=conf)
+
+
+def chem_card_vs_cpu(dev):
+    """Phase 19d: the CPU tests' chemistry settings (tests/
+    _torch_chem_settings.py: the nine chemsimtypes on the hydrostatic
+    core, AERO with E's physics, DUST with the direct effect and Grell's
+    columns under cumtran; DUST on MOLOCH) at 16x20x14 on the card
+    against the CPU in f64, 3 steps, held as phase 16c holds its
+    settings: the spread rule with three seeds (a hydrometeor past it at
+    most at 1% of the points), the dynamical fields with the saturation
+    adjustment off to 1e-10. The CPU runs go to a pool of spawned
+    processes, one torch thread each, while the card's run here."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+    from tests import _torch_chem_settings as S
+    S.SHAPE = CHEM_CPU_SHAPE
+    names = S.SIMS + ("dust_moloch",)
+    starts = {name: S.port_start(name) for name in names}
+    with ProcessPoolExecutor(min(8, os.cpu_count() or 1),
+                             mp_context=mp.get_context("spawn")) as pool:
+        cpu = {name: dict(
+            cpu=pool.submit(_chem_cpu_run, name, starts[name]),
+            cpu_dry=pool.submit(_chem_cpu_run, name, starts[name], 0.0),
+            spread=[pool.submit(_chem_cpu_run, name, starts[name],
+                                seed=seed) for seed in range(3)])
+            for name in names}
+        for name in names:
+            s0 = starts[name]
+            runs = {"gpu": S.port_run(name, s0, device=dev),
+                    "gpu_dry": S.port_run(name, s0, device=dev, conf=0.0),
+                    "cpu": cpu[name]["cpu"].result(),
+                    "cpu_dry": cpu[name]["cpu_dry"].result()}
+            spread = [f.result() for f in cpu[name]["spread"]]
+            for r in runs.values():
+                if not r["finite"]:
+                    raise AssertionError(f"19d {name}: non-finite")
+            worst, flips = (0.0, ""), {}
+            fields = runs["cpu"]["fields"]
+            for f, want in fields.items():
+                err = rel_rms(runs["gpu"]["fields"][f], want)
+                lim = max(1e-7, 4.0 * max(rel_rms(p["fields"][f], want)
+                                          for p in spread))
+                worst = max(worst, (err / lim, f))
+                if err < lim:
+                    continue
+                off = np.abs(runs["gpu"]["fields"][f] - want) \
+                    > 1e-7 * np.abs(want).max()
+                flips[f] = int(off.sum())
+                if f != "qc" or off.mean() > 0.01:
+                    raise AssertionError(f"19d {name}: card and CPU "
+                                         f"disagree on {f}: rel-RMS {err} "
+                                         f"(bound {lim})")
+            dyn = [f for f in ("ps", "t", "qv", "u", "v", "w") if f in fields]
+            dry = max((rel_rms(runs["gpu_dry"]["fields"][f],
+                               runs["cpu_dry"]["fields"][f]), f) for f in dyn)
+            print(f"19d {name}, 3 steps f64 16x20x14, card vs CPU: worst "
+                  f"field {worst[1]} at {worst[0]:.3f} of its bound"
+                  + (f"; points past 1e-7 by a branch flip {flips}" if flips
+                     else "") + f"; saturation adjustment off: worst "
+                  f"{dry[1]} rel-RMS {dry[0]:.3e} (bound 1e-10)")
+            if not dry[0] <= 1e-10:
+                raise AssertionError(f"19d {name}: card and CPU disagree "
+                                     f"with the adjustment off on {dry[1]}: "
+                                     f"{dry[0]}")
+
+
+def chem_single(dev, paths):
+    """19e's single-card reference: E's settings on test_001's widths
+    from phase 13's files, E_CHECK steps, the whole domain's fields."""
+    import torch
+    model = e_model(paths, dev, files="test_001")
+    model.run_icbc(E_CHECK)
+    out = chem_fields(model)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def chem_rank(rank, paths):
+    """Phase 19e on one rank of the 2x2 group: E's settings on test_001's
+    widths for E_CHECK steps (counters and halo tallies reset just
+    before, read just after); the whole domain's fields (on rank 0)."""
+    import torch
+    from regcm_tpu_torch.kernels import emanuel_mixing as k2
+    from regcm_tpu_torch.kernels import pbl_tridiag as k1
+    from regcm_tpu_torch.parallel import halo
+    mods = {"K1": k1, "K2": k2}
+    model = e_model(paths, rank.device, rank.mesh(34, 48), files="test_001")
+    reset(mods)
+    k1.launches_sharded = k2.launches_tracers = 0
+    halo.exchanges = halo.bytes_sent = 0
+    model.run_icbc(E_CHECK)
+    launches = read(mods)
+    launches.update(K5c=k1.launches_sharded, K2_tracers=k2.launches_tracers)
+    out = dict(launches=launches, finite=model.check_finite(),
+               exchanges_per_step=halo.exchanges / E_CHECK,
+               bytes_per_step=halo.bytes_sent / E_CHECK)
+    dec = chem_fields(model)
+    out["dec"] = dec if rank.rank == 0 else None
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_chem_decomposed(res, backend, e19):
+    """19e's checks of the 2x2 group's chemistry run against one card:
+    every field bit for bit at E_CHECK, K5c twice a step (Holtslag's
+    fields and the tracers), K2 in its tracer form."""
+    for r, out in enumerate(res):
+        h = out["chem"]
+        print(f"  rank {r} configuration E on test_001's widths: launches "
+              f"{h['launches']}, {h['exchanges_per_step']:.1f} halo "
+              f"exchanges and {h['bytes_per_step'] / 1e6:.3f} MB sent a step")
+        if not h["finite"]:
+            raise AssertionError(f"rank {r}: non-finite decomposed E")
+        lau = h["launches"]
+        if lau["K5c"] != 2 * E_CHECK or lau["K1"] != 0 \
+                or lau["K2_tracers"] <= 0:
+            raise AssertionError(f"rank {r} ({backend}): the decomposed "
+                                 f"chemistry bypassed K5c or K2's tracer "
+                                 f"form: {lau}")
+    dec = res[0]["chem"]["dec"]
+    for f, want in e19.items():
+        same = np.array_equal(dec[f], want)
+        print(f"  configuration E f32 34x48x18 step {E_CHECK}, {backend} 2x2 "
+              f"vs one card (19e), {f}: "
+              f"{'bit-identical' if same else 'DIFFERENT'}, rel-RMS "
+              f"{rel_rms(dec[f], want):.3e}")
+        if not same:
+            raise AssertionError(f"decomposed configuration E ({backend}) "
+                                 f"differs from one card in {f}")
+
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3402,10 +4096,21 @@ def main():
         run_output(dev, smi, paths, chains["MOLOCH"].path, p18)
         print(f"phase 18a, 18c took {time.time() - t18:.1f} s")
 
-        # -- 10, 11, 12, 14c, 15e, 16d, 17b. the decomposed runs
+        # -- 19a-d, 19f. the aerosol chemistry on one card, and 19e's
+        # single-card reference
+        t19 = time.time()
+        e19a = run_chem_e(dev, smi, paths, mods)
+        run_chem_b_f(dev, smi, paths, p18)
+        c19 = run_chem_moloch(dev, smi, paths, mods)
+        chem_card_vs_cpu(dev)
+        e19 = chem_single(dev, paths)
+        print(f"phase 19a-d, 19f took {time.time() - t19:.1f} s")
+
+        # -- 10, 11, 12, 14c, 15e, 16d, 17b, 18b, 18d, 19e. the
+        # decomposed runs
         decomp = run_decomposed(dev, smi, single12, paths, icbc13,
                                 nh14["single12"], a15["rec"],
-                                cu16["c_single12"], d17["rec"])
+                                cu16["c_single12"], d17["rec"], e19)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         shutil.rmtree(p18, ignore_errors=True)
@@ -3440,7 +4145,7 @@ def main():
             row["redesigned"] = REDESIGNED[k]
         if k in ("K2", "K5c"):
             row["launches_per_step_hydrostatic_2x2"] = {
-                b: [r["hydro"]["launches"][k] / HYDRO_ICBC_STEPS
+                b: [r["hydro"]["launches"][k] / HYDRO_CHECK[1]
                     for r in res] for b, res in decomp.items()}
             row["launches_per_step_nh_2x2"] = {
                 b: [r["nh"]["launches"][k] / DECOMP_STEPS for r in res]
@@ -3472,6 +4177,19 @@ def main():
         if k == "K5c":
             row["launches_per_step_D_2x2"] = ranks[0]["band"][
                 "launches"]["K5c"] / D_CHECK
+        # phase 19: configuration E (K1 twice a step, its tracer call on
+        # E's operands; K5c on 2x2 ranks, 19e, rank 0), K1 on the MOLOCH
+        # flagship with DUST (19c)
+        if k == "K1":
+            row.update(launches_per_step_E=e19a["per_step"]["K1"],
+                       E_tracer_operands=e19a["operands"]["K1"][
+                           "E's operands"],
+                       launches_per_step_moloch_dust=c19["per_step_k1"])
+        if k == "K4":
+            row["nf_moloch_dust"] = c19["nf"]
+        if k == "K5c":
+            row["launches_per_step_E_2x2"] = ranks[0]["chem"][
+                "launches"]["K5c"] / E_CHECK
         if k in BASE:
             row["launches_ranks"] = {b: [r["launches"][k] for r in res]
                                      for b, res in decomp.items()}
@@ -3479,6 +4197,22 @@ def main():
             row.update(launches_hydrostatic=hydro_launches[k],
                        small_shape=stats[k]["small"])
         kernels.append(row)
+    # K2's tracer form: launches from 19a's main path, its error,
+    # times and bound on E's operands (f32)
+    st = e19a["operands"]["K2"]["clouds at E's shape"]
+    kernels.append(dict(
+        name="emanuel_mixing_tracers", route="cuda",
+        source=f"regcm_tpu_torch/csrc/{SOURCE['K2']}.cu",
+        replaces=REPLACES["K2"],
+        contraction_of="regcm_tpu/physics/cumulus/emanuel.py:352",
+        launches=e19a["tracer_launches"], max_abs_err=st["max_abs_err"],
+        ms=st["ms"], device_ms=st["device_ms"], plain_ms=st["plain_ms"],
+        bound_ms=st["bound_ms"], bound_by=st["bound_by"], library_ms=None,
+        shape=st["shape"], launches_per_cumulus_step_E=e19a["per_step"]["K2"],
+        E_operands=e19a["operands"]["K2"]["E's operands"]))
+    for ev in EVENT_TIMED:
+        print(f"device_ms of {ev['kernels']} is CUDA-event time "
+              f"({ev['ms']:.4f} ms): no profiler trace showed the kernel")
     print(f"chip_smoke ran in {time.time() - t_all:.1f} s on {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -110,11 +110,11 @@ class BdyState(NamedTuple):
 
 def zeros_hydro(kz: int, iy: int, jx: int, device="cuda",
                 dtype=torch.float64, nqx: int = 2, nlak: int = 1,
-                nnsg: int = 1) -> HydroState:
+                nnsg: int = 1, ntr: int = 0) -> HydroState:
     """Zero state with ``nqx`` water species: 2 (qv, qc) for SUBEX, 5 (qv,
     qc, qr, qi, qs) for the 5-species schemes; two split modes, ``nlak``
-    lake layers, no tracers, the BATS pack per subcell (10, nnsg, iy, jx)
-    when ``nnsg`` > 1."""
+    lake layers, ``ntr`` chemistry tracers, the BATS pack per subcell
+    (10, nnsg, iy, jx) when ``nnsg`` > 1."""
     device = resolve_device(device)
 
     def full(shape, v=0.0):
@@ -145,9 +145,9 @@ def zeros_hydro(kz: int, iy: int, jx: int, device="cuda",
         abstot=full(((kz + 1) * (kz + 1), iy, jx)),
         absnxt=full((4 * kz, iy, jx)),
         emstot=full((kz + 1, iy, jx)),
-        chi_a=full((0, kz, iy, jx)),
-        chi_b=full((0, kz, iy, jx)),
-        chemdiag=full((3, 0, iy, jx)))
+        chi_a=full((ntr, kz, iy, jx)),
+        chi_b=full((ntr, kz, iy, jx)),
+        chemdiag=full((3, ntr, iy, jx)))
 
 
 def bdy_from_state(s: HydroState) -> BdyState:

@@ -46,12 +46,31 @@
 // the bytes.
 // Built with -fmad=false: the validity thresholds (sij > 0, sij < 0.9,
 // redo) must round as the plain version does.
+//
+// The tracer form (emanuel_mixing_tra_*, chemistry's Emanuel transport,
+// cupeman's traent/ftra, mod_cu_em.F90:751-753, :839-843, :1061-1077)
+// also returns sum_tra(j, n) = sum_i w1(i, j) tra(i, n) + w2c(j) tra_nk(n)
+// - mentc(j) tra(j, n), with w1 = ment sij on valid pairs, w2c = sum_i of
+// ment (1 - sij) on valid pairs and of ment on the no-entrainment
+// diagonal, mentc = sum_i ment; sij is the mixing fraction before its
+// clip. It has no TPU kernel: the JAX package computes it in XLA beside
+// its Pallas kernel (regcm_tpu/physics/cumulus/emanuel.py _mixing_body).
+// It is formed in the same pass as the eight terms, from the row's final
+// ment and sij in the lanes' registers, so the L x L pair algebra is not
+// done twice. Lane j keeps its ntr sums sum_i w1 tra_i in its warp's
+// slice of dynamic shared memory ((ntr, 32 NS) values, lanes on
+// neighbouring words), the row's tracer values are broadcast loads, and
+// the tracers loop inside the column. Its bound is the bytes as well: 2 L
+// ntr values a column more (tra in, sum_tra out).
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int WPB = 2;                 // warps (columns) a block
 constexpr int MIN_BLOCKS = 16;         // 64 registers: 32 warps an SM
+// the tracer form's limit: its sums take WPB * MAX_TRA * 64 values of
+// dynamic shared memory (32 KB in f64), beside the 14 KB of static
+constexpr int MAX_TRA = 32;
 constexpr unsigned FULL = 0xffffffffu;
 
 struct Consts {
@@ -84,8 +103,9 @@ enum { R_H, R_HP, R_Q, R_QTI, R_QS, R_LV, R_M, R_CLW, R_U, R_V, R_T, R_DPH,
        R_BF2, R_CWAT, NROW };
 enum { O_WD, O_AMP1, O_AD, O_MENTII, O_QENTII, O_SUMQ, O_SUMU, O_SUMV };
 
-// NS levels a lane: j = lane + 32 s, s < NS
-template <typename T, int NS>
+// NS levels a lane: j = lane + 32 s, s < NS. TRA: the tracer form, which
+// also contracts the (i, j) mixing weights with ntr tracer profiles
+template <typename T, int NS, bool TRA>
 __global__ void __launch_bounds__(WPB * 32, MIN_BLOCKS)
 emanuel_mixing_kernel(
     const T* __restrict__ h, const T* __restrict__ hp,
@@ -97,9 +117,14 @@ emanuel_mixing_kernel(
     const T* __restrict__ dph, const T* __restrict__ unk,
     const T* __restrict__ vnk, const int* __restrict__ icb,
     const int* __restrict__ ict, const unsigned char* __restrict__ cloud,
-    T* __restrict__ out, int ncol, int L, Consts k) {
+    T* __restrict__ out, int ncol, int L, Consts k,
+    const T* __restrict__ tra, const T* __restrict__ trank,
+    T* __restrict__ sum_tra, int ntr) {
     __shared__ T rows[WPB][NROW][32 * NS];
     __shared__ bool crow[WPB][32 * NS];
+    // the tracer form's sums sum_i w1(i, j) tra(i, n), lane j's own
+    // entries of its warp's (ntr, 32 NS) slice
+    extern __shared__ __align__(16) unsigned char tra_smem[];
     const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int col = blockIdx.x * WPB + w;
     if (col >= ncol) return;                 // a whole warp
@@ -141,6 +166,17 @@ emanuel_mixing_kernel(
 #pragma unroll
     for (int s = 0; s < NS; ++s)
         wd[s] = sq[s] = su[s] = sv[s] = amp1[s] = ad[s] = T(0);
+    // the tracer form: w2c(j) = sum_i of ment (1 - sij) on valid pairs and
+    // ment on the no-entrainment diagonal, mentc(j) = sum_i ment(i, j)
+    T w2c[NS], mentc[NS];
+    T* acc = reinterpret_cast<T*>(tra_smem) + (long long)w * ntr * 32 * NS;
+    const long long toff = off * ntr;         // (col, level 0, tracer 0)
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+        w2c[s] = mentc[s] = T(0);
+        if (TRA)
+            for (int n = 0; n < ntr; ++n) acc[n * 32 * NS + lane + 32 * s] = T(0);
+    }
 
     for (int i = 0; i < L; ++i) {
         const T q_i = rv[R_Q][i];
@@ -346,6 +382,22 @@ emanuel_mixing_kernel(
             sq[s] = sq[s] + ment[s] * (qent - awat_k - q_j);
             su[s] = su[s] + ment[s] * (uent - u_j);
             sv[s] = sv[s] + ment[s] * (vent - v_j);
+            if (TRA) {
+                // traent(i, j) = sij tra_i + (1 - sij) tra_nk on valid
+                // pairs (sij before the clip), tra_nk on the diagonal
+                // that detrains like the no-entrainment case
+                const T w1 = val[s] ? ment[s] * U[s] : T(0);
+                w2c[s] = w2c[s]
+                    + ((val[s] ? ment[s] * (T(1) - U[s]) : T(0))
+                       + ((j == i && diag_over) ? ment[s] : T(0)));
+                mentc[s] = mentc[s] + ment[s];
+                if (val[s]) {
+                    const T* tr_i = tra + toff + (long long)i * ntr;
+                    T* a = acc + lane + 32 * s;
+                    for (int n = 0; n < ntr; ++n)
+                        a[n * 32 * NS] = a[n * 32 * NS] + w1 * tr_i[n];
+                }
+            }
             if (j == i) {
                 out[O_MENTII * pl + off + j] = ment[s];
                 out[O_QENTII * pl + off + j] = qent;
@@ -389,37 +441,63 @@ emanuel_mixing_kernel(
         out[O_SUMQ * pl + off + j] = sq[s];
         out[O_SUMU * pl + off + j] = su[s];
         out[O_SUMV * pl + off + j] = sv[s];
+        if (TRA) {
+            // sum_tra(j) = sum_i w1 tra_i + w2c tra_nk - mentc tra_j
+            const T* tr_j = tra + toff + (long long)j * ntr;
+            const T* tr_k = trank + (long long)col * ntr;
+            T* o = sum_tra + toff + (long long)j * ntr;
+            for (int n = 0; n < ntr; ++n)
+                o[n] = (acc[n * 32 * NS + lane + 32 * s] + w2c[s] * tr_k[n])
+                    - mentc[s] * tr_j[n];
+        }
     }
 }
 
-template <typename T, int NS>
+template <typename T, int NS, bool TRA>
 int launch_ns(const void* const* lev, const void* unk, const void* vnk,
               const void* icb, const void* ict, const void* cloud,
-              void* out, int ncol, int L, Consts k, void* stream) {
+              void* out, int ncol, int L, Consts k, const void* tra,
+              const void* trank, void* sum_tra, int ntr, void* stream) {
     const int blocks = (ncol + WPB - 1) / WPB;
-    emanuel_mixing_kernel<T, NS><<<blocks, WPB * 32, 0,
-                                   (cudaStream_t)stream>>>(
+    const size_t smem = TRA ? (size_t)WPB * ntr * 32 * NS * sizeof(T) : 0;
+    emanuel_mixing_kernel<T, NS, TRA><<<blocks, WPB * 32, smem,
+                                        (cudaStream_t)stream>>>(
         (const T*)lev[0], (const T*)lev[1], (const T*)lev[2],
         (const T*)lev[3], (const T*)lev[4], (const T*)lev[5],
         (const T*)lev[6], (const T*)lev[7], (const T*)lev[8],
         (const T*)lev[9], (const T*)lev[10], (const T*)lev[11],
         (const T*)lev[12], (const T*)unk, (const T*)vnk,
         (const int*)icb, (const int*)ict, (const unsigned char*)cloud,
-        (T*)out, ncol, L, k);
+        (T*)out, ncol, L, k, (const T*)tra, (const T*)trank, (T*)sum_tra,
+        ntr);
     return (int)cudaGetLastError();
+}
+
+template <typename T, bool TRA>
+int launch_l(const void* const* lev, const void* unk, const void* vnk,
+             const void* icb, const void* ict, const void* cloud, void* out,
+             int ncol, int L, Consts k, const void* tra, const void* trank,
+             void* sum_tra, int ntr, void* stream) {
+    return L > 32
+        ? launch_ns<T, 2, TRA>(lev, unk, vnk, icb, ict, cloud, out, ncol, L,
+                               k, tra, trank, sum_tra, ntr, stream)
+        : launch_ns<T, 1, TRA>(lev, unk, vnk, icb, ict, cloud, out, ncol, L,
+                               k, tra, trank, sum_tra, ntr, stream);
 }
 
 template <typename T>
 int launch(const void* const* lev, const void* unk, const void* vnk,
            const void* icb, const void* ict, const void* cloud, void* out,
-           int ncol, int L, Consts k, void* stream) {
+           int ncol, int L, Consts k, const void* tra, const void* trank,
+           void* sum_tra, int ntr, void* stream) {
     if (ncol == 0) return 0;
-    if (L < 1 || L > 64) return (int)cudaErrorInvalidValue;
-    return L > 32
-        ? launch_ns<T, 2>(lev, unk, vnk, icb, ict, cloud, out, ncol, L, k,
-                          stream)
-        : launch_ns<T, 1>(lev, unk, vnk, icb, ict, cloud, out, ncol, L, k,
-                          stream);
+    if (L < 1 || L > 64 || ntr < 0 || ntr > MAX_TRA)
+        return (int)cudaErrorInvalidValue;
+    return ntr > 0
+        ? launch_l<T, true>(lev, unk, vnk, icb, ict, cloud, out, ncol, L, k,
+                            tra, trank, sum_tra, ntr, stream)
+        : launch_l<T, false>(lev, unk, vnk, icb, ict, cloud, out, ncol, L, k,
+                             tra, trank, sum_tra, ntr, stream);
 }
 
 }  // namespace
@@ -437,11 +515,31 @@ extern "C" {
 int emanuel_mixing_f32(EM_ARGS) {
     const void* lev[13] = {h, hp, q, qs, t, lv, qti, clw, ep, m, u, v, dph};
     return launch<float>(lev, unk, vnk, icb, ict, cloud, out, ncol, L,
-                         Consts{rwat, cpd, cpv, egrav}, stream);
+                         Consts{rwat, cpd, cpv, egrav}, nullptr, nullptr,
+                         nullptr, 0, stream);
 }
 int emanuel_mixing_f64(EM_ARGS) {
     const void* lev[13] = {h, hp, q, qs, t, lv, qti, clw, ep, m, u, v, dph};
     return launch<double>(lev, unk, vnk, icb, ict, cloud, out, ncol, L,
-                          Consts{rwat, cpd, cpv, egrav}, stream);
+                          Consts{rwat, cpd, cpv, egrav}, nullptr, nullptr,
+                          nullptr, 0, stream);
+}
+// the tracer form: tra (ncol, L, ntr) and trank (ncol, ntr) in, sum_tra
+// (ncol, L, ntr) out beside the eight terms; 1 <= ntr <= MAX_TRA
+int emanuel_mixing_tra_f32(EM_ARGS, const void* tra, const void* trank,
+                           void* sum_tra, int ntr) {
+    const void* lev[13] = {h, hp, q, qs, t, lv, qti, clw, ep, m, u, v, dph};
+    if (ntr < 1) return (int)cudaErrorInvalidValue;
+    return launch<float>(lev, unk, vnk, icb, ict, cloud, out, ncol, L,
+                         Consts{rwat, cpd, cpv, egrav}, tra, trank, sum_tra,
+                         ntr, stream);
+}
+int emanuel_mixing_tra_f64(EM_ARGS, const void* tra, const void* trank,
+                           void* sum_tra, int ntr) {
+    const void* lev[13] = {h, hp, q, qs, t, lv, qti, clw, ep, m, u, v, dph};
+    if (ntr < 1) return (int)cudaErrorInvalidValue;
+    return launch<double>(lev, unk, vnk, icb, ict, cloud, out, ncol, L,
+                          Consts{rwat, cpd, cpv, egrav}, tra, trank, sum_tra,
+                          ntr, stream);
 }
 }

@@ -18,11 +18,16 @@ hours (``update_boundary``), as the reference's ``bdyin`` does.
 format (``io.restart``), so that a restarted run continues the
 uninterrupted one bit for bit; ``attach_icbc`` re-attaches the boundary
 input after a load. ``open_output`` and ``run_with_output`` write the
-ATM, SRF, RAD, STS, LAK, SUB and SLABOC streams (``io.output``) to
-NetCDF or to a Zarr store. ``globdatparam ensemble_run`` perturbs the
+ATM, SRF, RAD, STS, LAK, SUB, SLABOC, CHE and OPT streams
+(``io.output``) to NetCDF or to a Zarr store. ``globdatparam ensemble_run`` perturbs the
 topography and the ICBC records (``utils.ensemble``), and ``attach_som``
-feeds a SOM q-flux file to the slab ocean. Chemistry (its boundary
-input, ``set_chem_bc``) is not ported.
+feeds a SOM q-flux file to the slab ocean. With chemistry (ichem=1,
+the aerosol chemsimtypes) the state carries the tracers; on every
+cumulus alarm the columns whose scheme does not move tracers itself get
+the well-mixed convective transport (``chem.cumtran``). The chemical
+boundary input (``set_chem_bc``, the CHBC reader) is not ported
+(ROADMAP item 13a-2): the lateral boundary relaxes the tracers toward
+clean air, as the JAX package does without one.
 
 ``Model(cfg, mesh=DomainMesh(...))`` runs any of the cores decomposed over a
 (y, x) grid of ranks, one ``Model`` in each rank's process
@@ -41,6 +46,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from .chem import chem_ntr
+from .chem.cumtran import cumtran
 from .config.params import RegCMConfig
 from .core.grid import ModelGrid, build_grid
 from .core.state import (BdyState, HydroState, StepFlags, bdy_from_numpy,
@@ -67,7 +74,7 @@ def _zeros(grid: ModelGrid, cfg: RegCMConfig, device, dtype) -> HydroState:
     return zeros_hydro(grid.kz, grid.iy, grid.jx, device=device,
                        dtype=dtype, nqx=species_count(cfg.physics.ipptls),
                        nlak=lake_layers(cfg.physics),
-                       nnsg=max(int(cfg.dim.nsg), 1) ** 2)
+                       nnsg=max(int(cfg.dim.nsg), 1) ** 2, ntr=chem_ntr(cfg))
 
 
 def standard_atmosphere_state(grid: ModelGrid, cfg: RegCMConfig,
@@ -255,6 +262,21 @@ class Model:
         self.date = self.start_date
         self.xbctime = 0.0
         self.nstep = 0
+        # tracer convective transport (cumtran, mod_tendency.F90:595-603)
+        # on the cumulus alarm, for the columns whose scheme does not
+        # move tracers itself (Emanuel, Tiedtke: mod_che_cumtran.F90:
+        # 56-68); the mask on the rank's block
+        self._dotran = None
+        if chem_ntr(cfg) > 0 and cfg.chem.ichcumtra == 1:
+            land = np.asarray(self.grid.lndocn) > 0.5
+            icup = np.where(land, abs(cfg.physics.icup_lnd),
+                            abs(cfg.physics.icup_ocn))
+            dotran = ~np.isin(icup, (4, 5))
+            if dotran.any():
+                self._dotran = torch.as_tensor(self._local(dotran),
+                                               device=self.device)
+                self._dsig = torch.as_tensor(self.grid.dsigma, dtype=dtype,
+                                             device=self.device)
 
     # -- ICBC-driven runs (init/bdyin/bdyval, Main/mod_init.F90 and
     # Main/mod_bdycod.F90:654). Every rank reads the whole record and
@@ -398,6 +420,16 @@ class Model:
         step = self.core.step_nh if self.idynamic == 2 else self.core.step
         self.state, diags = step(self.state, self.bdy, self.xbctime, dt,
                                  flags, mu, (sol.eccf, sol.solcon, mpos))
+        if self._dotran is not None and flags.do_cum:
+            s = self.state
+            if self.idynamic == 3:
+                (chib,) = cumtran((s.chi_b,), s.cuten[4], self._dsig,
+                                  self._dotran)
+                self.state = s._replace(chi_b=chib)
+            else:
+                chia, chib = cumtran((s.chi_a, s.chi_b), s.cuten[4],
+                                     self._dsig, self._dotran)
+                self.state = s._replace(chi_a=chia, chi_b=chib)
         self.nstep += 1
         self.xbctime += self.dtsec
         self.date = self.date.add_seconds(self.dtsec)
@@ -568,16 +600,17 @@ class Model:
 
     def run_with_output(self, nsteps: int):
         """Step with the output alarms: ATM every atmfrq hours, SRF, LAK,
-        SUB and SLABOC every srffrq, RAD every radfrq; STS accumulates
-        every step and writes at each day boundary. A run that has written
-        no record yet writes the initial one first."""
+        SUB and SLABOC every srffrq, RAD every radfrq, CHE and OPT every
+        chemfrq; STS accumulates every step and writes at each day
+        boundary. A run that has written no record yet writes the initial
+        one first."""
         if not hasattr(self, "streams"):
             self.open_output()
         o = self.cfg.out
         every = lambda hours: max(int(hours * 3600.0 / self.dtsec), 1)
-        atm_every, srf_every, rad_every = (every(o.atmfrq),
-                                           every(o.srffrq),
-                                           every(o.radfrq))
+        atm_every, srf_every, rad_every, che_every = (
+            every(o.atmfrq), every(o.srffrq), every(o.radfrq),
+            every(o.chemfrq))
         st = self.streams
         if st.atm.nrec == 0:
             for w in (st.write_atm, st.write_srf, st.write_rad,
@@ -595,6 +628,9 @@ class Model:
                 st.write_sub()
             if self.nstep % rad_every == 0:
                 st.write_rad()
+            if self.nstep % che_every == 0:
+                st.write_che()
+                st.write_opt()
             if self.nstep % srf_every == 0:
                 st.write_slaboc()
         return st

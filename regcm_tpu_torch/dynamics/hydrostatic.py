@@ -18,7 +18,11 @@ the lateral boundary schemes ``iboudy`` 0-5 (3 and 4 with the
 inflow/outflow qv edges, 4 the sponge) and the NH core's upper Rayleigh
 damping (``ifrayd``), and the UW TCM's prognostic TKE (``ibltyp=2``:
 advected, diffused and forecast beside the physics' tendency).
-Chemistry is refused at construction.
+With chemistry (ichem=1) the hydrostatic core carries the tracers
+chi_a/chi_b: advected as the hydrometeors are (hadv and the upstream
+vadv4d), nudged toward clean air at the lateral boundary, diffused, time
+filtered and given their boundary rings; the NH core refuses them, as
+the JAX package does.
 
 With a ``DomainMesh`` (``HydroCore(..., mesh=...)``) the core steps one
 rank's (ly, lx) block of the domain: the 2-D constants are built on the
@@ -39,6 +43,7 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..chem import chem_ntr
 from ..config.params import RegCMConfig
 from ..core.grid import ModelGrid
 from ..core.state import (BdyState, HydroState, StepFlags, IQV, IQC,
@@ -116,7 +121,9 @@ def _refuse_options(cfg: RegCMConfig):
         (cfg.core.idynamic not in (1, 2),
          f"coreparam idynamic={cfg.core.idynamic} in HydroCore (1: "
          "hydrostatic, 2: MM5 non-hydrostatic; MOLOCH is MolochCore)"),
-        (int(p.ichem) != 0, "chemistry (ichem=1, ROADMAP.md item 13)"),
+        (int(p.ichem) != 0 and cfg.core.idynamic == 2,
+         "chemistry on the MM5 NH core (ichem=1 with idynamic=2: the JAX "
+         "package does not wire its tracer advection either)"),
     ]
     for bad, what in refused:
         if bad:
@@ -176,6 +183,7 @@ class HydroCore:
         self.iboudy = int(p.iboudy)
         self.idynamic = cfg.core.idynamic
         self.nqx = species_count(p.ipptls)
+        self.ntr = chem_ntr(cfg)        # chemistry tracers (0: none)
         # the UW TCM's prognostic TKE (ibltyp=2,
         # mod_tendency.F90:518-544,1414-1424,1544-1547)
         self.ibltyp = int(p.ibltyp)
@@ -610,14 +618,23 @@ class HydroCore:
         # Kuo takes the qv vertical advection over (mod_tendency.F90:
         # 1371-1373): the core adds it only when no Kuo scheme runs
         qvten = qvhadv if self._kuo_defer() else qvhadv + qv_vadv
-        # hydrometeors: hadv + vadv4d with the upstream sign guard
+        # hydrometeors: hadv + vadv4d with the upstream sign guard; the
+        # chemistry tracers (hadv/vadv4d on chib, mod_tendency.F90:
+        # 1390-1420) ride the hydrometeors' calls and halo exchanges,
+        # stacked after them (an empty stack without chemistry)
+        nqh = qhdec.shape[0]
+        chidec = torch.clamp(s.chi_a * rpsa[None], min=0.0)
         if self.isladvec == 1:
             qhten = slhadv(s.qx_b[1:], slw, dt, qmsl=self.iqmsl == 1,
                            src=qxb_ext[1:]) * self.m_ci
+            chiten_d = self._hadv_scalar(chidec, uavg1, uavg2, vavg1,
+                                         vavg2, ps=psa) if self.ntr \
+                else torch.zeros_like(chidec)
         else:
-            qhten = self._hadv_scalar(qhdec, uavg1, uavg2, vavg1, vavg2,
-                                      ps=psa)
-            qhten = self._stability_guard(qhten, qhdec, psa, "rel")
+            hadv = self._hadv_scalar(torch.cat([qhdec, chidec]), uavg1,
+                                     uavg2, vavg1, vavg2, ps=psa)
+            qhten = self._stability_guard(hadv[:nqh], qhdec, psa, "rel")
+            chiten_d = hadv[nqh:]
         qha = s.qx_a[1:]
         fi = self.twt1[1:] * qha[:, 1:] + self.twt2[1:] * qha[:, :-1]
         thr = c.minqq * c.minqq * psa[None]
@@ -627,6 +644,15 @@ class HydroCore:
                           torch.where(okup, qdot[1:kz] * fi, 0.0),
                           torch.where(okdn, qdot[1:kz] * fi, 0.0))
         qhten = qhten + self._vadv_flux(fqh)
+        chia = s.chi_a
+        fi_x = self.twt1[1:] * chia[:, 1:] + self.twt2[1:] * chia[:, :-1]
+        thrx = 1.0e-30
+        fchi = torch.where(qdot[1:kz] > 0.0,
+                           torch.where(chia[:, :-1] > thrx,
+                                       qdot[1:kz] * fi_x, 0.0),
+                           torch.where(chia[:, 1:] > thrx,
+                                       qdot[1:kz] * fi_x, 0.0))
+        chiten_d = chiten_d + self._vadv_flux(fchi)
 
         # -- Coriolis (mod_tendency.F90:1822-1848)
         udyn = udyn + self.coriol[None] * vc * self.m_di
@@ -647,8 +673,14 @@ class HydroCore:
         xtd = xt + dt
         tdyn = tdyn + self._nudge3(
             (bdy.t0 + xtd * bdy.tt) - s.t_b, self.nfc, self.ngc)
-        qvten = qvten + self._nudge3(
-            (bdy.qv0 + xtd * bdy.qvt) - s.qx_b[IQV], self.nfc, self.ngc)
+        # qv, and the tracers toward the CHBC pair when there is one, else
+        # toward clean inflow air (nudge_chi, mod_che_bdyco.F90; ichebdy)
+        qvdiff = (bdy.qv0 + xtd * bdy.qvt) - s.qx_b[IQV]
+        chb = (bdy.chi0 + xtd * bdy.chit) if bdy.chi0 is not None else 0.0
+        nud = self._nudge3(torch.cat([qvdiff[None], chb - s.chi_b]),
+                           self.nfc, self.ngc)
+        qvten = qvten + nud[0]
+        chiten_d = chiten_d + nud[1:]
         udyn = udyn + self._nudge3(
             (bdy.u0 + xtd * bdy.ut) - s.u_b, self.nfd, self.ngd, dot=True)
         vdyn = vdyn + self._nudge3(
@@ -671,13 +703,18 @@ class HydroCore:
                           qv_vadv=qv_vadv))
         # radiation heating: tphy += psb·heatrt (mod_tendency.F90:1776)
         tphy = tphy + psb[None] * heatrt * self.m_ci
+        chiphy = sfupd.pop("_chiten", None)
 
-        # -- diffusion (mod_tendency.F90:1515-1553)
+        # -- diffusion (mod_tendency.F90:1515-1553); the tracers' diffusion
+        # shares the hydrometeors' call
         udyn = udyn + self._diffu_dot(ubd3, xkd)
         vdyn = vdyn + self._diffu_dot(vbd3, xkd)
         tdyn = tdyn + self._diffu_cross(tb3, xkc)
         qvten = qvten + self._diffu_cross(qvb3, xkc)
-        qhten = qhten + self._diffu_cross(qhb3, xkc)
+        chib3 = torch.clamp(s.chi_b * rpsb[None], min=0.0)
+        dif = self._diffu_cross(torch.cat([qhb3, chib3]), xkc)
+        qhten = qhten + dif[:nqh]
+        chiten_d = chiten_d + dif[nqh:]
 
         # -- total tendencies + SUBEX condtq
         tten = tdyn + tphy
@@ -689,18 +726,24 @@ class HydroCore:
             tten = tten + dtc
             qvten_t = qvten_t + dqv
             qhten_t = torch.cat([(qhten_t[0] + dqc)[None], qhten_t[1:]])
+        chiten_t = chiten_d + (chiphy if chiphy is not None else 0.0)
         if self.iboudy == 4:
             # sponge on the total tendencies (mod_tendency.F90:1481-1483):
-            # ften <- w·ften + (1-w)·bt, the hydrometeors' bt zero
+            # ften <- w·ften + (1-w)·bt, the hydrometeors' and tracers' bt
+            # zero
             wc3 = self.spwc[None]
             tten = wc3 * tten + (1.0 - wc3) * bdy.tt
             qvten_t = wc3 * qvten_t + (1.0 - wc3) * bdy.qvt
             qhten_t = wc3 * qhten_t
+            chiten_t = wc3 * chiten_t
 
-        # -- forecast t, qx at tau+1 (mod_tendency.F90:380-420)
+        # -- forecast t, qx (and the tracers) at tau+1
+        # (mod_tendency.F90:380-420)
         tc = s.t_b + dt * tten * self.m_ci
         qvc = self._negfix(s.qx_b[IQV] + dt * qvten_t * self.m_ci)
-        qhc = self._negfix(s.qx_b[1:] + dt * qhten_t * self.m_ci)
+        fix = self._negfix(torch.cat([s.qx_b[1:] + dt * qhten_t * self.m_ci,
+                                      s.chi_b + dt * chiten_t * self.m_ci]))
+        qhc, chic = fix[:nqh], fix[nqh:]
 
         # -- PGF (mod_tendency.F90:1886-2120): ipgf 0 the full-field
         # form, ipgf 1 the perturbation form, which removes a reference
@@ -787,6 +830,13 @@ class HydroCore:
                                               min=0.0), s.qx_b[1:])
         qh_a_n = torch.where(mci, torch.clamp(qhc + (beta - 1.0) * dqcf,
                                               min=0.0), s.qx_a[1:])
+        # the tracers: RAW filter like the hydrometeors (filter_raw on
+        # atmx%chi, mod_tendency.F90:430-470)
+        dchf = self.gnu2 * (chic + s.chi_b - 2.0 * s.chi_a)
+        chi_b_n = torch.where(mci, torch.clamp(s.chi_a + beta * dchf,
+                                               min=0.0), s.chi_b)
+        chi_a_n = torch.where(mci, torch.clamp(chic + (beta - 1.0) * dchf,
+                                               min=0.0), s.chi_a)
         ucf = s.u_b + dt * uten
         vcf = s.v_b + dt * vten
         duf = self.gnu1 * (ucf + s.u_b - 2.0 * s.u_a)
@@ -828,7 +878,16 @@ class HydroCore:
         # always (bdyflow), qv with iboudy 3 or 4
         ucx = dot2cross(u_a_n)
         vcx = dot2cross(v_a_n)
-        qh_a_n = self._flow_edges(qh_a_n, psa_n, ucx, vcx)
+        # the tracers' rings: a copied to b, a set to the CHBC value (clean
+        # air without one); inflow/outflow edges (chibdyflow)
+        chb_edge = (bdy.chi0 + xt2 * bdy.chit) if bdy.chi0 is not None \
+            else torch.zeros_like(chi_a_n)
+        chi_b_n = torch.where(ecm, chi_a_n, chi_b_n)
+        chi_a_n = torch.where(ecm, chb_edge, chi_a_n)
+        edges = self._flow_edges(torch.cat([qh_a_n, chi_a_n]), psa_n, ucx,
+                                 vcx)
+        qh_a_n, chi_a_n = edges[:nqh], edges[nqh:]
+        sfupd = dict(sfupd, chi_a=chi_a_n, chi_b=chi_b_n)
         if self.iboudy in (3, 4):
             qv_a_n = self._flow_edges(qv_a_n, psa_n, ucx, vcx, qext=qv_a_n)
 

@@ -12,8 +12,11 @@ Each step runs ``nsound`` implicit-vertical acoustic substeps, whose w
 solve goes through kernel K3 (``kernels.tridiag_w``), nested in ``nadv``
 WAF advection passes of the whole field stack through kernel K4
 (``kernels.waf_advect``), then the physics, the boundary relaxation and
-the every-step smoothers. The metric and mask constants are built in
-numpy, as in the JAX package, and put on the device once.
+the every-step smoothers. With chemistry the tracers (``chi_b``,
+uncoupled mixing ratios) join the WAF stack (nf = 5 + nqx + ntr), take
+the physics' tendency, relax toward clean air at the lateral boundary
+and are smoothed as the hydrometeors are. The metric and mask constants
+are built in numpy, as in the JAX package, and put on the device once.
 
 With a ``DomainMesh`` (``MolochCore(..., mesh=...)``, the JAX core's
 ``set_mesh``) the core steps one rank's (ly, lx) block of the domain:
@@ -31,6 +34,7 @@ from typing import Dict, NamedTuple, Tuple
 import numpy as np
 import torch
 
+from ..chem import chem_ntr
 from ..config.params import RegCMConfig
 from ..core.grid import ModelGrid
 from ..core.state import (sliced, species_count, tensors_from,
@@ -144,9 +148,9 @@ class MolochBdy(NamedTuple):
 
 
 def zeros_moloch_phys(kz: int, iy: int, jx: int, device="cuda",
-                      dtype=torch.float64, nlak: int = 1):
-    """Zero-initialised physics/surface fields of a MolochState (no
-    chemistry tracers: the port refuses ichem=1)."""
+                      dtype=torch.float64, nlak: int = 1, ntr: int = 0):
+    """Zero-initialised physics/surface fields of a MolochState with
+    ``ntr`` chemistry tracers."""
     device = resolve_device(device)
 
     def full(shape, v=0.0):
@@ -169,8 +173,8 @@ def zeros_moloch_phys(kz: int, iy: int, jx: int, device="cuda",
                 abstot=full(((kz + 1) * (kz + 1), iy, jx)),
                 absnxt=full((4 * kz, iy, jx)),
                 emstot=full((kz + 1, iy, jx)),
-                chi_b=full((0, kz, iy, jx)),
-                chemdiag=full((3, 0, iy, jx)))
+                chi_b=full((ntr, kz, iy, jx)),
+                chemdiag=full((3, ntr, iy, jx)))
 
 
 def moloch_state_from_numpy(s, device="cuda", dtype=torch.float64,
@@ -197,10 +201,6 @@ def _refuse_options(cfg: RegCMConfig):
     if cfg.core.idynamic != 3:
         raise NotImplementedError(
             f"MolochCore needs idynamic=3, got {cfg.core.idynamic}")
-    if int(cfg.physics.ichem) != 0:
-        raise NotImplementedError(
-            "regcm_tpu_torch does not port chemistry (ichem=1, ROADMAP.md "
-            "item 13)")
     if cfg.geo.i_band or cfg.geo.i_crm:
         raise NotImplementedError(
             "regcm_tpu_torch does not port periodic MOLOCH domains "
@@ -328,6 +328,11 @@ class MolochCore:
         # physics contract read by PhysicsSuite (uncoupled prognostics:
         # the coupling factor in atms is 1)
         self.nqx = species_count(cfg.physics.ipptls)
+        # chemistry tracers (chi_b, uncoupled mixing ratios) and the
+        # interface weights of their settling flux (twt of mod_vertint)
+        self.ntr = chem_ntr(cfg)
+        self.twt1 = f1(g.twt[:, 0])[:, None, None]
+        self.twt2 = f1(g.twt[:, 1])[:, None, None]
         self.grid_lndocn = f(g.lndocn)
         self.sst = torch.full_like(self.mx2, 288.0)
         self.coriol = f(g.coriol)
@@ -421,7 +426,8 @@ class MolochCore:
                         torch.zeros((self.nqx - 1, kz, iy, jx),
                                     dtype=self.dtype, device=dev)])
         phys = zeros_moloch_phys(kz, iy, jx, dev, self.dtype,
-                                 nlak=lake_layers(self.cfg.physics))
+                                 nlak=lake_layers(self.cfg.physics),
+                                 ntr=self.ntr)
         phys["tg"] = f(t[kz - 1])
         z3 = torch.zeros((kz, iy, jx), dtype=self.dtype, device=dev)
         st = MolochState(
@@ -760,16 +766,19 @@ class MolochCore:
         qsat = pfwsat(t, p)
         tvirt = t * (1.0 + c.ep1 * qv - qcond)
         tetav = tvirt / pai
+        chi = st.chi_b
 
         for _ in range(self.nadv):
             u, v, w, pai, s = self._sound(u, v, w, pai, tetav, qv, qsat,
                                           dtsound)
-            # advection of the whole field stack {θv, π, ux, vx, wx, qx}
-            # by one K4 launch (advection, :1042-1095)
+            # advection of the whole field stack {θv, π, ux, vx, wx, qx,
+            # the chemistry tracers} by one K4 launch (advection,
+            # :1042-1095): nf = 5 + nqx + ntr
             ux, vx = self.uvstag2x(u, v)
             wx = self.wstag2x(w)
             fields = torch.cat([tetav[None], pai[None], ux[None], vx[None],
-                                wx[None], qx], dim=0)
+                                wx[None], qx] + ([chi] if self.ntr else []),
+                               dim=0)
             args = (fields, u * self.rmu[None], v * self.rmv[None], s,
                     self.fmz, self.fmzf, self.mx2, self.m_ci,
                     dtstepa / self.dx, dtstepa / self.dz)
@@ -778,6 +787,8 @@ class MolochCore:
             tetav, pai, ux, vx, wx = (adv[0], adv[1], adv[2], adv[3],
                                       adv[4])
             qx = adv[5:5 + self.nqx]
+            if self.ntr:
+                chi = torch.clamp(adv[5 + self.nqx:], min=0.0)
             u, v = self.x2uvstag(ux, vx)
             w = self.x2wstag(wx, w)
 
@@ -816,6 +827,12 @@ class MolochCore:
                 qvphy = qvphy + dqv
                 qhphy = qhphy.clone()       # qhphy.at[0].add(dqc)
                 qhphy[0] = qhphy[0] + dqc
+            # the chemistry tendencies (formed from the state before this
+            # step's advection, as in the JAX package)
+            chiphy = sfupd.pop("_chiten", None)
+            if self.ntr and chiphy is not None:
+                chi = torch.clamp(chi + dtsec * chiphy
+                                  * self.m_ci[None, None], min=0.0)
             # update status (:1546-1568): forward-Euler apply, floors
             t = t + dtsec * tphy * self.m_ci
             qv = torch.clamp(qv + dtsec * qvphy * self.m_ci, min=c.minqq)
@@ -834,6 +851,10 @@ class MolochCore:
             u = u + self._nudge(bdy.u0 + xtd * bdy.ut - u)
             v = v + self._nudge(bdy.v0 + xtd * bdy.vt - v)
             qx = torch.cat([qv[None], qx[1:]])     # qx.at[0].set(qv)
+            if self.ntr:
+                # chemistry lateral boundary: relaxation toward clean
+                # inflow air (mod_che_bdyco nudge on chemt)
+                chi = torch.clamp(chi + self._nudge(-chi), min=0.0)
             # upper Rayleigh damping toward the boundary values
             # (moraydamp, mod_moloch.F90:420-425)
             if self.ifrayd == 1:
@@ -856,6 +877,10 @@ class MolochCore:
         qv2 = qx[0] + self.nuqx * lap4(qx[0]) * self.m_ci
         qh2 = qx[1:] + 0.5 * self.nuqx * lap4(qx[1:]) * self.m_ci[None]
         qx = torch.cat([qv2[None], qh2])
+        if self.ntr:
+            chi = torch.clamp(
+                chi + 0.5 * self.nuqx * lap4(chi) * self.m_ci[None], min=0.0)
+            sfupd = dict(sfupd, chi_b=chi)
 
         ns = st._replace(u=u, v=v, w=w, pai=pai, t=t, qx=qx,
                          heatrt=heatrt, **sfupd)

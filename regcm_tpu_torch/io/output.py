@@ -1,5 +1,5 @@
-"""Model output streams (ATM / SRF / RAD / STS / LAK / SUB / SLABOC), torch
-twin of ``regcm_tpu/io/output.py``.
+"""Model output streams (ATM / SRF / RAD / STS / LAK / SUB / SLABOC / CHE
+/ OPT), torch twin of ``regcm_tpu/io/output.py``.
 
 The reference's stream system (stream ids
 ``Main/mpplib/mod_ncout.F90:143-152``, variable inventory
@@ -20,9 +20,15 @@ names:
 - LAK (lakemod=1, sigma-p cores): lake surface temperature, ice, snow
   and the tlake profile;
 - SUB (nsg > 1): per-subcell BATS fields;
-- SLABOC (islab_ocean=1): the slab SST and the restoring q-flux.
-
-CHE and OPT (chemistry, ROADMAP item 13) are not ported.
+- SLABOC (islab_ocean=1): the slab SST and the restoring q-flux;
+- CHE (ichem=1, sigma-p cores): each tracer's mixing ratio, the column
+  burdens and the accumulated emission, dry and wet deposition, every
+  chemfrq hours;
+- OPT (ichem=1 with the aerosol direct effect, sigma-p cores): the
+  visible-band aerosol extinction and optical depth, every chemfrq
+  hours. Its interface pressures take the hPa surface pressure times
+  1000, as the JAX package's writer does (ten times the pressure in
+  Pa: ROADMAP Queue 3), so that the two packages' records agree.
 
 A record is formed on the device from the state, packed into one tensor
 of (y, x) planes and copied to the host once per alarm; a writer thread
@@ -46,6 +52,9 @@ import numpy as np
 import torch
 from scipy.io import netcdf_file
 
+from ..chem.optics import sw_aerosol_mixture
+from ..chem.species import build_species
+from ..dynamics.hydrostatic import level_sum
 from ..utils.calendar import Date
 from .ncio import NCWriter
 from .zarrio import ZarrWriter, _ZArray
@@ -224,8 +233,19 @@ class OutputStreams:
         self.rotcos = full("rotcos", 1.0)
         self.rotsin = full("rotsin", 0.0)
         # the record counts in append mode, as rank 0's files hold them
+        # chemistry's streams: CHE with the tracers, OPT with the aerosol
+        # direct effect's optics too
+        self.ntr = getattr(model.core, "ntr", 0)
+        self.aertab = getattr(physics, "aertab", None) if self.ntr else None
+        if self.ntr and model.idynamic == 3:
+            raise NotImplementedError(
+                "the CHE and OPT streams read the sigma-p cores' tracers "
+                "(chi_a, ps_a), in the JAX package too: there is none on "
+                "MOLOCH to port")
         streams = ["ATM", "SRF", "RAD", "STS"] \
-            + ["LAK"] * self.has_lake + ["SUB"] * (self.nnsg > 1) \
+            + ["LAK"] * self.has_lake + ["CHE"] * bool(self.ntr) \
+            + ["SUB"] * (self.nnsg > 1) \
+            + ["OPT"] * (self.aertab is not None) \
             + ["SLABOC"] * (model.cfg.physics.islab_ocean == 1)
         paths = {s: os.path.join(
             outdir, f"{domname}_{s}.{tag}00."
@@ -351,6 +371,28 @@ class OutputStreams:
             tv(self.lak, "tlake", ("ndpmax", "iy", "jx"), "degC",
                "Lake temperature profile")
 
+        # CHE stream (che stream id, Main/mpplib/mod_ncout.F90:143-152):
+        # mixing ratios per tracer, burdens, emission/deposition totals
+        self.che = None
+        if self.ntr:
+            self.chnames = build_species(model.cfg.chem.chemsimtype).names
+            dims["ntr"] = self.ntr
+            self.che = mk("CHE")
+            nk = ("ntr", "iy", "jx")
+            for nm in self.chnames:
+                tv(self.che, f"mixrat_{nm.lower()}", k3, "kg kg-1",
+                   f"{nm} mixing ratio")
+            tv(self.che, "burden", nk, "kg m-2",
+               "Instantaneous column tracer burden")
+            tv(self.che, "emflx_acc", nk, "kg m-2",
+               "Accumulated surface emission")
+            tv(self.che, "ddflx_acc", nk, "kg m-2",
+               "Accumulated dry deposition")
+            tv(self.che, "wdflx_acc", nk, "kg m-2",
+               "Accumulated wet deposition")
+            self._dsig = torch.as_tensor(np.asarray(g.dsigma), dtype=dt,
+                                         device=dev)[:, None, None]
+
         # SUB stream: per-subcell surface fields when nsg > 1
         self.sub = None
         if self.nnsg > 1:
@@ -364,6 +406,20 @@ class OutputStreams:
                "Subgrid snow water equivalent")
             tv(self.sub, "smu_sub", nk, "kg m-2",
                "Subgrid upper-layer soil water")
+
+        # OPT stream (opt stream id): the aerosol extinction at the
+        # visible band and the column optical depth
+        self.opt = None
+        if self.aertab is not None:
+            self.opt = mk("OPT")
+            tv(self.opt, "aext8", k3, "m-1",
+               "Aerosol extinction coefficient (visible)")
+            tv(self.opt, "aod", k2, "1",
+               "Aerosol column optical depth (visible)",
+               "atmosphere_optical_thickness_due_to_ambient_aerosol"
+               "_particles")
+            self._sigf = torch.as_tensor(np.asarray(g.sigma), dtype=dt,
+                                         device=dev)[:, None, None]
 
         # SLABOC stream: the slab ocean's SST and restoring q-flux
         self.slaboc = None
@@ -534,21 +590,48 @@ class OutputStreams:
         self._emit(self.lak, {"tg": s.tlak[0] + 273.15, "ice": s.lakice,
                               "scv": s.laksnow, "tlake": s.tlak})
 
-    def _chemistry(self, what):
-        if self.model.cfg.physics.ichem:
-            raise NotImplementedError(
-                f"regcm_tpu_torch does not port the {what} stream "
-                "(chemistry, ROADMAP.md item 13)")
-
     def write_che(self):
-        """The CHE stream is chemistry's (ROADMAP item 13): nothing to
-        write without it."""
-        self._chemistry("CHE")
+        """CHE record: the decoupled tracer mixing ratios, the column
+        burdens Σ chi·Δσ·1000/g (added in level order) and the emission
+        and deposition totals."""
+        if self.che is None:
+            return
+        s = self.model.state
+        chi = s.chi_a / s.ps_a[None, None]
+        rec = {f"mixrat_{nm.lower()}": chi[n]
+               for n, nm in enumerate(self.chnames)}
+        rec["burden"] = level_sum(torch.movedim(
+            s.chi_a * self._dsig[None], 1, 0)) * 1000.0 / 9.80665
+        rec.update(emflx_acc=s.chemdiag[0], ddflx_acc=s.chemdiag[1],
+                   wdflx_acc=s.chemdiag[2])
+        self._emit(self.che, rec)
 
     def write_opt(self):
-        """The OPT stream is chemistry's aerosol optics (ROADMAP item 13):
-        nothing to write without it."""
-        self._chemistry("OPT")
+        """OPT record: the visible-band (interval 8) extinction profile
+        and column optical depth of the aerosol mixture (aeroppt → opt
+        stream), on the layers' hydrostatic thickness from the decoupled
+        T and qv."""
+        if self.opt is None:
+            return
+        m = self.model
+        s = m.state
+        kz = m.grid.kz
+        ptop = m.cfg.ptop_cb * 1000.0
+        dec = m.core.decoupled(s)
+        ly, lx = s.ps_a.shape
+        pint = self._sigf * (dec["ps"] * 1000.0 - ptop)[None] + ptop
+        chi = torch.clamp(s.chi_a / torch.clamp(s.ps_a, min=1e-10)[None, None],
+                          min=0.0)
+        aer = sw_aerosol_mixture(
+            chi.reshape(self.ntr, kz, ly * lx).transpose(1, 2),
+            pint.reshape(kz + 1, ly * lx).T, self.aertab)
+        ivis = min(8, aer.tauxar.shape[-1] - 1)
+        tau = aer.tauxar[:, 1:, ivis].T.reshape(kz, ly, lx)
+        tv = dec["t"] * (1.0 + 0.608 * dec["qv"])
+        dz = torch.clamp(287.0 * tv / 9.80665 * torch.log(
+            torch.clamp(pint[1:], min=1.0) / torch.clamp(pint[:-1], min=1.0)),
+            min=1.0)
+        self._emit(self.opt, {"aext8": tau / dz, "aod": level_sum(tau)})
 
     def write_slaboc(self):
         """SLABOC record: the slab SST over the ocean and the restoring
@@ -584,7 +667,7 @@ class OutputStreams:
             self._wthread.join()
             self._wq = None
         for w in (self.atm, self.srf, self.rad, self.sts, self.lak,
-                  self.sub, self.slaboc):
+                  self.che, self.sub, self.opt, self.slaboc):
             if w is not None:
                 w.close()
         if self.mesh is not None:

@@ -16,6 +16,12 @@ kernel ``regcm_tpu/dynamics/pallas_kernels.py`` ``emanuel_mixing``
 (body ``regcm_tpu/physics/cumulus/emanuel.py`` ``_mixing_body``). A CPU
 tensor goes to ``emanuel_mixing_plain``; a CUDA tensor launches the
 hand-written kernel ``csrc/emanuel_mixing.cu`` or raises.
+
+The tracer form (``tra`` (ncol, L, ntr) and ``trank`` (ncol, ntr), the
+chemistry tracers and their values at the parcel origin level) also
+returns ``sum_tra`` (ncol, L, ntr), the tracer mixing contraction of
+``_mixing_body(tra=, trank=)``, from the same kernel pass; at most
+``MAX_TRACERS`` tracers.
 """
 from __future__ import annotations
 
@@ -27,34 +33,44 @@ from ..utils import constants as c
 
 from . import _build
 
-# kernel launches since the last reset (plain-version calls not counted)
+# kernel launches since the last reset (plain-version calls not counted),
+# and those of them in the tracer form
 launches = 0
+launches_tracers = 0
 
 KEYS = ("wdtrain_mix", "amp1_e", "ad", "mentii", "qentii",
         "sum_q", "sum_u", "sum_v")
 MAX_LEVELS = 64          # one 64-bit validity mask per row in the kernel
+# the tracer form's sums sit in shared memory (csrc MAX_TRA); every
+# aerosol chemsimtype has at most 12 tracers
+MAX_TRACERS = 32
 
 _P = ctypes.c_void_p
 _D = ctypes.c_double
 # 13 level arrays, unk, vnk, icb, ict, cloud, out, ncol, L, stream and
 # the constants rwat, cpd, cpv, egrav
 _SIG = [_P] * 18 + [_P, ctypes.c_int, ctypes.c_int, _P, _D, _D, _D, _D]
+# the tracer form: tra, trank, sum_tra, ntr after those
+_SIG_TRA = _SIG + [_P, _P, _P, ctypes.c_int]
 
 
 def build():
     """Compile and load the CUDA library (once per process)."""
     # -fmad=false: no contraction to FMA, so each (i, j) pair rounds
     # like the plain version and the validity thresholds agree
-    return _build.load("emanuel_mixing", {"emanuel_mixing_f32": _SIG,
-                                          "emanuel_mixing_f64": _SIG},
-                       extra_flags=["-fmad=false"])
+    return _build.load("emanuel_mixing", {
+        "emanuel_mixing_f32": _SIG, "emanuel_mixing_f64": _SIG,
+        "emanuel_mixing_tra_f32": _SIG_TRA,
+        "emanuel_mixing_tra_f64": _SIG_TRA}, extra_flags=["-fmad=false"])
 
 
 def emanuel_mixing_plain(h, hp, q, qs, t, lv, qti, clw, ep, m, u, v, dph,
-                         unk, vnk, icb, ict, cloud, counts=None):
+                         unk, vnk, icb, ict, cloud, counts=None, tra=None,
+                         trank=None):
     """The (i, j) mixing-matrix algebra (cupeman :723-840) reduced to its
     per-level contractions, on materialised (ncol, L, L) tensors; op for
-    op ``_mixing_body`` with ``_LayCF`` (i on axis 1, j on axis 2).
+    op ``_mixing_body`` with ``_LayCF`` (i on axis 1, j on axis 2), the
+    tracer contraction ``sum_tra`` too when ``tra``/``trank`` are given.
 
     ``counts``, if a dict, receives the number of (i, j) pairs that take
     each data-dependent branch (``redo``, ``valid``, ``valid_gt`` = valid
@@ -97,6 +113,7 @@ def emanuel_mixing_plain(h, hp, q, qs, t, lv, qti, clw, ep, m, u, v, dph,
     ment = torch.where(valid, A(m) / (1.0 - torch.clamp(sij, 0.0, 0.899)),
                        0.0)
     nent = torch.sum(valid.to(h.dtype), dim=2)
+    sij_pre = sij       # traent/qent use the pre-clip mixing fraction
     sij = torch.clamp(sij, 0.0, 1.0)
 
     # no-entrainment detrainment fallback (:770-786)
@@ -160,8 +177,10 @@ def emanuel_mixing_plain(h, hp, q, qs, t, lv, qti, clw, ep, m, u, v, dph,
     # post-normalisation fallback (:830-847)
     bsum = torch.sum(ment, dim=2)
     fb = (nent > 0.5) & (bsum < 1.0e-18) & cloud
-    ment, qent, uent, vent, elij = set_diag(A(fb) & eye3, ment, qent,
-                                            uent, vent, elij)
+    fbd = A(fb) & eye3
+    ment, qent, uent, vent, elij = set_diag(fbd, ment, qent, uent, vent,
+                                            elij)
+    diag_set = diag_set | fbd
 
     # reductions
     awat = torch.clamp(elij - (1.0 - B(ep)) * B(clw), min=0.0)
@@ -177,7 +196,7 @@ def emanuel_mixing_plain(h, hp, q, qs, t, lv, qti, clw, ep, m, u, v, dph,
     ad = torch.diagonal(torch.flip(torch.cumsum(torch.flip(dji, [2]),
                                                 dim=2), [2]),
                         dim1=1, dim2=2)
-    return dict(
+    out = dict(
         wdtrain_mix=wdtrain_mix, amp1_e=amp1_e.contiguous(),
         ad=ad.contiguous(),
         mentii=torch.diagonal(ment, dim1=1, dim2=2).contiguous(),
@@ -185,6 +204,21 @@ def emanuel_mixing_plain(h, hp, q, qs, t, lv, qti, clw, ep, m, u, v, dph,
         sum_q=torch.sum(ment * (qent - awat_k - B(q)), dim=1),
         sum_u=torch.sum(ment * (uent - B(u)), dim=1),
         sum_v=torch.sum(ment * (vent - B(v)), dim=1))
+    if tra is not None:
+        # tracer mixing contraction (:751-753, :839-843, :1061-1077):
+        # traent(k,i) = sij·tra_k + (1-sij)·tra_nk on valid pairs, tra_nk
+        # on the no-entrainment diagonal → Σ_k ment·(traent − tra_i) as
+        # one contraction a tracer plus two tracer-independent columns
+        w1 = torch.where(valid, ment * sij_pre, 0.0)
+        w2c = torch.sum(torch.where(valid, ment * (1.0 - sij_pre), 0.0)
+                        + torch.where(diag_set, ment, 0.0), dim=1)
+        mentc = torch.sum(ment, dim=1)
+        sums = [torch.sum(w1 * A(tra[:, :, n]), dim=1)
+                for n in range(tra.shape[-1])]
+        out["sum_tra"] = (torch.stack(sums, dim=-1)
+                          + w2c[:, :, None] * trank[:, None, :]
+                          - mentc[:, :, None] * tra)
+    return out
 
 
 def _check(levels, cols, ints, cloud):
@@ -222,15 +256,40 @@ def _check(levels, cols, ints, cloud):
             raise ValueError("emanuel_mixing: inputs must be contiguous")
 
 
+def _check_tra(ref, tra, trank):
+    if (tra is None) != (trank is None):
+        raise ValueError("emanuel_mixing: tra and trank go together")
+    if tra is None:
+        return
+    ncol, L = ref.shape
+    if tra.dim() != 3 or tuple(tra.shape[:2]) != (ncol, L):
+        raise ValueError(f"emanuel_mixing: tra must be (ncol, L, ntr) = "
+                         f"({ncol}, {L}, ntr), got {tuple(tra.shape)}")
+    ntr = tra.shape[2]
+    if not 1 <= ntr <= MAX_TRACERS:
+        raise ValueError(f"emanuel_mixing: ntr={ntr} tracers, the kernel "
+                         f"takes 1 to {MAX_TRACERS}")
+    if tuple(trank.shape) != (ncol, ntr):
+        raise ValueError("emanuel_mixing: trank must be (ncol, ntr), got "
+                         f"{tuple(trank.shape)}")
+    for a in (tra, trank):
+        if a.dtype != ref.dtype or a.device != ref.device \
+                or not a.is_contiguous():
+            raise ValueError("emanuel_mixing: tra/trank must be contiguous "
+                             "of the level arrays' dtype and device")
+
+
 def emanuel_mixing(h, hp, q, qs, t, lv, qti, clw, ep, m, u, v, dph,
-                   unk, vnk, icb, ict, cloud):
+                   unk, vnk, icb, ict, cloud, tra=None, trank=None):
     """Reduced Emanuel mixing terms; returns a dict of (ncol, L) tensors
-    keyed by ``KEYS``."""
-    global launches
+    keyed by ``KEYS``, and ``sum_tra`` (ncol, L, ntr) with ``tra``."""
+    global launches, launches_tracers
     levels = (h, hp, q, qs, t, lv, qti, clw, ep, m, u, v, dph)
     _check(levels, (unk, vnk), (icb, ict), cloud)
+    _check_tra(h, tra, trank)
     if h.device.type == "cpu":
-        return emanuel_mixing_plain(*levels, unk, vnk, icb, ict, cloud)
+        return emanuel_mixing_plain(*levels, unk, vnk, icb, ict, cloud,
+                                    tra=tra, trank=trank)
     if h.device.type != "cuda":
         raise ValueError(f"emanuel_mixing: device {h.device} not supported")
     lib = build()
@@ -239,14 +298,26 @@ def emanuel_mixing(h, hp, q, qs, t, lv, qti, clw, ep, m, u, v, dph,
     icb32 = icb.to(torch.int32)
     ict32 = ict.to(torch.int32)
     cld8 = cloud.to(torch.uint8)
-    fn = lib.emanuel_mixing_f64 if h.dtype == torch.float64 \
-        else lib.emanuel_mixing_f32
+    f64 = h.dtype == torch.float64
+    args = [*(a.data_ptr() for a in levels), unk.data_ptr(), vnk.data_ptr(),
+            icb32.data_ptr(), ict32.data_ptr(), cld8.data_ptr(),
+            out.data_ptr(), ncol, L]
+    consts = [c.rwat, c.cpd, c.cpv, c.egrav]
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(*(a.data_ptr() for a in levels), unk.data_ptr(),
-                vnk.data_ptr(), icb32.data_ptr(), ict32.data_ptr(),
-                cld8.data_ptr(), out.data_ptr(), ncol, L, stream,
-                c.rwat, c.cpd, c.cpv, c.egrav)
+        if tra is None:
+            fn = lib.emanuel_mixing_f64 if f64 else lib.emanuel_mixing_f32
+            rc = fn(*args, stream, *consts)
+        else:
+            sum_tra = torch.empty_like(tra)
+            fn = lib.emanuel_mixing_tra_f64 if f64 \
+                else lib.emanuel_mixing_tra_f32
+            rc = fn(*args, stream, *consts, tra.data_ptr(), trank.data_ptr(),
+                    sum_tra.data_ptr(), tra.shape[2])
     _build.check_status(rc, "emanuel_mixing")
     launches += 1
-    return {k: out[n] for n, k in enumerate(KEYS)}
+    launches_tracers += tra is not None
+    res = {k: out[n] for n, k in enumerate(KEYS)}
+    if tra is not None:
+        res["sum_tra"] = sum_tra
+    return res

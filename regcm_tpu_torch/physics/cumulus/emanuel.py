@@ -7,17 +7,21 @@ cloud-base mass-flux closure, unsaturated precipitating downdraft and
 convective momentum transport, as dense masked algebra over (ncol, NL)
 columns (level 0 = lowest level). The mixing-matrix reductions go
 through kernel K2 (``kernels.emanuel_mixing``); the downdraft recursion
-is a loop from cloud top to the surface, batched over columns.
-Tracer transport (chemistry) is not ported.
+is a loop from cloud top to the surface, batched over columns. With
+``tra`` the chemistry tracers ride the same plume and downdraft algebra
+as u and v (chemcutran, mod_cu_em.F90:454, :605-1150): their mixing
+contraction comes from K2's tracer form, and ``ftra`` returns their
+tendencies.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from ...utils import constants as c
 
+from ...dynamics.hydrostatic import level_sum
 from ...kernels.emanuel_mixing import emanuel_mixing
 from ...utils.thermo import pfwsat
 
@@ -57,6 +61,7 @@ class EmanuelOut(NamedTuple):
     kbase: torch.Tensor    # cloud base level (Emanuel orientation)
     ktop: torch.Tensor
     active: torch.Tensor   # bool: convection occurred
+    ftra: Optional[torch.Tensor] = None   # tracer tendencies (ncol, NL, ntr)
 
 
 def _take(a, idx):
@@ -99,21 +104,23 @@ def _tlift(t, q, qs, gz, p, nk):
 
 
 def _mixing_terms(h, hp, q, qs, t, lv, qti, clw, ep, m, u, v, dph,
-                  unk, vnk, icb, ict, cloud):
-    """Reduced mixing terms through kernel K2 (contiguous operands)."""
-    cont = lambda a: a.contiguous()
+                  unk, vnk, icb, ict, cloud, tra=None, trank=None):
+    """Reduced mixing terms through kernel K2, its tracer form with
+    ``tra`` (contiguous operands)."""
+    cont = lambda a: None if a is None else a.contiguous()
     return emanuel_mixing(*(cont(a) for a in (h, hp, q, qs, t, lv, qti,
                                               clw, ep, m, u, v, dph)),
                           cont(unk), cont(vnk), cont(icb), cont(ict),
-                          cont(cloud))
+                          cont(cloud), tra=cont(tra), trank=cont(trank))
 
 
 def cupeman(t, q, qs, u, v, p, ph, cbmf_in, dt, elcrit, epmax,
-            minorig: int) -> EmanuelOut:
+            minorig: int, tra=None) -> EmanuelOut:
     """One Emanuel call. Inputs (ncol, NL) bottom-up: t (K), q/qs
     specific humidity (kg/kg), u/v (m/s), p (hPa), ph (ncol, NL+1)
     interface hPa; cbmf_in: cloud-base mass-flux memory; dt: leapfrog
-    step; elcrit/epmax (ncol,)."""
+    step; elcrit/epmax (ncol,); tra (ncol, NL, ntr) bottom-up tracer
+    mixing ratios, whose tendencies come back as ``ftra``."""
     ncol, NL2 = t.shape
     NL = NL2 - 1
     rdt = 1.0 / dt
@@ -243,8 +250,12 @@ def cupeman(t, q, qs, u, v, p, ph, cbmf_in, dt, elcrit, epmax,
     unk = _take(u, nk)
     vnk = _take(v, nk)
     qti = qnk[:, None] - ep * clw
+    trank = None
+    if tra is not None:
+        trank = torch.gather(tra, 1, nk[:, None, None].expand(
+            -1, 1, tra.shape[2]))[:, 0]                 # (ncol, ntr)
     mix = _mixing_terms(h, hp, q, qs, t, lv, qti, clw, ep, m, u, v,
-                        dph, unk, vnk, icb, ict, cloud)
+                        dph, unk, vnk, icb, ict, cloud, tra=tra, trank=trank)
 
     # precipitating downdraft (:845-960), top → bottom
     wdtrain = c.egrav * ep * m * clw + mix["wdtrain_mix"]
@@ -256,8 +267,11 @@ def cupeman(t, q, qs, u, v, p, ph, cbmf_in, dt, elcrit, epmax,
     qp_kp1, up_kp1, vp_kp1 = q[:, -1] * 0.0, zc, zc
     jtt_set = torch.zeros_like(zc, dtype=torch.bool)
     mp_jtt, p_jtt = zc, zc + 1.0
-    water_l, evap_l, mp_l, qp_l, up_l, vp_l = ([None] * NL2 for _ in
-                                               range(6))
+    water_l, evap_l, mp_l, qp_l, up_l, vp_l, trap_l = (
+        [None] * NL2 for _ in range(7))
+    # the downdraft's tracers start from the top level's (trap(i) holds
+    # the shifted profile, :624-633)
+    trap_kp1 = tra[:, -1, :] if tra is not None else None
     for k in range(NL2 - 1, -1, -1):
         kp1 = min(k + 1, NL2 - 1)
         km1 = max(k - 1, 0)
@@ -303,6 +317,15 @@ def cupeman(t, q, qs, u, v, p, ph, cbmf_in, dt, elcrit, epmax,
             * (evap_k / torch.clamp(mp_k, min=1e-30))
         up_k_grow = up_kp1 * rat + u[:, k] * (1.0 - rat)
         vp_k_grow = vp_kp1 * rat + v[:, k] * (1.0 - rat)
+        if tra is not None:
+            # the growth branch mixes against the shifted profile
+            # (:940-944)
+            trap_k = torch.where(
+                grow[:, None], trap_kp1 * rat[:, None]
+                + tra[:, km1, :] * (1.0 - rat[:, None]), trap_kp1)
+            trap_k = torch.where(act[:, None], trap_k, tra[:, k, :])
+            trap_l[k] = trap_k
+            trap_kp1 = trap_k
         tkp1 = t[:, kp1]
         lvkp1 = lv[:, kp1]
         qp_k_desc = (gz[:, kp1] - gz[:, k]
@@ -326,6 +349,7 @@ def cupeman(t, q, qs, u, v, p, ph, cbmf_in, dt, elcrit, epmax,
     st = lambda lst: torch.stack(lst, dim=1)
     water, evap, mp = st(water_l), st(evap_l), st(mp_l)
     qp, up, vp = st(qp_l), st(up_l), st(vp_l)
+    trap = st(trap_l) if tra is not None else None
     # downdraft only when ep(ict) >= 1e-4 (:845)
     has_dd = (_take(ep, ict) >= 1.0e-4).to(t.dtype)
     water = water * has_dd[:, None]
@@ -374,6 +398,16 @@ def cupeman(t, q, qs, u, v, p, ph, cbmf_in, dt, elcrit, epmax,
         * (mp_p1 * (qp_p1 - q) - mp * (qp - qm1))
     fu = fu + c.egrav * dpinv * (mp_p1 * (up_p1 - u) - mp * (up - um1))
     fv = fv + c.egrav * dpinv * (mp_p1 * (vp_p1 - v) - mp * (vp - vm1))
+    ftra = None
+    if tra is not None:
+        # tracer tendencies mirror fu term for term (:994-1095)
+        d3 = dpinv[:, :, None]
+        ftra = c.egrav * d3 * (amp1[:, :, None] * (shift_p1(tra) - tra)
+                               - ad[:, :, None] * (tra - shift_m1(tra)))
+        ftra = ftra + c.egrav * d3 * mix["sum_tra"]
+        ftra = ftra + c.egrav * d3 * (
+            mp_p1[:, :, None] * (shift_p1(trap) - tra)
+            - mp[:, :, None] * (trap - shift_m1(tra)))
     conv_lay = ii <= ict[:, None]
     ft = torch.where(conv_lay, ft, 0.0)
     fq = torch.where(conv_lay, fq, 0.0)
@@ -389,6 +423,15 @@ def cupeman(t, q, qs, u, v, p, ph, cbmf_in, dt, elcrit, epmax,
     ft = torch.where(conv_lay, ft - ents[:, None] / cpn, ft)
     fu = torch.where(conv_lay, (1.0 - CU) * (fu - uav[:, None]), fu)
     fv = torch.where(conv_lay, (1.0 - CU) * (fv - vav[:, None]), fv)
+    if tra is not None:
+        # exact tracer-mass conservation (:1142-1150)
+        c3 = conv_lay[:, :, None]
+        ftra = torch.where(c3, ftra, 0.0)
+        # the level sum in level order: a column's bits do not depend on
+        # the number of columns
+        traav = level_sum(torch.movedim(ftra * dphm[:, :, None], 1, 0)) \
+            / norm[:, None]
+        ftra = torch.where(c3, ftra - traav[:, None, :], ftra)
 
     # CFL guard: clamp the magnitude
     cfl = 2.0 * c.egrav * dpinv * amp1
@@ -398,6 +441,8 @@ def cupeman(t, q, qs, u, v, p, ph, cbmf_in, dt, elcrit, epmax,
     fq = fq * scale
     fu = fu * scale
     fv = fv * scale
+    if tra is not None:
+        ftra = ftra * scale[:, :, None]
 
     # cloud fraction (Xu & Krueger; :1160-1178)
     mmid = 0.5 * (m + shift_p1(m))
@@ -418,4 +463,5 @@ def cupeman(t, q, qs, u, v, p, ph, cbmf_in, dt, elcrit, epmax,
         precip=torch.where(active, torch.clamp(precip, min=0.0), 0.0),
         cbmf=torch.where(active, cbmf, 0.0),
         cldfra=torch.where(act, cldfra, 0.0),
-        kbase=icb, ktop=ict, active=active)
+        kbase=icb, ktop=ict, active=active,
+        ftra=None if tra is None else torch.where(act[:, :, None], ftra, 0.0))

@@ -5,7 +5,9 @@
 nonlocal K-profile diffusion with counter-gradient heat transport,
 Blackadar free-atmosphere mixing and implicit vertical diffusion of u,
 v, T (as surface-referenced potential temperature), qv and cloud water.
-The five implicit solves go through kernel K1 (``kernels.pbl_tridiag``).
+The five implicit solves go through kernel K1 (``kernels.pbl_tridiag``);
+with chemistry, ``tracer_diffusion`` solves the tracers with the scalar
+coefficients through a second K1 call, with ns = ntr.
 """
 from __future__ import annotations
 
@@ -42,6 +44,10 @@ class HoltslagOut(NamedTuple):
     qcten: torch.Tensor
     zpbl: torch.Tensor       # PBL height (m)
     kpbl: torch.Tensor       # PBL top level index (float)
+    # the scalar diffusion coefficients, which the chemistry tracers'
+    # solve reuses (the chi block, mod_pbl_holtbl.F90:985-1095)
+    alphak: torch.Tensor
+    betak_q: torch.Tensor
 
 
 def _tridiag_implicit_many(fs, alphaks, betaks, dt, sfc_extras,
@@ -67,6 +73,19 @@ def _tridiag_implicit_many(fs, alphaks, betaks, dt, sfc_extras,
     x = pbl_tridiag(c1, c2, c3, rhs) if mesh is None \
         else pbl_tridiag_sharded(mesh, c1, c2, c3, rhs)
     return tuple(x[i] for i in range(len(fs)))
+
+
+def tracer_diffusion(chi, alphak, betak_q, dt, mesh=None):
+    """The implicit vertical diffusion of the chemistry tracers (holtbl's
+    chi tridiagonal block, mod_pbl_holtbl.F90:985-1095) with the scalar
+    coefficients, no surface flux (the dry deposition is settling_tend's
+    with ichdrdepo=1): one K1 call with ns = ntr (K5c on a rank's block
+    of ``mesh``). chi (ntr, kz, iy, jx) decoupled; returns the
+    predicted field."""
+    ntr = chi.shape[0]
+    return torch.stack(_tridiag_implicit_many(
+        list(chi), [alphak] * ntr, [betak_q] * ntr, dt, [0.0] * ntr,
+        mesh=mesh))
 
 
 def _find_zpbl(ri, za, kmxpbl, ricr, kz):
@@ -284,4 +303,5 @@ def holtbl(tpatm, tatm, patm, patmf, qv, qc, ux, vx, udd, vdd,
         qvten = qvten * m_ci
         qcten = qcten * m_ci
     return HoltslagOut(uten=uten, vten=vten, tten=tten, qvten=qvten,
-                       qcten=qcten, zpbl=zpbl, kpbl=kpbl)
+                       qcten=qcten, zpbl=zpbl, kpbl=kpbl, alphak=akzz2,
+                       betak_q=betak_q)

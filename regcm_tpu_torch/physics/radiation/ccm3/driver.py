@@ -4,7 +4,10 @@
 Builds the column inputs from the physics slice (cloud particle sizes,
 cloud emissivity, ozone profile, trace-gas mixing ratios), runs the SW
 delta-Eddington and LW absorptivity/emissivity solvers, and returns MKS
-heating rates and surface/TOA fluxes. References:
+heating rates and surface/TOA fluxes; with chemistry's aerosol direct
+effect (``aermmr``/``aertab``) the aerosol optical depths join the SW
+delta-Eddington and the grey dust transmission the LW absorptivities.
+References:
 ``Main/radlib/mod_rad_colmod3.F90:207-795``,
 ``mod_rad_radiation.F90:879-1089``, ``mod_rad_o3blk.F90:108-138``.
 """
@@ -15,6 +18,8 @@ from typing import NamedTuple
 
 import torch
 
+from ....chem.optics import (FIVEOTHREE, QABSLW_DUST, lw_dust_path,
+                             sw_aerosol_mixture)
 from . import tables as tb
 
 from . import lw as lwmod
@@ -93,7 +98,7 @@ def ccm3_radiation(tb3, qvb3, qcb3, qib3, pb3, pf3, rhb3, dzq,
                    aldirs, aldifs, aldirl, aldifl, albvs, albvl,
                    emiss, ghg, eccf=1.0, solcon=1367.0,
                    five_species=False, col_chunk=16384,
-                   cache=None, want_cache=False):
+                   cache=None, want_cache=False, aermmr=None, aertab=None):
     """Full CCM3 column radiation on a (kz, iy, jx) grid slice.
 
     cldlwc g/m³ in-cloud, dzq layer thickness (m), pb3/pf3 Pa, ghg the
@@ -103,18 +108,34 @@ def ccm3_radiation(tb3, qvb3, qcb3, qib3, pb3, pf3, rhb3, dzq,
     (Main/mod_rad_interface.F90:62-65). With ``cache`` (abstot
     ((kz+1)², iy, jx), absnxt (4·kz, iy, jx), emstot (kz+1, iy, jx)) the
     LW absorptivity/emissivity build is skipped; ``want_cache`` returns
-    the freshly built tensors in that layout."""
+    the freshly built tensors in that layout (the cache always holds the
+    gas-only tensors: the aerosol modification is applied per call).
+
+    aermmr (ntr, kz, iy, jx) decoupled mixing ratios and aertab
+    (``chem.optics.AerosolOptics``): the aerosol direct effect, the
+    aeroppt external mixture in the SW and the grey dust LW transmission
+    applied to abstot/absnxt/emstot as radclw does with aertrlw
+    (mod_rad_radiation.F90:2007-2015)."""
     kz, iy, jx = tb3.shape
     ncol = iy * jx
     if col_chunk and ncol > col_chunk:
         ckeys = ("abstot", "absnxt", "emstot")
 
+        ntr_a = 0 if aermmr is None else aermmr.shape[0]
+
         def one(a3, a2, ac):
+            am = None
+            if aermmr is not None:       # the last of ac, (ntr·kz, n, 1)
+                am = ac[-1].reshape(ntr_a, kz, -1, 1)
+                ac = ac[:-1]
             ch = dict(zip(ckeys, ac)) if cache is not None else None
             return ccm3_radiation(*a3, *a2, ghg, eccf=eccf, solcon=solcon,
                                   five_species=five_species, col_chunk=0,
-                                  cache=ch, want_cache=want_cache)
+                                  cache=ch, want_cache=want_cache,
+                                  aermmr=am, aertab=aertab)
         argsc = [cache[k] for k in ckeys] if cache is not None else []
+        if aermmr is not None:
+            argsc.append(aermmr.reshape(ntr_a * kz, iy, jx))
         return _columns(one, (tb3, qvb3, qcb3, qib3, pb3, pf3, rhb3, dzq,
                               cldfrc, cldlwc),
                         (coszrs, tg, lndocn, xlat, aldirs, aldifs, aldirl,
@@ -176,12 +197,21 @@ def ccm3_radiation(tb3, qvb3, qcb3, qib3, pb3, pf3, rhb3, dzq,
     cpwpl = (tb.AMCO2 / tb.AMD) * 0.5 / (tb.EGRAVGTS * tb.SSLP)
     plco2 = ghg["co2vmr"] * cpwpl * pint ** 2
 
+    # ---- aerosol optical properties (aeroppt) --------------------------
+    aer_sw = aer_ucum = None
+    if aermmr is not None and aertab is not None:
+        amc = torch.clamp(aermmr, min=0.0).reshape(
+            aermmr.shape[0], kz, ncol).transpose(1, 2)   # (ntr, ncol, kz)
+        pint_pa = coli(pf3)
+        aer_sw = sw_aerosol_mixture(amc, pint_pa, aertab)
+        aer_ucum = lw_dust_path(amc, pint_pa, aertab.lw_mask)
+
     # ---- shortwave -----------------------------------------------------
     czen = torch.where(c2(coszrs) < 1.0e-3, 0.0, c2(coszrs))
     sw = radcsw(pint, q, o3mmr, cld, clwp, rel, rei, fice,
                 eccf, czen, c2(aldirs), c2(aldifs), c2(aldirl),
                 c2(aldifl), c2(albvs), c2(albvl),
-                ghg["co2mmr"], solcon * 1000.0)
+                ghg["co2mmr"], solcon * 1000.0, aer=aer_sw)
 
     # ---- longwave ------------------------------------------------------
     tp = lwmod.radtpl(c2(tg), t, pmln, q, piln, pint, plh2o)
@@ -216,6 +246,24 @@ def ccm3_radiation(tb3, qvb3, qcb3, qib3, pb3, pf3, rhb3, dzq,
             abstot=abstot.reshape(ncol, -1).T.reshape(-1, iy, jx),
             absnxt=absnxt.reshape(ncol, -1).T.reshape(-1, iy, jx),
             emstot=emsgastot.T.reshape(kz + 1, iy, jx))
+    if aer_ucum is not None:
+        # grey dust LW (aertrlw application, radclw :2007-2015)
+        trkk = torch.exp(-FIVEOTHREE * QABSLW_DUST
+                         * torch.abs(aer_ucum[:, None, :]
+                                     - aer_ucum[:, :, None]))
+        abstot = 1.0 - (1.0 - abstot) * trkk
+        emsgastot = 1.0 - (1.0 - emsgastot) * trkk[:, :, 0]
+        trlay = torch.exp(-FIVEOTHREE * QABSLW_DUST
+                          * (aer_ucum[:, 1:] - aer_ucum[:, :-1]))
+        pi_a, pi_b = pint[:, :-1], pint[:, 1:]
+        p1 = 0.5 * (pmid + pi_b)
+        p2 = 0.5 * (pmid + pi_a)
+        rdpnmsq = 1.0 / (pi_b ** 2 - pi_a ** 2)
+        uinpl = torch.stack([(pi_b ** 2 - p1 ** 2) * rdpnmsq,
+                             -(pi_a ** 2 - p2 ** 2) * rdpnmsq,
+                             -(pi_a ** 2 - p1 ** 2) * rdpnmsq,
+                             (pi_b ** 2 - p2 ** 2) * rdpnmsq], dim=2)
+        absnxt = 1.0 - (1.0 - absnxt) * trlay[:, :, None] ** uinpl
     effcldp = torch.cat([effcld_lay, torch.zeros_like(effcld_lay[:, :1])],
                         dim=1)
     lwr = lwmod.radclw(c2(tg), c2(emiss), effcldp, tp,

@@ -15,6 +15,7 @@ from typing import NamedTuple
 
 import torch
 
+from ....dynamics.hydrostatic import level_sum
 from . import tables as tb
 
 
@@ -24,7 +25,20 @@ def _el(w, g):
 
 def _delta_eddington(wtot, ftot, tautot, gtot, czen):
     """Scaled delta-Eddington layer solution (radded,
-    mod_rad_radiation.F90:2650-2700): rdir, rdif, tdir, tdif, explay."""
+    mod_rad_radiation.F90:2650-2700): rdir, rdif, tdir, tdif, explay.
+
+    Solved in float64 whatever the inputs' dtype (the reference's
+    precision), the results in the inputs' dtype: alp and gam share the
+    removable singularity 1 − lm²·μ² = 0, which their combinations
+    cancel; in float32 the cancellation leaves garbage of 1e20 and more
+    (a layer with lm = μ = 1 exactly, the night columns' guarded μ, and
+    near it), which radiation steps of configuration E at 140×802×18
+    turned into a non-finite state."""
+    dtype = wtot.dtype
+    if dtype != torch.float64:
+        out = _delta_eddington(*(a.double() for a in (wtot, ftot, tautot,
+                                                        gtot, czen)))
+        return tuple(a.to(dtype) for a in out)
     ts = (1.0 - wtot * ftot) * tautot
     ws = (1.0 - ftot) * wtot / (1.0 - wtot * ftot)
     gs = (gtot - ftot) / (1.0 - ftot)
@@ -119,10 +133,11 @@ class SWResult(NamedTuple):
 
 def radcsw(pint, h2ommr, o3mmr, cld, clwp, rel, rei, fice, eccf,
            czen, adirsw, adifsw, adirlw, adiflw, asw, alw,
-           co2mmr, scon):
+           co2mmr, scon, aer=None):
     """Shortwave driver (radcsw, mod_rad_radiation.F90:1155-1821).
     pint (ncol, kz+1) dynes/cm²; cld/clwp/... (ncol, kz) (clwp g/m²);
-    czen cosine zenith."""
+    czen cosine zenith; aer the aerosol external mixture
+    (``chem.optics.SWAerosol``, the aeroppt optical depths) or None."""
     ncol, kz = h2ommr.shape
     day = czen > 0.0
     dayf = day.to(h2ommr.dtype)
@@ -209,13 +224,20 @@ def radcsw(pint, h2ommr, o3mmr, cld, clwp, rel, rei, fice, eccf,
         taugab = tb.ABH2O[ns] * uh2o + tb.ABO3[ns] * uo3 \
             + tb.ABCO2[ns] * uco2 + tb.ABO2[ns] * uo2
         tautot = tauxcl + tauxci + tauray + taugab
+        taucsc = tauxcl * wcl + tauxci * wci
         wtau = tb.WRAY * tauray
-        wt = wtau + (tauxcl * wcl + tauxci * wci)
+        gsum = wtau * tb.GRAY + gcl * tauxcl * wcl + gci * tauxci * wci
+        fsum = wtau * tb.FRAY + fcl * tauxcl * wcl + fci * tauxci * wci
+        if aer is not None:
+            # the aerosol's τ, ω·τ, g·ω·τ and g²·ω·τ join the layers'
+            tautot = tautot + aer.tauxar[..., ns]
+            taucsc = taucsc + aer.tauasc[..., ns]
+            gsum = gsum + aer.gtota[..., ns]
+            fsum = fsum + aer.ftota[..., ns]
+        wt = wtau + taucsc
         wtot = torch.clamp(wt / tautot, max=tb.VERYNEARONE)
-        gtot = (wtau * tb.GRAY + gcl * tauxcl * wcl
-                + gci * tauxci * wci) / wt
-        ftot = (wtau * tb.FRAY + fcl * tauxcl * wcl
-                + fci * tauxci * wci) / wt
+        gtot = gsum / wt
+        ftot = fsum / wt
         rdir, rdif, tdir, tdif, explay = _delta_eddington(
             wtot, ftot, tautot, gtot, czen_s[:, None])
         exptdn, tottrn, rdndif = _add_down(rdir, rdif, tdir, tdif, explay)
@@ -257,10 +279,20 @@ def radcsw(pint, h2ommr, o3mmr, cld, clwp, rel, rei, fice, eccf,
         taugab1 = tb.ABH2O[ns] * uth2o + tb.ABCO2[ns] * utco2 \
             + tb.ABO2[ns] * uto2
         tautot1 = tauray1 + taugab1
-        wtot1 = torch.clamp((tb.WRAY * tauray1) / tautot1,
-                            max=tb.VERYNEARONE)
-        gtot1 = (tb.GRAY * tb.WRAY * tauray1) / (wtot1 * tautot1)
-        ftot1 = (tb.FRAY * tb.WRAY * tauray1) / (wtot1 * tautot1)
+        wsc1 = tb.WRAY * tauray1
+        gsc1 = tb.GRAY * tb.WRAY * tauray1
+        fsc1 = tb.FRAY * tb.WRAY * tauray1
+        if aer is not None:
+            # the column's aerosol in the clear-sky layer 1, summed in
+            # level order
+            col = lambda a: level_sum(a[..., ns].transpose(0, 1))
+            tautot1 = tautot1 + col(aer.tauxar)
+            wsc1 = wsc1 + col(aer.tauasc)
+            gsc1 = gsc1 + col(aer.gtota)
+            fsc1 = fsc1 + col(aer.ftota)
+        wtot1 = torch.clamp(wsc1 / tautot1, max=tb.VERYNEARONE)
+        gtot1 = gsc1 / (wtot1 * tautot1)
+        ftot1 = fsc1 / (wtot1 * tautot1)
         lay1 = _delta_eddington(wtot1, ftot1, tautot1, gtot1, czen_s)
         # gate layer 1 on transmission through the ozone layer
         live = explay0 > tb.TRMIN

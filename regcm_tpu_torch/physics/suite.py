@@ -18,12 +18,16 @@ the slab ocean, the diurnal skin SST, sea ice and the Hostetler lake,
 each overriding its points → the PBL (ibltyp 1 Holtslag, 2 the UW TCM
 with its TKE tendency handed back to the core, 3 GFS, 4 MYJ with its
 TKE and surface layer kept in the state, 0 none) → shallow convection on
-every step when an icup is negative, on the total tendencies. Returns
-the physics tendencies for the dynamical core, coupled by
-``atms["cpl"]`` (p* for the sigma-p cores, 1 for the uncoupled MOLOCH
-prognostics), plus persistent-state updates. ``validate_physics``
-refuses at construction what the JAX package refuses and what the port
-leaves out (chemistry, RRTMG).
+every step when an icup is negative, on the total tendencies → with
+ichem=1 the chemistry (tractend2, ``chem.tend``), the tracers' Holtslag
+diffusion (a second K1 call, ns = ntr) and Emanuel's tracer transport
+(K2's tracer form); the aerosol direct effect (idirect >= 2, dust sets)
+feeds CCM3. Returns the physics tendencies for the dynamical core,
+coupled by ``atms["cpl"]`` (p* for the sigma-p cores, 1 for the
+uncoupled MOLOCH prognostics), plus persistent-state updates (the
+tracer tendency as ``_chiten``). ``validate_physics`` refuses at
+construction what the JAX package refuses and what the port leaves out
+(RRTMG; Tiedtke's tracer transport, the gas-phase mechanisms).
 """
 from __future__ import annotations
 
@@ -34,6 +38,9 @@ import torch
 
 from ..core.state import HydroState, BdyState, StepFlags
 from ..device import resolve_device
+from ..chem import refuse_gas_phase, require_species
+from ..chem.optics import dust_optics_tables
+from ..chem.tend import build_chem
 from ..dynamics.hydrostatic import level_sum
 from ..dynamics.stencil import cross2dot
 from ..utils import constants as c
@@ -49,7 +56,7 @@ from .micro.nogtom import nogtom
 from .micro.subex import subex, combine_clouds
 from .micro.wsm5 import wsm5
 from .pbl.gfs import moninq
-from .pbl.holtslag import holtbl
+from .pbl.holtslag import holtbl, tracer_diffusion
 from .radiation.ccm3.driver import ccm3_radiation
 from .radiation.ccm3.tables import ghg_mmr
 from .radiation.ghg import ghg_concentrations
@@ -78,8 +85,8 @@ SUPPORTED = dict(
     icldfrac={0, 1, 2, 3, 4, 5, 6},
     irrtm={0},                     # CCM3 (RRTMG: ROADMAP item 15)
 )
-# the dynamical cores refuse what they leave out (HydroCore: chemistry;
-# MolochCore: periodic domains)
+# the dynamical cores refuse what they leave out (HydroCore: chemistry
+# on the NH core; MolochCore: periodic domains)
 
 
 def validate_physics(cfg):
@@ -96,18 +103,20 @@ def validate_physics(cfg):
                 f"physicsparam {name}={val}{what} is not ported to "
                 f"regcm_tpu_torch (supported: {sorted(ok)}); refusing to "
                 "run with a silently disabled scheme")
-    if int(p.ichem) != 0:
-        raise NotImplementedError(
-            "regcm_tpu_torch does not port chemistry (ichem=1, ROADMAP.md "
-            "item 13)")
     land = str(p.extras.get("land_scheme", "bats1e"))
     if cfg.dim.nsg > 1:
         if cfg.core.idynamic == 3:
             raise ValueError(
                 "dimparam nsg>1 (subgrid surface) is not wired for the "
                 "MOLOCH core (idynamic=3), in the JAX package either")
+        if int(p.ichem) != 0:
+            raise ValueError(
+                "ichem=1 with nsg>1 subgrid surface is not wired, in the "
+                "JAX package either")
         if land != "bats1e":
             raise ValueError("nsg>1 requires the BATS1e land scheme")
+    if int(p.ichem) != 0:
+        _validate_chemistry(cfg)
     icups = (max(p.icup_lnd, 0), max(p.icup_ocn, 0))
     if 1 in icups:
         if cfg.core.idynamic == 3:
@@ -127,6 +136,40 @@ def validate_physics(cfg):
     rad = str(p.extras.get("rad_scheme", "ccm3"))
     if rad not in ("ccm3", "broadband"):
         raise ValueError(f"rad_scheme={rad!r} is not a radiation scheme")
+
+
+def _validate_chemistry(cfg):
+    """The chemistry refusals: the JAX package's (an unknown chemsimtype or
+    none, the NH core, ichdrdepo=2, a PBL other than Holtslag, a
+    microphysics other than SUBEX) and the port's (the gas-phase
+    mechanisms, item 13b; Tiedtke's tracer transport, item 13a-2)."""
+    p = cfg.physics
+    refuse_gas_phase(cfg.chem.chemsimtype)
+    require_species(cfg.chem.chemsimtype)     # raises for unknown or none
+    if cfg.core.idynamic == 2:
+        raise ValueError(
+            "ichem=1 tracer advection is not wired for the MM5-NH core "
+            "(idynamic=2), in the JAX package either; use idynamic 1 or 3")
+    if int(cfg.chem.ichdrdepo) == 2:
+        raise ValueError(
+            "chemparam ichdrdepo=2 (deposition through the BL flux) is not "
+            "implemented, in the JAX package either; use ichdrdepo=1")
+    if p.ibltyp != 1:
+        raise ValueError("ichem=1 tracer PBL mixing is implemented for "
+                         "ibltyp=1 (Holtslag) only, as in the JAX package")
+    if p.ipptls != 1:
+        raise ValueError(
+            "ichem=1 wet scavenging needs the SUBEX removal-rate "
+            "diagnostics (ipptls=1), as in the JAX package")
+    tiedtke = 5 in (abs(p.icup_lnd), abs(p.icup_ocn))
+    if tiedtke and (int(cfg.chem.ichcumtra) == 1
+                    or abs(p.icup_lnd) == abs(p.icup_ocn)):
+        # the JAX package runs ctracer whenever Tiedtke covers both
+        # surfaces, and with ichcumtra=1
+        raise NotImplementedError(
+            "regcm_tpu_torch does not port Tiedtke's tracer transport "
+            "(ctracer with lmfsmooth, ichem=1 with icup=5): ROADMAP.md "
+            "item 13a-2")
 
 
 class PhysicsSuite:
@@ -180,6 +223,16 @@ class PhysicsSuite:
         f = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype,
                                       device=device)
         self.xlat = f(loc(grid.xlat))
+        # interactive chemistry (tractend2; ichem=1) and, for the dust
+        # sets with idirect >= 2, the aerosol direct effect in CCM3 (the
+        # aeroppt tables of the external dust mixture)
+        self.chem = build_chem(cfg, grid, device, dtype, mesh)
+        self.aertab = None
+        if self.chem is not None:
+            ndust = len(self.chem.spec.indices("dust"))
+            if int(cfg.chem.idirect) >= 2 and ndust == self.chem.ntr > 0:
+                self.aertab = dust_optics_tables(self.chem.ntr, device,
+                                                 dtype)
         # BATS1e static fields from the DOMAIN landuse/texture
         # (defaults: short grass over land, ocean class 15, loam); with
         # nsg > 1 per subcell too (Share/mod_dynparam.F90 nsg, BATS
@@ -389,16 +442,23 @@ class PhysicsSuite:
                        qiten=unflip(out.dqidt + out.dqsdt))
             return res
         if icup == 4:
-            # Emanuel (cupemandrv, Main/cumlib/mod_cu_em.F90:107)
+            # Emanuel (cupemandrv, Main/cumlib/mod_cu_em.F90:107); with
+            # chemistry and ichcumtra=1 its own tracer transport
+            # (chemcutran, :454, :605-1150) on the bottom-up tracers
             qmix = atms["qvb3"]
             qspec = qmix / (1.0 + qmix)
             qs_spec = atms["qsb3"] / (1.0 + atms["qsb3"])
+            tra = None
+            if self.chem is not None and self.cfg.chem.ichcumtra == 1:
+                chi_u = torch.clamp(s.chi_b * atms["rpsb"][None], min=0.0)
+                tra = torch.flip(chi_u.reshape(self.chem.ntr, kz, ncol)
+                                 .permute(2, 1, 0), [1])  # (ncol, kz, ntr)
             out = cupeman(
                 flipc(tb3), flipc(qspec), flipc(qs_spec),
                 flipc(atms["ubx3"]), flipc(atms["vbx3"]),
                 flipc(atms["pb3"]) * 0.01, flipc(atms["pf3"]) * 0.01,
                 s.cbmf.reshape(ncol), dt, self.elcrit, self.epmax,
-                max(self.minorig - 1, 1))
+                max(self.minorig - 1, 1), tra=tra)
             cldfra = unflip(out.cldfra)
             res.update(
                 tten=unflip(out.ft),
@@ -408,6 +468,11 @@ class PhysicsSuite:
                 cldfra=cldfra,
                 cldlwc=conv_lwc(cldfra),
                 state=dict(cbmf=out.cbmf.reshape(iy, jx) * core.m_ci))
+            if tra is not None:
+                # applied on this alarm step alone, and only when Emanuel
+                # covers both surfaces (the land/ocean blend keeps only
+                # the common keys, as in the JAX package)
+                res["_emftra"] = out.ftra     # (ncol, kz, ntr) bottom-up
             return res
         # "new Tiedtke" (ntiedtke, Main/cumlib/mod_cu_tiedtke.F90:4508,
         # driver tiedtkedrv :207-434): specific-humidity basis in,
@@ -460,6 +525,38 @@ class PhysicsSuite:
             qcten=uncol(qcten), qiten=uncol(qiten),
             qdetr=uncol(out.qdetr))
         return res
+
+    def _chemistry(self, core, atms, s, cu, fcc, remrat, strappt, precip,
+                   hout, cpl, dt, sfupd):
+        """The tracer tendency (``sfupd["_chiten"]``, coupled) and the
+        accumulated emission and deposition (``chemdiag``, kg/m²): the
+        chemistry, the tracers' Holtslag diffusion with the scalar
+        coefficients (holtbl's chi block, mod_pbl_holtbl.F90:985-1095,
+        through K1 at ns = ntr; no surface flux, the dry deposition being
+        the chemistry's with ichdrdepo=1) and Emanuel's tracer transport
+        on its alarm steps."""
+        kz = core.kz
+        m_ci = core.m_ci
+        zero_r = torch.zeros_like(atms["tb3"])
+        chiten, cdiag = self.chem(
+            core, atms, s, fcc, cu["cldfra"],
+            remrat if remrat is not None else zero_r,
+            strappt if strappt is not None else zero_r,
+            cu["prate"] * m_ci, dt, ls_prate=precip)
+        chib3 = torch.clamp(s.chi_b * atms["rpsb"][None], min=0.0)
+        chip = tracer_diffusion(chib3, hout.alphak, hout.betak_q, dt,
+                                mesh=self.mesh)
+        chiten = chiten + (chip - chib3) / dt * cpl[None] * m_ci
+        if "_emftra" in cu:
+            iy, jx = chib3.shape[-2:]
+            ft3 = torch.flip(cu["_emftra"], [1])    # (ncol, kz, ntr) top-down
+            chiten = chiten + ft3.permute(2, 1, 0).reshape(
+                self.chem.ntr, kz, iy, jx) * cpl[None] * m_ci
+        sfupd["_chiten"] = chiten
+        zf = torch.zeros_like(s.chemdiag[0])
+        sfupd["chemdiag"] = torch.stack([
+            s.chemdiag[n] + cdiag.get(k, zf) * core.dtsec
+            for n, k in enumerate(("emflx", "ddflx", "wdflx"))])
 
     # -- nsg > 1: the subcells' batch and the averages back to the cell
     def _sub(self, a):
@@ -717,6 +814,7 @@ class PhysicsSuite:
         cldlwc, cldfra = combine_clouds(fcc, qcb3, rho, tb3,
                                         cu["cldfra"], cu["cldlwc"])
         ipptls = self.cfg.physics.ipptls
+        mic_remrat = mic_strappt = None
         if ipptls == 1:
             out = subex(tb3, pb3, pf3, qvb3, qcb3, rh, rho, fcc, cpl, dt,
                         core.qck1, core.cgul, core.cevap, core.caccr)
@@ -724,6 +822,10 @@ class PhysicsSuite:
             qvphy = qvphy + out.qvten * m_ci
             qcphy = qcphy + out.qcten * m_ci
             precip = out.precip * m_ci
+            # chemistry's removal-rate diagnostics (remrat 1/s, rembc
+            # mm/hr → mm/s, mod_che_tend.F90:124-127)
+            mic_remrat = out.remrat
+            mic_strappt = out.rembc / 3600.0
         elif ipptls == 2:
             # Nogherotto-Tompkins 5-species implicit microphysics
             # (nogtom, Main/microlib/mod_micro_nogtom.F90:358); Tiedtke's
@@ -804,6 +906,10 @@ class PhysicsSuite:
                 abem_cache = None if flags.do_abem else dict(
                     abstot=s.abstot, absnxt=s.absnxt, emstot=s.emstot)
                 five = core.nqx == 5
+                aer = {}
+                if self.aertab is not None:
+                    aer = dict(aermmr=torch.clamp(s.chi_b, min=0.0)
+                               * atms["rpsb"][None], aertab=self.aertab)
                 rad, abem_out = ccm3_radiation(
                     tb3, qvb3, qcb3,
                     atms["qhb3"][2] if five else torch.zeros_like(qcb3),
@@ -811,7 +917,7 @@ class PhysicsSuite:
                     dzq, cldfra, cldlwc, coszrs, s.tg, lnd, self.xlat,
                     *alb_s, emis, self.ghg_mmr, eccf=eccf, solcon=solcon,
                     five_species=five, cache=abem_cache,
-                    want_cache=flags.do_abem)
+                    want_cache=flags.do_abem, **aer)
                 if abem_out is not None:
                     sfupd.update(abem_out)
             else:
@@ -919,6 +1025,11 @@ class PhysicsSuite:
                           (core.ht / c.egrav).reshape(ncol), dt)
             tphy = tphy + unflip(out.outts) * cpl[None] * m_ci
             qvphy = qvphy + unflip(out.outqs) * cpl[None] * m_ci
+
+        # -- chemistry (tractend2 call site, mod_tendency.F90:1821)
+        if self.chem is not None:
+            self._chemistry(core, atms, s, cu, fcc, mic_remrat, mic_strappt,
+                            precip, hout, cpl, dt, sfupd)
 
         # couple the accumulated cross-grid wind tendencies onto the
         # momentum grid in one pass (uvcross2dot ×p*_dot for the B grid,

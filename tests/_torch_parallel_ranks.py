@@ -11,6 +11,7 @@ the JAX package, so the ranks never load them.
 import numpy as np
 import torch
 
+from . import _torch_chem_settings as C
 from . import _torch_surface_settings as S
 
 # every (dy, dx) of the MOLOCH step's shift/shifte (dynamics/moloch.py)
@@ -18,6 +19,10 @@ from . import _torch_surface_settings as S
 SHIFTS = [(0, 1), (1, 0), (0, -1), (-1, 0), (1, -1), (-1, 1), (1, 1),
           (-1, -1), (0, 2), (2, 0), (0, -2), (-2, 0)]
 MOLOCH_FIELDS = ("pai", "t", "u", "v", "w", "qx")
+# the chemistry on 2x2 ranks: AERO with configuration E's physics (the
+# band, Emanuel's tracer transport, the tracers' K5c solve), DUST with
+# the direct effect and the well-mixed transport over land
+CHEM = ("AERO", "DUST")
 MODEL_STEPS = 6
 
 
@@ -404,7 +409,19 @@ SINGLE = [("icbc", "moloch"), ("icbc", "hydro"), ("dryrun", None),
           ("model", None)] + [("hydro", name) for name in HYDRO] \
     + [("periodic", kind) for kind in S.PERIODIC] \
     + [("moloch_chain", None)] \
-    + [("output", b) for b in ("netcdf", "zarr")] + [("ensemble", None)]
+    + [("output", b) for b in ("netcdf", "zarr")] + [("ensemble", None)] \
+    + [("chem", name) for name in CHEM]
+
+
+def chem_run(name, mesh=None):
+    """A chemistry setting of ``_torch_chem_settings`` from the port's own
+    start (f64, the whole domain's fields); on a mesh with the rank's
+    halo exchanges."""
+    from regcm_tpu_torch.parallel import halo
+    halo.exchanges = 0
+    out = C.port_run(name, C.port_start(name), mesh=mesh)
+    out["exchanges"] = halo.exchanges
+    return out
 
 
 def single(kind, arg, icbc_paths, workdir):
@@ -420,6 +437,8 @@ def single(kind, arg, icbc_paths, workdir):
         return output_run(workdir, arg)
     if kind == "ensemble":
         return ensemble_run(icbc_paths)
+    if kind == "chem":
+        return chem_run(arg)
     return dryrun_moloch() if kind == "dryrun" else model_run()
 
 
@@ -429,9 +448,9 @@ def two_by_two(rank, iy, jx, k5_inputs, icbc_paths, workdir):
     blocks, the MOLOCH dryrun trajectory with the halo counters, the
     MOLOCH Model run, the hydrostatic settings, both ICBC-driven runs,
     the periodic runs of ``_torch_surface_settings.PERIODIC``, the
-    restart chains, the output streams on both backends and an ensemble
-    member (files under ``workdir``); then this rank's share of the
-    undecomposed references (SINGLE)."""
+    restart chains, the output streams on both backends, an ensemble
+    member (files under ``workdir``) and the chemistry settings CHEM;
+    then this rank's share of the undecomposed references (SINGLE)."""
     from regcm_tpu_torch.dynamics.stencil import (cross2dot, dot2cross,
                                                   shift, shifte, topology)
     from regcm_tpu_torch.kernels import pbl_tridiag as k1
@@ -487,6 +506,8 @@ def two_by_two(rank, iy, jx, k5_inputs, icbc_paths, workdir):
                      for b in ("netcdf", "zarr")}
     out["ensemble"] = ensemble_run(icbc_paths, rank.mesh(
         ICBC["hydro"]["iy"], ICBC["hydro"]["jx"]))
+    out["chem"] = {name: chem_run(name, rank.mesh(*C.SHAPE[:2]))
+                   for name in CHEM}
     out["single"] = {case: single(*case, icbc_paths, workdir)
                      for n, case in enumerate(SINGLE)
                      if n % rank.world == rank.rank}

@@ -35,7 +35,15 @@ MODULES = [
     "regcm_tpu_torch.io.restart", "regcm_tpu_torch.io.output",
     "regcm_tpu_torch.io.zarrio", "regcm_tpu_torch.utils.service",
     "regcm_tpu_torch.utils.ensemble", "regcm_tpu_torch.coupling",
-    "tests._torch_parallel_ranks", "tests._torch_surface_settings"]
+    "regcm_tpu_torch.chem", "regcm_tpu_torch.chem.species",
+    "regcm_tpu_torch.chem.oxclim", "regcm_tpu_torch.chem.dust",
+    "regcm_tpu_torch.chem.seasalt", "regcm_tpu_torch.chem.carbon",
+    "regcm_tpu_torch.chem.pollen", "regcm_tpu_torch.chem.sox",
+    "regcm_tpu_torch.chem.drydep_gas", "regcm_tpu_torch.chem.deposition",
+    "regcm_tpu_torch.chem.tend", "regcm_tpu_torch.chem.cumtran",
+    "regcm_tpu_torch.chem.optics",
+    "tests._torch_parallel_ranks", "tests._torch_surface_settings",
+    "tests._torch_chem_settings"]
 # one interpreter loads torch and numpy, then forks a child for each
 # module, which imports it and reports what of jax and the JAX package
 # its sys.modules then holds; the parent reports its own before the

@@ -476,21 +476,28 @@ def test_sts_daily_statistics(tmp_path):
 
 
 def test_chemistry_streams_refuse(streams_pair):
-    """CHE and OPT are chemistry's (ROADMAP item 13): without it there
-    is nothing to write; with ichem=1 the methods raise."""
+    """CHE and OPT are chemistry's: without it no stream is opened and the
+    writers have nothing to write; with chemistry on MOLOCH the streams
+    are refused (the JAX package's writers read the sigma-p cores'
+    tracers, chi_a and ps_a; tests/test_torch_chem_model.py holds them on
+    the hydrostatic core)."""
+    from regcm_tpu_torch.driver import Model
     from regcm_tpu_torch.io.output import OutputStreams
-    st = OutputStreams.__new__(OutputStreams)
-    st.model = streams_pair["pm"]
+    p = streams_pair
+    st = OutputStreams(p["pm"], str(p["dir"] / "nochem"), async_write=False)
+    assert st.che is None and st.opt is None
     st.write_che()
     st.write_opt()
-    ichem = st.model.cfg.physics.ichem
-    st.model.cfg.physics.ichem = 1
-    try:
-        for w in (st.write_che, st.write_opt):
-            with pytest.raises(NotImplementedError, match="item 13"):
-                w()
-    finally:
-        st.model.cfg.physics.ichem = ichem
+    st.close()
+    assert not any("CHE" in f or "OPT" in f
+                   for f in os.listdir(p["dir"] / "nochem"))
+    if p["kind"] == "moloch":
+        _, (cfg, grid) = pair_cfgs("moloch")
+        cfg.physics.ichem = 1
+        cfg.chem.chemsimtype = "DUST"
+        m = Model(cfg, grid=grid, device="cpu")
+        with pytest.raises(NotImplementedError, match="CHE and OPT"):
+            OutputStreams(m, str(p["dir"] / "chem"), async_write=False)
 
 
 # -- ensemble, SOM and coupling ------------------------------------------

@@ -397,3 +397,32 @@ def test_kernels_match_plain_on_card():
             for x0, x1 in zip(xs[:-1], xs[1:])], dim=-1))
     torch.cuda.synchronize()
     assert torch.equal(torch.cat(rows, dim=-2), whole)
+
+
+@pytest.mark.cuda
+def test_emanuel_mixing_tracer_form_on_card():
+    """On a CUDA card: K2's tracer form against its plain version in both
+    dtypes, with one level a lane (L = 18, configuration E's) and two (L
+    = 41), at 12 and 32 tracers (the limit); the eight terms at the
+    eight-term bound, sum_tra at 1e-12 (f64) and 1e-5 (f32)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(5)
+    for L, ntr in ((18, 12), (41, 32)):
+        levels, unk, vnk, icb, ict, cloud = _mixing_inputs(ncol=700, L=L)
+        tra = rng.uniform(0.0, 1e-6, (700, L, ntr))
+        trank = rng.uniform(0.0, 1e-6, (700, ntr))
+        for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+            f = lambda a: T(np.asarray(a)).to(dev, dtype)
+            dargs = [f(a) for a in (*levels, unk, vnk)] + [
+                T(icb).to(dev), T(ict).to(dev), T(cloud).to(dev)]
+            got = k2.emanuel_mixing(*dargs, tra=f(tra), trank=f(trank))
+            want = k2.emanuel_mixing_plain(*dargs, tra=f(tra),
+                                           trank=f(trank))
+            torch.cuda.synchronize()
+            for k in k2.KEYS:
+                assert _rel(got[k].double().cpu().numpy(), want[k].double()
+                            .cpu().numpy()) < max(1e-10, tol), (L, k)
+            assert _rel(got["sum_tra"].double().cpu().numpy(),
+                        want["sum_tra"].double().cpu().numpy()) < tol

@@ -193,10 +193,13 @@ def test_standard_atmosphere_state_matches_jax():
 def test_model_refuses_unported_options():
     """Every option the port leaves out, or the JAX package refuses,
     raises at model build: Kuo over land beside Emanuel over water (Kuo
-    is never mixed), RRTMG (irrtm=1, item 15), chemistry (item 13), the
-    UW TCM, a periodic domain and the subgrid surface on MOLOCH; the
-    decomposed runs (mesh=) also refuse chemistry (item 13), and build
-    the semi-Lagrangian advection's core (ROADMAP item 10e, ported)."""
+    is never mixed), RRTMG (irrtm=1, item 15), the gas-phase chemistry
+    (CBMZ, item 13b), Tiedtke's tracer transport (item 13a-2), chemistry
+    on the NH core and without a chemsimtype (the JAX package's
+    refusals), the UW TCM, a periodic domain and the subgrid surface on
+    MOLOCH; the decomposed runs (mesh=) also refuse the gas phase (item
+    13b), and build the semi-Lagrangian advection's core (ROADMAP item
+    10e, ported)."""
     from regcm_tpu_torch.driver import Model
     from regcm_tpu_torch.parallel.mesh import DomainMesh
 
@@ -207,7 +210,14 @@ def test_model_refuses_unported_options():
                       (("geo", "i_band", 1), ("core", "idynamic", 3)),
                       (("geo", "i_crm", 1), ("core", "idynamic", 3)),
                       (("physics", "ichem", 1),),
-                      (("physics", "ichem", 1), ("core", "idynamic", 2)),
+                      (("physics", "ichem", 1), ("chem", "chemsimtype",
+                                                 "CBMZ")),
+                      (("physics", "ichem", 1), ("chem", "chemsimtype",
+                                                 "DUST"),
+                       ("physics", "icup_lnd", 5)),
+                      (("physics", "ichem", 1), ("chem", "chemsimtype",
+                                                 "DUST"),
+                       ("core", "idynamic", 2)),
                       (("physics", "idiffu", 4),),
                       (("physics", "iboudy", 6),),
                       (("dim", "nsg", 2), ("core", "idynamic", 3))):
@@ -218,8 +228,9 @@ def test_model_refuses_unported_options():
             Model(cfg, device="cpu")
     _, cfg = golden_cfgs()
     cfg.physics.ichem = 1
+    cfg.chem.chemsimtype = "CBMZ"
     mesh = DomainMesh(2, 2, cfg.dim.iy, cfg.dim.jx, rank=0)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="item 13b"):
         Model(cfg, device="cpu", mesh=mesh, physics=False)
     from regcm_tpu_torch.dynamics.hydrostatic import HydroCore
     _, cfg = golden_cfgs()

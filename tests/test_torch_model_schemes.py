@@ -327,8 +327,9 @@ def test_unported_schemes_refused(overrides, match):
     """What stays refused raises at model build and names the scheme and
     its ROADMAP item: Kuo on MOLOCH and Kuo mixed with another scheme, the
     subgrid surface and the UW TCM on MOLOCH (as the JAX package refuses
-    them), RRTMG, chemistry on either core and a periodic MOLOCH domain
-    (which the JAX package has no core to hold a port against)."""
+    them), RRTMG, chemistry without a chemsimtype on either core and a
+    periodic MOLOCH domain (which the JAX package has no core to hold a
+    port against)."""
     from regcm_tpu_torch.driver import Model
     cfg, _ = R.port_grid("hydro")
     for section, name, val in overrides:

@@ -348,15 +348,23 @@ def test_slice_without_condensation_matches_jax(field, slice_runs):
 
 
 def test_moloch_refusals():
+    """Kuo, the UW TCM and the periodic domains on MOLOCH; the gas-phase
+    chemistry (CBMZ, item 13b) and Tiedtke's tracer transport (item
+    13a-2)."""
     from regcm_tpu_torch.driver import Model
 
-    for section, name, val in (("physics", "icup_lnd", 1),
-                               ("physics", "ibltyp", 2),
-                               ("physics", "ichem", 1),
-                               ("geo", "i_band", 1),
-                               ("geo", "i_crm", 1)):
+    for overrides in ((("physics", "icup_lnd", 1),),
+                      (("physics", "ibltyp", 2),),
+                      (("physics", "ichem", 1), ("chem", "chemsimtype",
+                                                 "CBMZ")),
+                      (("physics", "ichem", 1), ("chem", "chemsimtype",
+                                                 "DUST"),
+                       ("physics", "icup_ocn", 5)),
+                      (("geo", "i_band", 1),),
+                      (("geo", "i_crm", 1),)):
         _, cfg = moloch_cfgs()
-        setattr(getattr(cfg, section), name, val)
+        for section, name, val in overrides:
+            setattr(getattr(cfg, section), name, val)
         with pytest.raises((ValueError, NotImplementedError)):
             Model(cfg, device="cpu")
 

@@ -589,6 +589,21 @@ def test_ensemble_mesh_matches_single_rank(group22):
         assert abs(got["mass"][k] / w - 1.0) <= 1e-12, k
 
 
+@pytest.mark.parametrize("name", R.CHEM)
+def test_chem_mesh_matches_single_rank(name, group22):
+    """The chemistry decomposed: AERO with configuration E's physics on
+    the band and DUST with the direct effect and cumtran, three steps
+    with every alarm, 2x2 against one rank, every compared field (the
+    dynamics, both tracer levels, the emission and deposition totals):
+    1e-12 relative (bit-identical expected); every rank exchanged halos,
+    the tracers riding the hydrometeors' exchanges."""
+    want = _single(group22, ("chem", name))
+    got = group22[0]["chem"][name]
+    assert got["finite"] and want["finite"] and got["flags"] == want["flags"]
+    _every_field(got["fields"], want["fields"], 1e-12, name)
+    assert all(r["chem"][name]["exchanges"] > 0 for r in group22)
+
+
 def test_mesh_refusals():
     with pytest.raises(ValueError):
         DomainMesh(3, 2, 16, 16, rank=0)        # uneven

@@ -155,8 +155,9 @@ def test_cupeman_matches_jax():
     want = je.cupeman(*map(J, args), J(cb), 300.0, J(elc), J(epm), 1)
     got = te.cupeman(*map(T, args), T(cb), 300.0, T(elc), T(epm), 1)
     assert int(np.asarray(want.active).sum()) > ncol // 4
-    for f in got._fields:
-        _check(getattr(got, f), getattr(want, f), TOL, f"cupeman.{f}")
+    # every output field but ftra, None without tracers in both packages
+    # (tests/test_torch_chem.py holds it)
+    _check(got, want, TOL, "cupeman")
 
 
 def _surface_inputs(seed):

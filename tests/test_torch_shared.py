@@ -319,3 +319,59 @@ def test_zarr_store_matches_jax(tmp_path):
     d = tz.read_zarr(stores["port"])
     np.testing.assert_array_equal(d["time"], [0.0, 6.0, 12.0])
     np.testing.assert_array_equal(d["t"], np.asarray(recs, np.float32))
+
+
+@pytest.mark.parametrize("sim", ["DUST", "DU12", "SSLT", "DUSS", "CARB",
+                                 "SULF", "SUCA", "AERO", "POLLEN"])
+def test_chem_species_match_jax(sim):
+    """The port's copy of the tracer registry gives each aerosol
+    chemsimtype's tracer set, kinds, sizes, densities, solubilities,
+    aging pairs and oxidant switch as the JAX package's."""
+    from regcm_tpu.chem import species as js
+    from regcm_tpu_torch.chem import species as ts
+    want = dataclasses.asdict(js.build_species(sim))
+    got = dataclasses.asdict(ts.build_species(sim))
+    _equal(got, want, sim)
+    assert ts.build_species("") is None and js.build_species("") is None
+    with pytest.raises(ValueError):
+        ts.build_species("MINE")
+
+
+@pytest.mark.parametrize("table", ["dust_optics", "drydep_gas", "oxclim"])
+def test_chem_tables_match_jax(table, tmp_path):
+    """The port's copies of the dust optics and Zhang gas-deposition
+    tables equal the JAX package's arrays; its oxidant climatology gives
+    the JAX package's analytic fields on a grid, and reads an OXBC file
+    in the run directory as the JAX package does."""
+    if table == "oxclim":
+        from regcm_tpu.chem import oxclim as jo
+        from regcm_tpu_torch.chem import oxclim as to
+        jcfg, tcfg = configs(OVERRIDES["golden"])
+        jg, tg = jgrid.build_grid(jcfg), tgrid.build_grid(tcfg)
+        sig = np.asarray(jg.hsigma)
+        _equal(to.analytic_oxidants(np.asarray(tg.xlat), sig),
+               jo.analytic_oxidants(np.asarray(jg.xlat), sig), "analytic")
+        from scipy.io import netcdf_file
+        shape = (1, 3, 4, 5)
+        rng = np.random.default_rng(2)
+        with netcdf_file(str(tmp_path / "domain_OXBC.1990.nc"), "w") as nc:
+            for n, d in zip(("time", "kz", "iy", "jx"), shape):
+                nc.createDimension(n, d)
+            for v in ("OH", "HO2", "O3", "NO3", "H2O2"):
+                nc.createVariable(v, "d", ("time", "kz", "iy", "jx"))[:] = \
+                    rng.uniform(0.0, 1.0, shape)
+        jcfg.globdat.dirglob = tcfg.globdat.dirglob = str(tmp_path)
+        _equal(to.load_oxidants(tcfg, tg, sig),
+               jo.load_oxidants(jcfg, jg, sig), "OXBC")
+        return
+    mods = {"dust_optics": "_dust_optics_data",
+            "drydep_gas": "_drydep_gas_data"}[table]
+    import importlib
+    jm = importlib.import_module(f"regcm_tpu.chem.{mods}")
+    tm = importlib.import_module(f"regcm_tpu_torch.chem.{mods}")
+    names = sorted(n for n in dir(jm) if isinstance(getattr(jm, n),
+                                                    np.ndarray))
+    assert names and names == sorted(
+        n for n in dir(tm) if isinstance(getattr(tm, n), np.ndarray))
+    for n in names:
+        _equal(getattr(tm, n), getattr(jm, n), n)

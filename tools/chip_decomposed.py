@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """The decomposed phases of ``chip_smoke.py`` (10-12, 14c, 15e, 16d, 17b,
-18b, 18d) alone, with only what they are held to: the single card's
+18b, 18d, 19e) alone, with only what they are held to: the single card's
 first 12 MOLOCH flagship steps (phase 6), the ICBC-driven runs (phase
-13), the NH flagship on one card (phase 14a), configurations A's, C's
-and D's first 12 steps on one card (phases 15a, 16b, 17a) and the
-semi-Lagrangian test_001 on one card (18b, 18d).
+13, with test_001's SAV after step 132 for 12b's run past the boundary
+update), the NH flagship on one card (phase 14a), configurations A's,
+C's and D's first 12 steps on one card (phases 15a, 16b, 17a), the
+semi-Lagrangian test_001 on one card (18b, 18d) and configuration E's
+settings on test_001's widths on one card (19e).
 
 For a host with four or more cards, where phases 10-12 run under gloo and
 under nccl (a card a rank): it spares the four-card call the phases that
@@ -95,7 +97,10 @@ def main():
     try:
         paths = cs.write_icbc_files(tmp)
         paths["phase18"] = tmp
-        icbc13 = cs.run_icbc_single(dev, smi, paths, mods)   # phase 13
+        # phase 13, with 12b's SAV of test_001 (phase 18a's chain)
+        icbc13 = cs.run_icbc_single(
+            dev, smi, paths, mods,
+            chains={"test_001": cs.Chain("test_001", tmp)})
         nh14 = cs.run_nh_single(dev, smi, mods)              # phase 14a
         a = cs.hydro_icbc_model(paths, dev, physics=cs.SCHEME_A)
         a.run_icbc(cs.HYDRO_CHECK[0])                        # phase 15a
@@ -110,9 +115,10 @@ def main():
         d17 = d.decoupled()
         del d
         torch.cuda.empty_cache()
+        e19 = cs.chem_single(dev, paths)                     # phase 19e
         cs.run_decomposed(dev, smi, single12, paths, icbc13,
-                          nh14["single12"], a15, c16,
-                          d17)           # 10-12, 14c, 15e, 16d, 17b
+                          nh14["single12"], a15, c16, d17,
+                          e19)      # 10-12, 14c, 15e, 16d, 17b, 18, 19e
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
