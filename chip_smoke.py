@@ -9,7 +9,7 @@ On a host with four or more cards, phase 10 runs the nccl path too.
 
 Phases (any failure raises and the script exits nonzero):
   1. card, power limit and library versions;
-  2. build the four hand-written CUDA kernels from regcm_tpu_torch/csrc,
+  2. build the five hand-written CUDA kernels from regcm_tpu_torch/csrc,
      one nvcc per source, all started together;
   3. each kernel against its plain PyTorch version on the card, f64 and
      f32, at a small ragged shape and at the MOLOCH 192x192x41 shape
@@ -24,10 +24,9 @@ Phases (any failure raises and the script exits nonzero):
   6. the MOLOCH path: Model with idynamic=3 at 192x192x41 (ds 3 km,
      dt 30 s, f32) for 24 steps through K1, K2, K3 and K4 (launch
      counters checked), then the ms/step of 24 further steps without
-     radiation, a torch.profiler view of 4 more, the time of the
-     radiation step 60 and the step at which the state goes non-finite
-     (reported, as the reference's does); then the same settings on a
-     48x48x41 domain for 24 steps, held to the JAX package's numbers;
+     radiation, a torch.profiler view of 4 more and the time of the
+     radiation step 60; then the same settings on a 48x48x41 domain for
+     24 steps, held to the JAX package's numbers;
   7. MOLOCH on the card against the CPU in f64 at 16x20x14 over a hill;
   8. (the kernels line, printed at the end);
   9. the decomposed kernels K5a/b/c in one process: the 192x192x41 K4
@@ -40,18 +39,19 @@ Phases (any failure raises and the script exits nonzero):
  10. the decomposed MOLOCH flagship: 2x2 ranks at 192x192x41 f32 (gloo
      with host-staged halos on the card(s); with four or more cards
      also nccl, one card a rank), 12 steps held bit for bit to phase
-     6's single-card run, the ms/step, halo exchanges and bytes a step
-     and each rank's K1-K5 launches;
+     6's single-card run, the ms/step of steps 15-20 (the cumulus and
+     surface step among them), halo exchanges and bytes a step and each
+     rank's K1-K5 launches;
  11. decomposed MOLOCH in f64 at 32x32x14 over phase 7's hill, the
      three-step setting of dryrun_multichip, 2x2 against one card;
  12. the decomposed hydrostatic core in the same groups: (a) f64 at
      dryrun_multichip's 16x16x14 settings (dynamics, and full physics
      with every alarm at step 0), 2x2 against one card; (b) test_001
-     (34x48x18, f32) from phase 13's ICBC files for 48 steps (four
-     radiation cycles), held at steps 12 and 48 to phase 13's
+     (34x48x18, f32) from phase 13's ICBC files for 24 steps (two
+     radiation cycles), held at steps 12 and 24 to phase 13's
      single-card run bit for bit or, where it is not, by the f32 rule
      (four times the single card's rel-RMS spread under a 1e-7 change
-     of T); then phase 13a's SAV after step 132 loaded on 2x2 ranks and
+     of T); then phase 13a's SAV after step 138 loaded on 2x2 ranks and
      run past the 6-hourly boundary update after step 144 to step 150,
      bit for bit 13a's step 150 with its boundary clock; the ms/step,
      halo exchanges and bytes a step and each rank's K5c and K2
@@ -62,9 +62,9 @@ Phases (any failure raises and the script exits nonzero):
      init_from_icbc and run_icbc through step 150, with the ms/step of
      the steps without radiation and of the radiation steps; (b) the
      MOLOCH flagship (192x192x41, flat, 10 m/s jet) from a one-day ICBC
-     file through step 61 (radiation at 60): the first non-finite step
-     or that it stayed finite, ms/step over steps 24-47, the radiation
-     step and the peak device memory;
+     file through step 61 (radiation at 60): that it stayed finite,
+     ms/step over steps 24-47, the radiation step and the peak device
+     memory;
  14. the MM5 non-hydrostatic core (idynamic=2), after phase 13 and, for
      14c, in the decomposed group of phases 10-12: (a) Model at the
      flagship's widths (192x192x41, ds 3 km, f32, flat, default
@@ -86,7 +86,7 @@ Phases (any failure raises and the script exits nonzero):
  15. the second physics set, after phase 14 and, for 15e, in the
      decomposed group: (a) configuration A (Emanuel over land, Tiedtke
      over water, the UW TCM, Nogherotto-Tompkins) on test_001 from phase
-     13's ICBC files (f32) for 24 steps, with the ms/step of plain,
+     13's ICBC files (f32) for 13 steps, with the ms/step of plain,
      cumulus and radiation steps, K2's launches and the device kernels of
      a cumulus step; (b) configuration B (no deep convection,
      Nogherotto-Tompkins, Holtslag) on MOLOCH at 192x192x41 (f32): 24
@@ -107,8 +107,8 @@ Phases (any failure raises and the script exits nonzero):
      surface and radiation steps, K1 and K2 launches, a cumulus step's
      device kernels and busy share, the peak memory, the land fraction;
      (b) Kuo, Betts-Miller with shallow convection and Kain-Fritsch on
-     test_001 from phase 13's ICBC files for 24 steps: the ms/step of
-     plain and cumulus steps and a cumulus step's device kernels; (c)
+     test_001 from phase 13's ICBC files for 13 steps: the ms/step of
+     each alarm class and a cumulus step's device kernels; (c)
      each new scheme and C on the card against the CPU in f64 at
      16x20x14, 3 steps, with the saturation adjustment on and off (as
      phase 5); (d) C on 2x2 ranks (gloo) on test_001 from phase
@@ -120,7 +120,7 @@ Phases (any failure raises and the script exits nonzero):
      that jx·ds closes the equator's circle, dt 150 s, f32; Emanuel,
      Holtslag, SUBEX, CCM3, BATS1e, COARE ocean fluxes and the slab
      ocean) from DOMAIN and ICBC files the port's preprocessors write,
-     48 steps (four radiation cycles): the ms/step of plain, cumulus,
+     24 steps (two radiation cycles): the ms/step of plain, cumulus,
      surface and radiation steps, K1 and K2 launches, a cumulus step's
      device kernels and busy share, the peak memory and the slab SST's
      change, then K1 and K2 held against their plain versions on the
@@ -131,7 +131,7 @@ Phases (any failure raises and the script exits nonzero):
      against one card at 1e-12; (c) GFS, MYJ, WSM5, Zeng with the
      skin SST, sea ice and the lake (a 20 m lake, a 270 K sea) and the
      BATS ocean fluxes with nsg=2, each on test_001 from phase 13's
-     files for 24 steps: the ms/step of each alarm class and a surface
+     files for 13 steps: the ms/step of each alarm class and a surface
      step's device kernels; (d) the three Model settings of the CPU
      tests on the card against the CPU in f64 at 16x20x14, 3 steps, as
      16c;
@@ -139,12 +139,12 @@ Phases (any failure raises and the script exits nonzero):
      (a) restart chains at full width riding on earlier runs, each SAV
      loaded into a fresh Model and run on, every state and boundary
      field held bit for bit to the uninterrupted run: test_001 from
-     phase 13's files saved at step 132 and run to 150, past the update
+     phase 13's files saved at step 138 and run to 150, past the update
      after step 144 (13a; 12b loads the same SAV on 2x2 ranks); the MOLOCH flagship from its ICBC start, 12
      + 12 steps (13b); the NH flagship at dt 15 s, 12 + 12 steps (14a);
      the SAV's size and its write and read seconds; (b) in the
      decomposed group, test_001 with isladvec=1 on 2x2 ranks: a SAV at
-     step 12 and a fresh Model to step 24, bit for bit to the
+     step 6 and a fresh Model to step 12, bit for bit to the
      uninterrupted 2x2 run, which is bit for bit one card's; (c)
      run_with_output at the MOLOCH flagship from 13b's SAV over 24
      steps, ATM, SRF and RAD every 6, on NetCDF and on Zarr: the ms of
@@ -152,13 +152,13 @@ Phases (any failure raises and the script exits nonzero):
      encoding and the bytes, the Zarr stores equal to the NetCDF files
      and the last ATM record equal to Model.decoupled() cut and rotated;
      (d) in the decomposed group, the same test_001 with iqmsl 0 and 1
-     bit for bit one card's at step 12;
+     bit for bit one card's at step 6;
  19. the aerosol chemistry and its tracer transport, after phase 18 and,
      for 19e, in the decomposed group: (a) configuration E = D plus AERO
      (RegT-Band with chemistry, BASELINE.json's fifth configuration)
      from phase 17's files, the land desert, the start moistened (qv
      1.9 times the files', so that Emanuel convects), the carbon and
-     sulfur tracers seeded, 48 steps: launches (K1 twice a step, Holtslag's
+     sulfur tracers seeded, 24 steps: launches (K1 twice a step, Holtslag's
      fields and the tracers at ns = ntr; K2 in its tracer form on the
      cumulus steps), the ms/step of each alarm class, a chemistry step's
      device kernels and busy share, the peak memory, each tracer group's
@@ -168,9 +168,9 @@ Phases (any failure raises and the script exits nonzero):
      one of E's cumulus steps (some column convecting), f32 1e-5 and f64
      1e-12,
      with device time and bound; (b) the test_008 setting (DUST,
-     idirect=2) on test_001 from phase 13's files at noon, 24 steps,
+     idirect=2) on test_001 from phase 13's files at noon, 12 steps,
      with a dust layer: the surface SW against idirect=0; (c) the MOLOCH
-     flagship with DUST from phase 13's ICBC file, 24 steps through K1-K4
+     flagship with DUST from phase 13's ICBC file, 12 steps through K1-K4
      with the tracers in K4's stack (nf = 11), the ms/step; (d) the CPU
      tests' chemistry settings (the nine chemsimtypes, DUST on MOLOCH,
      Grell's columns under cumtran) on the card against the CPU in f64
@@ -179,7 +179,30 @@ Phases (any failure raises and the script exits nonzero):
      launches and the exchanges a step; (f) run_with_output on (b) with
      CHE and OPT every 6 steps on NetCDF and on Zarr, equal record for
      record;
-then a JSON line of the kernels and the result line.
+ 20. the gas-phase chemistry, after phase 19 and, for 20d, in the
+     decomposed group: (a) configuration F = E plus the gas phase (DCCB:
+     CBMZ, the aerosols and the SNA equilibrium, 50 tracers) from phase
+     17's files and a CHBC file of the port's chem_icbc, the tracers
+     from its record, NH3, H2SO4 and HNO3 seeded, the rest of the state
+     after 4 steps of E's start without chemistry, 2 steps: launches (K1
+     twice a step at ns = 5 and 50, K2's tracer form at ntr = 50, K6's
+     factorisation and solve each Ros2 iteration), the ms of each step
+     class, the gas solver's ms, Ros2 iterations and host syncs a call,
+     the peak memory; ozone moves, ammonium and nitrate aerosol form, the
+     northern ring holds the CHBC records; then K1, K2's tracer form and
+     K6 against their plain versions on F's own operands, recorded in
+     that run (f32 1e-5, f64 1e-12), with device time and bound; (b) on
+     test_001 from phase 13's files, 4 steps each: AERO under Tiedtke
+     over both surfaces with lmfsmooth (ctracer on the cumulus steps),
+     CBMZ and CB6 with their CHBC files; (c) the CPU tests' gas-phase
+     settings on the card against the CPU in f64, 3 steps; (d) CBMZ on
+     test_001's widths on 2x2 ranks, bit for bit one card's at step 6,
+     with K5c's and K6's launches and the exchanges a step;
+then a JSON line of the kernels and the result line. The CPU side of
+every card-vs-CPU phase (5, 7, 14b, 14d, 15c, 16c, 17d, 19d, 20c) runs
+in one pool of CPU_WORKERS spawned processes, one torch thread each,
+submitted at the start and ended before the decomposed group; each
+phase reads its CPU runs after its card runs.
 """
 import json
 import os
@@ -228,7 +251,10 @@ SOURCE = {k: NAMES[BASE.get(k, k)] for k in NAMES}
 FLAGSHIP = 192                  # the MOLOCH 3 km domain, iy = jx
 GRID = (2, 2)                   # the decomposed runs' grid of ranks
 DECOMP_STEPS = 12
-TIME_STEPS = 12
+# the decomposed flagships' timing window: steps TIME_START.. of
+# TIME_STEPS steps, which holds the cumulus and surface step (20)
+TIME_START = 15
+TIME_STEPS = 6
 # shapes: (small ragged or test_001 shape, MOLOCH 192x192x41 shape)
 SHAPES = {"K1": [(5, 18, 34, 48), (5, 41, 192, 192)],
           "K2": [(34 * 48, 18), (192 * 192, 41)],
@@ -260,8 +286,8 @@ UNEVEN = ((7, 14, 34, 48), (0, 11, 23, 34), (0, 20, 48))
 ICBC_END = 1990060200
 HYDRO_ICBC_STEPS = 150
 # 12b's steps on 2x2 ranks from the ICBC start (four radiation cycles);
-# its run past the update starts from 13a's SAV after step 132 (18a's)
-HYDRO_CHECK = (12, 48)
+# its run past the update starts from 13a's SAV after step 138 (18a's)
+HYDRO_CHECK = (12, 24)
 MOLOCH_ICBC_STEPS = RAD_STEP + 1
 HYDRO_FIELDS = ("ps", "t", "qv", "u", "v")
 # phase 14: the NH flagship's dt. At 30 s the acoustic solver's substeps
@@ -299,7 +325,7 @@ SCHEME_B = dict(icup_lnd=0, icup_ocn=0, ibltyp=1, ipptls=2, icldfrac=0)
 B_STEPS = 24
 # 15a's depth: two radiation cycles (phases 13a and 12b run test_001
 # past the boundary update after step 144)
-A_STEPS = 24
+A_STEPS = 13         # steps 1..12 hold a radiation step (12)
 NF10 = 10          # B's WAF stack: θv, π, ux, vx, wx and five species
 # the JAX package (float32, CPU) with B's physics on a 48x48x41 MOLOCH
 # cut from initial_state(perturb=0.3, seed=1) moistened as moisten()
@@ -322,7 +348,7 @@ EUR44 = (103, 106, 18)              # iy, jx, kz
 CU_SCHEMES = {"Kuo": dict(icup_lnd=1, icup_ocn=1),
               "Betts-Miller + shallow": dict(icup_lnd=3, icup_ocn=-3),
               "Kain-Fritsch": dict(icup_lnd=6, icup_ocn=6)}
-CU_STEPS = 24
+CU_STEPS = 13        # steps 1..12 hold a radiation step (12)
 # 16c: (name, idynamic, ds, dt, physics overrides); the start's qv is 1.9
 # times the rest state's (95% of saturation): at 1.8 the ocean points sit
 # on SUBEX's rh0 = 0.9, where its cloud fraction is a roundoff
@@ -346,7 +372,7 @@ CU_QVFAC = 1.9
 SCHEME_D = dict(icup_lnd=4, icup_ocn=4, ibltyp=1, ipptls=1, icldfrac=0,
                 iocnflx=3, islab_ocean=1)
 BAND = (140, 802, 18)               # iy, jx, kz
-D_STEPS = 48                        # four radiation cycles
+D_STEPS = 24                        # two radiation cycles
 D_CHECK = 12                        # 17b's step
 # 17c: each other new setting on test_001 from phase 13's files: the
 # physicsparam overrides, and nsg or a lake and a cold sea
@@ -374,16 +400,16 @@ NEW_CASES = (
 D_REPS = 10
 # phase 18a: each restart chain's SAV step and end, riding on an earlier
 # phase's run (13a, 13b, 14a); 12b runs test_001's SAV on 2x2 ranks too
-CHAIN_STEPS = {"test_001": (132, HYDRO_ICBC_STEPS),
+CHAIN_STEPS = {"test_001": (138, HYDRO_ICBC_STEPS),
                "MOLOCH": (DECOMP_STEPS, STEPS), "NH": (DECOMP_STEPS, STEPS)}
 # 18c: run_with_output over 24 MOLOCH steps, a record every 6 (3 min at
 # dt 30 s) on ATM, SRF and RAD: four besides the first
 OUTPUT_STEPS = 24
 OUTPUT_EVERY = 6
 # 18b, 18d: test_001 from phase 13's files with the semi-Lagrangian
-# advection on 2x2 ranks: iqmsl 0 and 1 to step 12; with iqmsl 1 a SAV
-# at 12 and the chain to 24
-SL_STEPS = (12, 24)
+# advection on 2x2 ranks: iqmsl 0 and 1 to step 6; with iqmsl 1 a SAV
+# at 6 and the chain to 12
+SL_STEPS = (6, 12)
 # phase 19: configuration E = D plus AERO (RegT-Band with chemistry,
 # BASELINE.json's fifth configuration; RegCM4 Testing/test_009.in and
 # test_010.in) for E_STEPS steps, 19e on 2x2 ranks to E_CHECK; the AERO
@@ -391,7 +417,7 @@ SL_STEPS = (12, 24)
 # groups whose burdens are printed; 19b and 19f's test_008 setting at
 # noon on test_001 (the sun up), CHEM_STEPS steps, CHE and OPT every
 # CHEM_EVERY; 19c's MOLOCH steps; 19d's size
-E_STEPS = 48
+E_STEPS = 24
 E_CHECK = 12
 E_QVFAC = CU_QVFAC                  # E's start moistened, so that it convects
 E_SEEDED = list(range(6))           # BC_HL, BC_HB, OC_HL, OC_HB, SO2, SO4
@@ -401,6 +427,49 @@ CHEM_STEPS = 24
 CHEM_EVERY = 6
 CHEM_CPU_SHAPE = (16, 20, 14)
 CHEM_WIND = 10.0                    # m/s westerly added to the ICBC start
+# phase 20: configuration F = E plus the gas phase (DCCB: CBMZ, the
+# aerosols and the SNA equilibrium; BASELINE.json's fifth configuration in
+# full, RegCM4's DCCB chemsimtype, mod_che_common.F90:341-380) for F_STEPS
+# steps (the radiation and cumulus step 0 and a plain step: the gas
+# solver takes ~15 s a step at 2,021,040 cells) from the state of F_SPINUP
+# steps of E's start without the chemistry (from the moistened cold start
+# Emanuel's columns convect first at its third call, step 4), its tracers
+# from a CHBC file of F_CHBC_HOURS (two records) with F_SEEDED added; K6
+# recorded at its F_K6_CALL-th call; 20b's settings GAS_STEPS steps each,
+# 20d's 2x2 run GAS_CHECK steps
+F_SIM = "DCCB"
+F_STEPS = 2
+F_SPINUP = 4
+F_CHBC_HOURS = 6
+# kg/kg at the surface (no emission inventory here): the SNA's ammonia,
+# sulfate and nitric acid
+F_SEEDED = {"NH3": 2.0e-9, "H2SO4": 1.0e-9, "HNO3": 1.0e-9}
+F_K6_CALL = 20
+GAS_STEPS = 4
+GAS_CHECK = 6
+GAS_TIEDTKE = dict(icup_lnd=5, icup_ocn=5)
+# 20c's size of the CPU tests' gas-phase settings (the tests run them at
+# 8x10x14; at that size a gas tracer's dry-deposition total differed
+# between card and CPU at 1.1 times its spread bound)
+GAS_CPU_SHAPE = (10, 12, 14)
+
+
+def gas_settings():
+    """The CPU tests' settings module with the gas-phase settings at
+    GAS_CPU_SHAPE."""
+    from tests import _torch_chem_settings as S
+    for name in S.GAS:
+        if S.SETTINGS[name].get("shape") == S.GAS_SHAPE:
+            S.SETTINGS[name]["shape"] = GAS_CPU_SHAPE
+    return S
+
+
+_T0 = [time.time()]
+
+
+def stamp(what):
+    """Print the script's clock at the start of phase ``what``."""
+    print(f"[{time.time() - _T0[0]:.1f} s] {what}", flush=True)
 
 
 def nvidia_smi_line():
@@ -436,6 +505,17 @@ def time_ms(fn, reps=20):
     return t0.elapsed_time(t1) / reps
 
 
+def device_events(prof):
+    """(name, ms) of each device activity in a torch.profiler trace, from
+    its raw kineto events: prof.events() builds a Python object for every
+    host op as well, ~20 s for the trace of one 15a cumulus step."""
+    import torch
+    cuda = torch.autograd.DeviceType.CUDA
+    return [(e.name(), e.duration_ns() / 1e6)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == cuda]
+
+
 def device_ms(fn, kernels, reps=20, tries=5):
     """The device time of one call's kernels: for each name in
     ``kernels``, the mean duration of torch.profiler's CUDA kernel
@@ -457,9 +537,8 @@ def device_ms(fn, kernels, reps=20, tries=5):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        ev = {name: [e for e in prof.events()
-                     if e.device_type == torch.autograd.DeviceType.CUDA
-                     and name in e.name] for name in kernels}
+        ev = {name: [ms for k, ms in device_events(prof) if name in k]
+              for name in kernels}
         missing = [name for name, e in ev.items() if not e]
         if not missing:
             break
@@ -472,9 +551,7 @@ def device_ms(fn, kernels, reps=20, tries=5):
               f"{tries} traces; the whole call timed with CUDA events "
               f"instead: {ms:.4f} ms")
         return ms
-    total = sum(sum(e.time_range.elapsed_us() for e in evs) / len(evs)
-                for evs in ev.values())
-    return total / 1e3
+    return sum(sum(evs) / len(evs) for evs in ev.values())
 
 
 # -- work of each kernel at a shape: (bytes each input read once and each
@@ -708,6 +785,181 @@ def card_vs_cpu(runs, fields, what):
                                  f"without condensation: {dry_err}")
 
 
+# -- the CPU side of the card-vs-CPU phases ------------------------------
+# Every phase that holds the card to the CPU (5, 7, 14b, 14d, 15c, 16c,
+# 17d, 19d, 20c) runs its CPU side in one pool of spawned processes, one
+# torch thread each, submitted at the script's start: the CPU runs go on
+# while the card runs the phases before them, and each phase reads its
+# results when it has run its card side.
+CPU_WORKERS = 4
+
+
+def _cpu_worker_init():
+    import torch
+    torch.set_num_threads(1)
+
+
+def cpu_pool():
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+    return ProcessPoolExecutor(
+        max(1, min(CPU_WORKERS, (os.cpu_count() or 2) - 1)),
+        mp_context=mp.get_context("spawn"), initializer=_cpu_worker_init)
+
+
+def trio(submit, fn, *args):
+    """Futures of ``fn(*args, device, perturbed, dry)``'s three CPU runs:
+    plain, with T changed by 1e-15 relative, without the saturation
+    adjustment."""
+    return {"cpu": submit(fn, *args, "cpu"),
+            "cpu_perturbed": submit(fn, *args, "cpu", True),
+            "cpu_dry": submit(fn, *args, "cpu", False, True)}
+
+
+def spread_runs(submit, fn, *args):
+    """Futures of the CPU runs of ``fn(*args, device, conf, seed)`` that
+    phases 16c and 17d hold the card to: plain, with the saturation
+    adjustment off, and three seeds' 1e-15 changes of T."""
+    out = {"cpu": submit(fn, *args, "cpu"),
+           "cpu_dry": submit(fn, *args, "cpu", 0.0)}
+    for seed in range(3):
+        out[f"cpu_perturbed{seed}"] = submit(fn, *args, "cpu", None, seed)
+    return out
+
+
+CPU_DONE = []        # the script's clock as each pooled CPU run ends
+
+
+def start_cpu_refs(pool):
+    """Submit the CPU side of every card-vs-CPU phase to ``pool`` in the
+    order the phases read them; the futures by phase."""
+    from tests import _torch_chem_settings as S
+
+    def sub(*args, **kw):
+        fut = pool.submit(*args, **kw)
+        fut.add_done_callback(
+            lambda _: CPU_DONE.append(time.time() - _T0[0]))
+        return fut
+    return {"5": trio(sub, hydro_check_run),
+            "7": trio(sub, moloch_check_run),
+            "14b": trio(sub, nh_check_run),
+            "14d": {o: sub(option_run, o, "cpu") for o in OPTIONS},
+            "15c": [{"cpu": sub(scheme_run, i, "cpu"),
+                     "cpu_perturbed": sub(scheme_run, i, "cpu", True)}
+                    for i in range(len(scheme_cases()))],
+            "16c": [spread_runs(sub, cumulus_run, i)
+                    for i in range(len(CU_CASES))],
+            "17d": [spread_runs(sub, new_case_run, i)
+                    for i in range(len(NEW_CASES))],
+            "19d": start_chem_cpu(sub, S.SIMS + ("dust_moloch",)),
+            "20c": start_gas_cpu(sub)}
+
+
+def results(futures):
+    return {k: f.result() for k, f in futures.items()}
+
+
+def perturb_t(s0, tn, seed=0):
+    """``s0`` with its temperature ``tn`` changed by 1e-15 relative
+    (seeded): the roundoff spread's start."""
+    import torch
+    t = getattr(s0, tn)
+    rng = np.random.default_rng(seed)
+    return s0._replace(**{tn: t * (1.0 + 1e-15 * torch.as_tensor(
+        rng.standard_normal(tuple(t.shape))))})
+
+
+def hydro_check_run(device, perturbed=False, dry=False):
+    """Phase 5's run: Model(RegCMConfig()) in f64 from the 0.3 K
+    perturbed rest state for CHECK_STEPS steps on ``device``
+    (``perturbed``: T changed by 1e-15; ``dry``: subexparam conf=0);
+    the decoupled fields."""
+    import torch
+    from regcm_tpu_torch.config.params import RegCMConfig
+    from regcm_tpu_torch.core.grid import build_grid
+    from regcm_tpu_torch.driver import Model, standard_atmosphere_state
+    cfg = RegCMConfig()
+    grid = build_grid(cfg)
+    s0 = standard_atmosphere_state(grid, cfg, device="cpu",
+                                   dtype=torch.float64, perturb=0.3, seed=1)
+    if dry:
+        cfg.subex.conf = 0.0
+    if perturbed:
+        s0 = perturb_t(s0, "t_a")
+    m = Model(cfg, grid=grid, device=device, dtype=torch.float64,
+              initial_state=s0)
+    m.run(CHECK_STEPS)
+    return m.decoupled()
+
+
+def moloch_check_run(device, perturbed=False, dry=False):
+    """Phase 7's run: MOLOCH in f64 at 16x20x14 over the ~800 m hill
+    (ds 10 km, dt 60 s) for CHECK_STEPS steps on ``device``, as
+    hydro_check_run; the decoupled fields."""
+    import torch
+    from regcm_tpu_torch.config.params import RegCMConfig
+    from regcm_tpu_torch.core.grid import build_grid
+    from regcm_tpu_torch.driver import Model
+    from regcm_tpu_torch.dynamics.moloch import MolochCore
+    cfg = RegCMConfig()
+    cfg.core.idynamic = 3
+    cfg.dim.iy, cfg.dim.jx, cfg.dim.kz = 16, 20, 14
+    cfg.geo.ds = 10.0
+    cfg.time.dt = 60.0
+    grid = build_grid(cfg, ht=hill(16, 20))
+    s0 = MolochCore(grid, cfg, device="cpu",
+                    dtype=torch.float64).initial_state(perturb=0.3, seed=1)
+    if dry:
+        cfg.subex.conf = 0.0
+    if perturbed:
+        s0 = perturb_t(s0, "t")
+    m = Model(cfg, grid=grid, device=device, dtype=torch.float64,
+              initial_state=s0)
+    m.run(CHECK_STEPS)
+    if not m.check_finite():
+        raise AssertionError(f"non-finite MOLOCH state on {device} "
+                             f"(perturbed {perturbed}, dry {dry})")
+    return m.decoupled()
+
+
+def nh_check_run(device, perturbed=False, dry=False):
+    """Phase 14b's run: NH in f64 at 16x20x14 over phase 7's hill (ds 10
+    km, dt 30 s) for CHECK_STEPS steps on ``device`` (``dry``: the
+    dynamics alone, no physics and no saturation adjustment); the NH
+    fields."""
+    import torch
+    from regcm_tpu_torch.config.params import RegCMConfig
+    from regcm_tpu_torch.core.grid import build_grid
+    from regcm_tpu_torch.driver import Model, nh_initial_state
+    cfg = RegCMConfig()
+    cfg.core.idynamic = 2
+    cfg.dim.iy, cfg.dim.jx, cfg.dim.kz = 16, 20, 14
+    cfg.geo.ds = 10.0
+    cfg.time.dt = 30.0
+    grid = build_grid(cfg, ht=hill(16, 20))
+    s0 = nh_initial_state(grid, cfg, "cpu", torch.float64, perturb=0.3,
+                          seed=1)
+    if dry:
+        cfg.physics.ipptls = 0
+    if perturbed:
+        s0 = perturb_t(s0, "t_a")
+    m = Model(cfg, grid=grid, device=device, dtype=torch.float64,
+              initial_state=s0, physics=False if dry else None)
+    m.run(CHECK_STEPS)
+    if not m.check_finite():
+        raise AssertionError(f"non-finite NH state on {device} "
+                             f"(perturbed {perturbed}, dry {dry})")
+    return nh_fields(m)
+
+
+def check_run_vs_cpu(dev, fn, cpu, fields, what):
+    """Phases 5, 7 and 14b: ``fn``'s card runs (plain and dry) against
+    its CPU runs (``cpu``: the futures of trio) by card_vs_cpu."""
+    runs = dict(gpu=fn(dev), gpu_dry=fn(dev, False, True))
+    runs.update(results(cpu))
+    card_vs_cpu(runs, fields, what)
+
+
 def profile_steps(model, nsteps, what="MOLOCH"):
     """Device busy share and the costliest device kernels over nsteps
     steps (torch.profiler; its own overhead inflates the wall time)."""
@@ -717,13 +969,11 @@ def profile_steps(model, nsteps, what="MOLOCH"):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _, wall = model.run(nsteps)
-    kern = [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+    kern = device_events(prof)
+    busy_ms = sum(ms for _, ms in kern)
     by_name = {}
-    for e in kern:
-        by_name[e.name] = by_name.get(e.name, 0.0) \
-            + e.time_range.elapsed_us() / 1e3
+    for name, ms in kern:
+        by_name[name] = by_name.get(name, 0.0) + ms
     print(f"profile, {nsteps} {what} steps: wall {1e3 * wall:.1f} ms, "
           f"{len(kern)} device kernels ({len(kern) / nsteps:.0f} a step), "
           f"device busy {busy_ms:.2f} ms = "
@@ -1090,8 +1340,8 @@ def run_icbc_single(dev, smi, paths, mods, chains=None):
     print(f"ICBC MOLOCH path: {len(steps)} steps, launches {mlaunch}")
     if min(mlaunch.values()) <= 0:
         raise AssertionError(f"ICBC MOLOCH bypassed a kernel: {mlaunch}")
-    # a finding, not a failure: how this start evolves, and where it goes
-    # non-finite within two radiation cycles
+    # a finding, not a failure: how this start evolves, and whether it
+    # goes non-finite by step 61
     for n, d in mrec.items():
         print(f"ICBC MOLOCH step {n}: ps {d['ps'].min():.3f}.."
               f"{d['ps'].max():.3f} hPa, wmax {np.abs(d['w']).max():.4f} "
@@ -1110,15 +1360,6 @@ def run_icbc_single(dev, smi, paths, mods, chains=None):
               f"surface, cumulus; synchronised): {radn[0]:.3f} ms on {smi}")
     print(f"ICBC MOLOCH peak device memory (steps 0..{model.nstep}): "
           f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
-    if bad is None:
-        later = icbc_steps(model, 2 * RAD_STEP, stop_non_finite=True)[2]
-        d = model.decoupled()
-        print(f"ICBC MOLOCH 192x192x41 f32 from the ICBC start, report "
-              f"only: " + (f"non-finite after step {later}" if later
-                           else f"finite through step {model.nstep}: ps "
-                           f"{d['ps'].min():.3f}..{d['ps'].max():.3f} hPa, "
-                           f"wmax {np.abs(d['w']).max():.4f} m/s"))
-        del d
     del model
     torch.cuda.empty_cache()
     return dict(rec=rec, window_ms=sum(window) / len(window),
@@ -1163,11 +1404,11 @@ def decomposed_rank(rank, time_steps, paths):
     """Phases 10-12, 14c, 15e, 16d, 17b, 18b and 18d on one rank of a 2x2
     group: the flagship in f32 for DECOMP_STEPS steps (counters reset
     just before, read just after), the whole domain's fields at the end
-    (on rank 0), the ms/step of ``time_steps`` further steps; the f64
-    MOLOCH dryrun; the f64 hydrostatic dryruns; test_001 from the ICBC
-    files in ``paths`` (counters reset just before, read just after)
+    (on rank 0), the ms/step of ``time_steps`` steps from TIME_START;
+    the f64 MOLOCH dryrun; the f64 hydrostatic dryruns; test_001 from the
+    ICBC files in ``paths`` (counters reset just before, read just after)
     with the whole domain's fields at HYDRO_CHECK (on rank 0) and the
-    ms/step after step 12, and from phase 13a's SAV after step 132 past
+    ms/step after step 12, and from phase 13a's SAV after step 138 past
     the boundary update to step 150; then the later phases' rank
     functions."""
     import torch
@@ -1183,6 +1424,11 @@ def decomposed_rank(rank, time_steps, paths):
     from regcm_tpu_torch.preproc.icbc import ICBCReader
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    laps, t_lap = {}, [time.time()]
+
+    def lap(part):              # the seconds of each part on this rank
+        laps[part] = round(time.time() - t_lap[0], 1)
+        t_lap[0] = time.time()
     dev = rank.device
     cfg = flagship_cfg()
     grid = build_grid(cfg)
@@ -1205,6 +1451,7 @@ def decomposed_rank(rank, time_steps, paths):
     exch = (halo.exchanges / DECOMP_STEPS, halo.bytes_sent / DECOMP_STEPS)
     finite = model.check_finite()
     dec = model.decoupled()
+    model.run(TIME_START - DECOMP_STEPS)
     dist.barrier()
     _, wall = model.run(time_steps)
     walls = [None] * rank.world
@@ -1217,6 +1464,7 @@ def decomposed_rank(rank, time_steps, paths):
                dec=dec if rank.rank == 0 else None)
     del model
     torch.cuda.empty_cache()
+    lap("10")
     hcfg = hill_cfg(32, 32)
     hgrid = build_grid(hcfg, ht=hill(32, 32))
     d64 = dryrun(hcfg, hgrid, dev, rank.mesh(32, 32))
@@ -1225,6 +1473,7 @@ def decomposed_rank(rank, time_steps, paths):
     hd = {ph: hydro_dryrun(dev, ph, rank.mesh(16, 16))
           for ph in (False, True)}
     out["hydro_dryrun"] = hd if rank.rank == 0 else None
+    lap("11, 12a")
     # -- 12b. test_001 from the ICBC files, f32, HYDRO_CHECK[1] steps
     model = hydro_icbc_model(paths, dev, rank.mesh(34, 48))
     for m in mods.values():
@@ -1250,6 +1499,7 @@ def decomposed_rank(rank, time_steps, paths):
     dec[HYDRO_CHECK[1]] = model.decoupled()
     out["hydro"]["dec"] = dec if rank.rank == 0 else None
     del model
+    lap("12b")
     # -- 12b. the boundary update under the mesh: phase 13a's SAV after
     # step CHAIN_STEPS["test_001"][0] (phase 18a's) into a fresh 2x2
     # Model, run past the update after step 144 to step 150
@@ -1265,12 +1515,18 @@ def decomposed_rank(rank, time_steps, paths):
         k5c=k1.launches_sharded, dec=dec if rank.rank == 0 else None)
     del model
     torch.cuda.empty_cache()
-    out["nh"] = nh_rank(rank, time_steps)
-    out["schemes"] = schemes_rank(rank, paths)
-    out["cumulus"] = cumulus_rank(rank, paths)
-    out["band"] = band_rank(rank, paths)
-    out["sl"] = sl_rank(rank, paths)
-    out["chem"] = chem_rank(rank, paths)
+    lap("12b update")
+    for part, key, fn, args in (
+            ("14c", "nh", nh_rank, (time_steps,)),
+            ("15e", "schemes", schemes_rank, (paths,)),
+            ("16d", "cumulus", cumulus_rank, (paths,)),
+            ("17b", "band", band_rank, (paths,)),
+            ("18b, 18d", "sl", sl_rank, (paths,)),
+            ("19e", "chem", chem_rank, (paths,)),
+            ("20d", "gas", gas_rank, (paths,))):
+        out[key] = fn(rank, *args)
+        lap(part)
+    out["laps"] = laps
     return out
 
 
@@ -1278,7 +1534,7 @@ def nh_rank(rank, time_steps):
     """Phase 14c on one rank of the 2x2 group: the NH flagship in f32 for
     DECOMP_STEPS steps (counters reset just before, read just after), the
     whole domain's fields at the end (on rank 0), then the ms/step of
-    ``time_steps`` further steps."""
+    ``time_steps`` steps from TIME_START."""
     import torch
     import torch.distributed as dist
     from regcm_tpu_torch.core.grid import build_grid
@@ -1304,6 +1560,7 @@ def nh_rank(rank, time_steps):
               bytes_per_step=halo.bytes_sent / DECOMP_STEPS)
     dec = nh_fields(model)
     nh["dec"] = dec if rank.rank == 0 else None
+    model.run(TIME_START - DECOMP_STEPS)
     dist.barrier()
     _, wall = model.run(time_steps)
     walls = [None] * rank.world
@@ -1316,7 +1573,7 @@ def nh_rank(rank, time_steps):
 
 
 def run_decomposed(dev, smi, single12, paths, icbc13, nh12, a15, c16, d17,
-                   e19):
+                   e19, g20):
     """Phases 10-12, 14c, 15e, 16d, 17b, 18b and 18d: the 2x2 groups of
     ``decomposed_rank`` on every backend the host allows, held bit for
     bit to the single card's step-12 fields ``single12`` and to its f64
@@ -1324,9 +1581,10 @@ def run_decomposed(dev, smi, single12, paths, icbc13, nh12, a15, c16, d17,
     flagship bit for bit to phase 14a's step-12 fields ``nh12``,
     configurations A, C and D to their single-card step-12 fields
     ``a15``, ``c16`` and ``d17``, the CRM to one card in f64, the
-    semi-Lagrangian test_001 to one card (``sl_single``) and E's settings
-    on test_001's widths to one card's step-12 fields ``e19``; returns
-    each backend's rank results."""
+    semi-Lagrangian test_001 to one card (``sl_single``), E's settings
+    on test_001's widths to one card's step-12 fields ``e19`` and CBMZ on
+    test_001's widths to one card's ``g20``; returns each backend's rank
+    results."""
     import torch
     from regcm_tpu_torch.core.grid import build_grid
     from regcm_tpu_torch.parallel.launch import spawn
@@ -1357,7 +1615,8 @@ def run_decomposed(dev, smi, single12, paths, icbc13, nh12, a15, c16, d17,
         t0 = time.time()
         res = spawn(decomposed_rank, *GRID, backend, "cuda",
                     args=(TIME_STEPS, paths), timeout=900)
-        print(f"  {backend} group ran in {time.time() - t0:.1f} s")
+        print(f"  {backend} group ran in {time.time() - t0:.1f} s; rank 0's "
+              f"seconds by phase {res[0]['laps']}")
         for r, out in enumerate(res):
             print(f"  rank {r} on {out['device']}: launches "
                   f"{out['launches']}, {out['exchanges_per_step']:.1f} "
@@ -1386,9 +1645,9 @@ def run_decomposed(dev, smi, single12, paths, icbc13, nh12, a15, c16, d17,
                                      f"differs from one card in {f}: "
                                      f"rel-RMS {err}")
         ms = res[0]["ms_per_step"]
-        last = DECOMP_STEPS + TIME_STEPS - 1
+        last = TIME_START + TIME_STEPS - 1
         print(f"  decomposed MOLOCH ms/step (f32, 192x192x41 on 2x2 ranks, "
-              f"{backend}, steps {DECOMP_STEPS}..{last}: cumulus and "
+              f"{backend}, steps {TIME_START}..{last}: cumulus and "
               f"surface at 20, no radiation; synchronised, slowest rank): "
               f"{ms:.3f} on {smi}")
         # -- 11. f64 at 32x32x14 over the hill, 2x2 against one card
@@ -1521,8 +1780,8 @@ def run_decomposed(dev, smi, single12, paths, icbc13, nh12, a15, c16, d17,
                                      f"differs from one card in {f}: "
                                      f"rel-RMS {err}")
         print(f"  decomposed NH ms/step (f32, 192x192x41 dt {NH_DT} s on "
-              f"2x2 ranks, {backend}, steps {DECOMP_STEPS}.."
-              f"{DECOMP_STEPS + TIME_STEPS - 1}: cumulus at 20; "
+              f"2x2 ranks, {backend}, steps {TIME_START}.."
+              f"{TIME_START + TIME_STEPS - 1}: cumulus at 20; "
               f"synchronised, slowest rank): "
               f"{res[0]['nh']['ms_per_step']:.3f} on {smi}")
         # -- 15e. configuration A on 2x2 ranks against phase 15a
@@ -1578,6 +1837,8 @@ def run_decomposed(dev, smi, single12, paths, icbc13, nh12, a15, c16, d17,
         check_sl_decomposed(res, backend, sl_ref)
         # -- 19e. the chemistry on 2x2 ranks
         check_chem_decomposed(res, backend, e19)
+        # -- 20d. the gas phase on 2x2 ranks
+        check_gas_decomposed(res, backend, g20)
         decomp[backend] = res
     return decomp
 
@@ -1707,41 +1968,13 @@ def run_nh_single(dev, smi, mods, chain=None):
                 per_step={k: v / STEPS for k, v in launches.items()})
 
 
-def nh_card_vs_cpu(dev):
+def nh_card_vs_cpu(dev, cpu):
     """Phase 14b: NH on the card against the CPU in f64, 16x20x14 over
     phase 7's hill (ds 10 km, dt 30 s), 10 steps: full physics held to
     four times the CPU's spread (or 1e-7), the dynamics alone (no
-    saturation adjustment) to 1e-7, by card_vs_cpu."""
-    import torch
-    from regcm_tpu_torch.config.params import RegCMConfig
-    from regcm_tpu_torch.core.grid import build_grid
-    from regcm_tpu_torch.driver import Model, nh_initial_state
-    cfg, dyn = RegCMConfig(), RegCMConfig()
-    for c_ in (cfg, dyn):
-        c_.core.idynamic = 2
-        c_.dim.iy, c_.dim.jx, c_.dim.kz = 16, 20, 14
-        c_.geo.ds = 10.0
-        c_.time.dt = 30.0
-    dyn.physics.ipptls = 0
-    grid = build_grid(cfg, ht=hill(16, 20))
-    s0 = nh_initial_state(grid, cfg, "cpu", torch.float64, perturb=0.3,
-                          seed=1)
-    rng = np.random.default_rng(0)
-    s1 = s0._replace(t_a=s0.t_a * (1.0 + 1e-15 * torch.as_tensor(
-        rng.standard_normal(tuple(s0.t_a.shape)))))
-    runs = {}
-    for name, conf, device, init, phys in (
-            ("gpu", cfg, dev, s0, None), ("cpu", cfg, "cpu", s0, None),
-            ("cpu_perturbed", cfg, "cpu", s1, None),
-            ("gpu_dry", dyn, dev, s0, False), ("cpu_dry", dyn, "cpu", s0,
-                                               False)):
-        m = Model(conf, grid=grid, device=device, dtype=torch.float64,
-                  initial_state=init, physics=phys)
-        m.run(CHECK_STEPS)
-        if not m.check_finite():
-            raise AssertionError(f"non-finite NH state ({name})")
-        runs[name] = nh_fields(m)
-    card_vs_cpu(runs, NH_FIELDS, "NH")
+    saturation adjustment) to 1e-7, by card_vs_cpu; ``cpu`` the futures
+    of nh_check_run's CPU runs."""
+    check_run_vs_cpu(dev, nh_check_run, cpu, NH_FIELDS, "NH")
 
 
 def option_run(option, device):
@@ -1797,11 +2030,12 @@ def option_run(option, device):
     return {k: getattr(s, k).cpu().numpy() for k in names}
 
 
-def options_card_vs_cpu(dev):
+def options_card_vs_cpu(dev, cpus):
     """Phase 14d: each option on the card against the CPU, max relative
-    error of every prognostic below 1e-10."""
+    error of every prognostic below 1e-10; ``cpus`` the futures of the
+    CPU runs by option."""
     for option in OPTIONS:
-        gpu, cpu = option_run(option, dev), option_run(option, "cpu")
+        gpu, cpu = option_run(option, dev), cpus[option].result()
         worst = max((max_rel(gpu[k], w), k) for k, w in cpu.items())
         print(f"option {option}: 3 steps f64 18x24x14, card vs CPU worst "
               f"{worst[1]} max rel err {worst[0]:.3e} (bound 1e-10)")
@@ -1856,10 +2090,8 @@ def step_kernels(model, step):
         step()
         torch.cuda.synchronize()
         wall = 1e3 * (time.time() - t0)
-    kern = [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    return len(kern), sum(e.time_range.elapsed_us() for e in kern) / 1e3, \
-        wall
+    kern = device_events(prof)
+    return len(kern), sum(ms for _, ms in kern), wall
 
 
 def run_schemes_a(dev, smi, paths, mods):
@@ -2032,12 +2264,11 @@ def scheme_cases():
     return out
 
 
-def schemes_card_vs_cpu(dev):
-    """Phase 15c: each case on the card against the CPU in f64 from the
-    same moistened start (cumulus every step, every alarm at step 0):
-    rel-RMS below max(1e-7, 4 x the CPU run's spread under a 1e-15
-    relative change of T); a hydrometeor beyond it only at the points
-    where a microphysics threshold flipped (at most 1% of them)."""
+def scheme_run(i, device, perturbed=False):
+    """Phase 15c's run of case ``i`` of scheme_cases in f64 on ``device``
+    from the moistened start (cumulus every step, every alarm at step 0;
+    ``perturbed``: T changed by 1e-15): the decoupled fields and the
+    hydrometeors."""
     import torch
     from regcm_tpu_torch.config.params import RegCMConfig
     from regcm_tpu_torch.core.grid import build_grid
@@ -2045,40 +2276,47 @@ def schemes_card_vs_cpu(dev):
                                         standard_atmosphere_state)
     from regcm_tpu_torch.dynamics.moloch import MolochCore
     from regcm_tpu_torch.preproc.terrain import synthetic_topo
-    for name, idyn, ds, dt, phys, steps in scheme_cases():
-        cfg = with_physics(RegCMConfig(), phys)
-        cfg.core.idynamic = idyn
-        cfg.dim.iy, cfg.dim.jx, cfg.dim.kz = 16, 20, 14
-        cfg.geo.ds, cfg.time.dt, cfg.time.dtcum = ds, dt, dt
-        topo, _, mask = synthetic_topo(cfg, kind="gauss", height=500.0)
-        grid = build_grid(cfg, ht=topo, landmask=mask)
-        if idyn == 3:
-            s0 = MolochCore(grid, cfg, device="cpu").initial_state(
-                perturb=0.3, seed=1)
-        else:
-            start = nh_initial_state if idyn == 2 \
-                else standard_atmosphere_state
-            s0 = start(grid, cfg, "cpu", perturb=0.3, seed=1)
-        s0 = moisten(s0, idyn)
-        tn = "t" if idyn == 3 else "t_a"
-        rng = np.random.default_rng(0)
-        t = getattr(s0, tn)
-        s1 = s0._replace(**{tn: t * (1.0 + 1e-15 * torch.as_tensor(
-            rng.standard_normal(tuple(t.shape))))})
-        runs = {}
-        for run, device, init in (("gpu", dev, s0), ("cpu", "cpu", s0),
-                                  ("cpu_perturbed", "cpu", s1)):
-            m = Model(cfg, grid=grid, device=device, dtype=torch.float64,
-                      initial_state=init)
-            m.run(steps)
-            if not m.check_finite():
-                raise AssertionError(f"15c {name}: non-finite ({run})")
-            d = m.decoupled()
-            qx = m.state.qx if idyn == 3 \
-                else m.state.qx_a / m.state.ps_a[None]
-            for i, q in enumerate(("qc", "qr", "qi", "qs"), 1):
-                d[q] = qx[i].cpu().numpy()
-            runs[run] = d
+    name, idyn, ds, dt, phys, steps = scheme_cases()[i]
+    cfg = with_physics(RegCMConfig(), phys)
+    cfg.core.idynamic = idyn
+    cfg.dim.iy, cfg.dim.jx, cfg.dim.kz = 16, 20, 14
+    cfg.geo.ds, cfg.time.dt, cfg.time.dtcum = ds, dt, dt
+    topo, _, mask = synthetic_topo(cfg, kind="gauss", height=500.0)
+    grid = build_grid(cfg, ht=topo, landmask=mask)
+    if idyn == 3:
+        s0 = MolochCore(grid, cfg, device="cpu").initial_state(
+            perturb=0.3, seed=1)
+    else:
+        start = nh_initial_state if idyn == 2 \
+            else standard_atmosphere_state
+        s0 = start(grid, cfg, "cpu", perturb=0.3, seed=1)
+    s0 = moisten(s0, idyn)
+    if perturbed:
+        s0 = perturb_t(s0, "t" if idyn == 3 else "t_a")
+    m = Model(cfg, grid=grid, device=device, dtype=torch.float64,
+              initial_state=s0)
+    m.run(steps)
+    if not m.check_finite():
+        raise AssertionError(f"15c {name}: non-finite on {device} "
+                             f"(perturbed {perturbed})")
+    d = m.decoupled()
+    qx = m.state.qx if idyn == 3 else m.state.qx_a / m.state.ps_a[None]
+    for j, q in enumerate(("qc", "qr", "qi", "qs"), 1):
+        d[q] = qx[j].cpu().numpy()
+    return d
+
+
+def schemes_card_vs_cpu(dev, cpu):
+    """Phase 15c: each case on the card against the CPU in f64 from the
+    same moistened start (cumulus every step, every alarm at step 0):
+    rel-RMS below max(1e-7, 4 x the CPU run's spread under a 1e-15
+    relative change of T); a hydrometeor beyond it only at the points
+    where a microphysics threshold flipped (at most 1% of them).
+    ``cpu``: each case's futures of its CPU runs."""
+    for i, case in enumerate(scheme_cases()):
+        name, steps = case[0], case[5]
+        runs = dict(gpu=scheme_run(i, dev))
+        runs.update(results(cpu[i]))
         worst, flips = (0.0, ""), {}
         for f in ("ps", "t", "qv", "u", "v", "qc", "qr", "qi", "qs"):
             want = runs["cpu"][f]
@@ -2361,7 +2599,52 @@ def run_cumulus_schemes(dev, smi, paths, mods):
     return out
 
 
-def cumulus_card_vs_cpu(dev):
+def cumulus_run(i, device, conf=None, seed=None):
+    """Phase 16c's run of CU_CASES[i] in f64 on ``device`` at 16x20x14
+    over the 500 m hill with water, 3 steps with every alarm at step 0
+    and the cumulus every step (``conf``: subexparam conf; ``seed``: T
+    changed by 1e-15 with this seed): the decoupled fields, the
+    hydrometeors and, on the hydrostatic core, rainc."""
+    import torch
+    from regcm_tpu_torch.config.params import RegCMConfig
+    from regcm_tpu_torch.core.grid import build_grid
+    from regcm_tpu_torch.driver import Model, standard_atmosphere_state
+    from regcm_tpu_torch.dynamics.moloch import MolochCore
+    from regcm_tpu_torch.preproc.terrain import synthetic_topo
+    name, idyn, ds, dt, phys = CU_CASES[i]
+    cfg = with_physics(RegCMConfig(), phys)
+    cfg.core.idynamic = idyn
+    cfg.dim.iy, cfg.dim.jx, cfg.dim.kz = 16, 20, 14
+    cfg.geo.ds, cfg.time.dt, cfg.time.dtcum = ds, dt, dt
+    topo, _, mask = synthetic_topo(cfg, kind="gauss", height=500.0)
+    grid = build_grid(cfg, ht=topo, landmask=mask)
+    if idyn == 3:
+        s0 = MolochCore(grid, cfg, device="cpu").initial_state(
+            perturb=0.3, seed=1)
+    else:
+        s0 = standard_atmosphere_state(grid, cfg, "cpu", perturb=0.3,
+                                       seed=1)
+    s0 = moisten(s0, idyn, CU_QVFAC)
+    if conf is not None:
+        cfg.subex.conf = conf
+    if seed is not None:
+        s0 = perturb_t(s0, "t" if idyn == 3 else "t_a", seed)
+    m = Model(cfg, grid=grid, device=device, dtype=torch.float64,
+              initial_state=s0)
+    m.run(3)
+    if not m.check_finite():
+        raise AssertionError(f"16c {name}: non-finite on {device} "
+                             f"(conf {conf}, seed {seed})")
+    d = m.decoupled()
+    qx = m.state.qx if idyn == 3 else m.state.qx_a / m.state.ps_a[None]
+    for j in range(1, qx.shape[0]):
+        d[("qc", "qr", "qi", "qs")[j - 1]] = qx[j].cpu().numpy()
+    if idyn != 3:
+        d["rainc"] = m.state.rainc.cpu().numpy()
+    return d
+
+
+def cumulus_card_vs_cpu(dev, cpu):
     """Phase 16c: each case of CU_CASES on the card against the CPU in f64
     at 16x20x14 over the 500 m hill with water, 3 steps with every alarm
     at step 0 and the cumulus every step. As phase 5: with the saturation
@@ -2372,57 +2655,12 @@ def cumulus_card_vs_cpu(dev):
     hydrometeor beyond it only at the points where a threshold flipped
     (at most 1% of them); with the adjustment off (subexparam conf=0)
     the dynamical fields (ps, t, qv, u, v, w) are well conditioned and
-    held to 1e-10."""
-    import torch
-    from regcm_tpu_torch.config.params import RegCMConfig
-    from regcm_tpu_torch.core.grid import build_grid
-    from regcm_tpu_torch.driver import Model, standard_atmosphere_state
-    from regcm_tpu_torch.dynamics.moloch import MolochCore
-    from regcm_tpu_torch.preproc.terrain import synthetic_topo
-    for name, idyn, ds, dt, phys in CU_CASES:
-        cfgs = {}
-        for conf in (None, 0.0):
-            cfg = with_physics(RegCMConfig(), phys)
-            cfg.core.idynamic = idyn
-            cfg.dim.iy, cfg.dim.jx, cfg.dim.kz = 16, 20, 14
-            cfg.geo.ds, cfg.time.dt, cfg.time.dtcum = ds, dt, dt
-            if conf is not None:
-                cfg.subex.conf = conf
-            cfgs[conf] = cfg
-        cfg = cfgs[None]
-        topo, _, mask = synthetic_topo(cfg, kind="gauss", height=500.0)
-        grid = build_grid(cfg, ht=topo, landmask=mask)
-        if idyn == 3:
-            s0 = MolochCore(grid, cfg, device="cpu").initial_state(
-                perturb=0.3, seed=1)
-        else:
-            s0 = standard_atmosphere_state(grid, cfg, "cpu", perturb=0.3,
-                                           seed=1)
-        s0 = moisten(s0, idyn, CU_QVFAC)
-        tn = "t" if idyn == 3 else "t_a"
-        t = getattr(s0, tn)
-        todo = [("gpu", None, dev, s0), ("cpu", None, "cpu", s0),
-                ("gpu_dry", 0.0, dev, s0), ("cpu_dry", 0.0, "cpu", s0)]
-        for seed in range(3):
-            rng = np.random.default_rng(seed)
-            todo.append((f"cpu_perturbed{seed}", None, "cpu", s0._replace(
-                **{tn: t * (1.0 + 1e-15 * torch.as_tensor(
-                    rng.standard_normal(tuple(t.shape))))})))
-        runs = {}
-        for run, conf, device, init in todo:
-            m = Model(cfgs[conf], grid=grid, device=device,
-                      dtype=torch.float64, initial_state=init)
-            m.run(3)
-            if not m.check_finite():
-                raise AssertionError(f"16c {name}: non-finite ({run})")
-            d = m.decoupled()
-            qx = m.state.qx if idyn == 3 \
-                else m.state.qx_a / m.state.ps_a[None]
-            for i in range(1, qx.shape[0]):
-                d[("qc", "qr", "qi", "qs")[i - 1]] = qx[i].cpu().numpy()
-            if idyn != 3:
-                d["rainc"] = m.state.rainc.cpu().numpy()
-            runs[run] = d
+    held to 1e-10. ``cpu``: each case's futures of spread_runs."""
+    for i, case in enumerate(CU_CASES):
+        name = case[0]
+        runs = dict(gpu=cumulus_run(i, dev),
+                    gpu_dry=cumulus_run(i, dev, 0.0))
+        runs.update(results(cpu[i]))
         worst, flips = (0.0, ""), {}
         fields = [f for f in runs["cpu"] if f != "rainc"]
         for f in fields:
@@ -2777,46 +3015,50 @@ def new_case_start(case):
     return cfgs, grid, moisten(s0, idyn, CU_QVFAC)
 
 
-def new_card_vs_cpu(dev):
+def new_case_run(i, device, conf=None, seed=None):
+    """Phase 17d's run of NEW_CASES[i] in f64 on ``device``, 3 steps from
+    new_case_start (``conf``: None or 0.0, the saturation adjustment on
+    or off; ``seed``: T changed by 1e-15 with this seed): the decoupled
+    fields, the hydrometeors and the surface state (tg, hfx, qfx)."""
+    import torch
+    from regcm_tpu_torch.driver import Model
+    case = NEW_CASES[i]
+    name, idyn = case[0], case[1]
+    cfgs, grid, s0 = new_case_start(case)
+    if seed is not None:
+        s0 = perturb_t(s0, "t" if idyn == 3 else "t_a", seed)
+    m = Model(cfgs[conf], grid=grid, device=device, dtype=torch.float64,
+              initial_state=s0)
+    if case[7]:
+        lake, sea = _water_patches(grid.lndocn)
+        m.core.sst = torch.where(
+            torch.as_tensor(sea, device=m.core.sst.device),
+            torch.full_like(m.core.sst, 270.0), m.core.sst)
+    m.run(3)
+    if not m.check_finite():
+        raise AssertionError(f"17d {name}: non-finite on {device} "
+                             f"(conf {conf}, seed {seed})")
+    d = m.decoupled()
+    qx = m.state.qx if idyn == 3 else m.state.qx_a / m.state.ps_a[None]
+    for j in range(1, qx.shape[0]):
+        d[("qc", "qr", "qi", "qs")[j - 1]] = qx[j].cpu().numpy()
+    for k in ("tg", "hfx", "qfx"):
+        d[k] = getattr(m.state, k).cpu().numpy()
+    return d
+
+
+def new_card_vs_cpu(dev, cpu):
     """Phase 17d: each NEW_CASES case on the card against the CPU in f64
     at 16x20x14, 3 steps, held as phase 16c holds its cases: the spread
     rule with three seeds (a hydrometeor past it at most at 1% of the
     points), and the dynamical fields with the saturation adjustment off
-    to 1e-10; the surface state (tg, hfx, qfx) within the same rule."""
-    import torch
-    from regcm_tpu_torch.driver import Model
-    for case in NEW_CASES:
-        name, idyn = case[0], case[1]
-        cfgs, grid, s0 = new_case_start(case)
-        tn = "t" if idyn == 3 else "t_a"
-        t = getattr(s0, tn)
-        todo = [("gpu", None, dev, s0), ("cpu", None, "cpu", s0),
-                ("gpu_dry", 0.0, dev, s0), ("cpu_dry", 0.0, "cpu", s0)]
-        for seed in range(3):
-            rng = np.random.default_rng(seed)
-            todo.append((f"cpu_perturbed{seed}", None, "cpu", s0._replace(
-                **{tn: t * (1.0 + 1e-15 * torch.as_tensor(
-                    rng.standard_normal(tuple(t.shape))))})))
-        runs = {}
-        for run, conf, device, init in todo:
-            m = Model(cfgs[conf], grid=grid, device=device,
-                      dtype=torch.float64, initial_state=init)
-            if case[7]:
-                lake, sea = _water_patches(grid.lndocn)
-                m.core.sst = torch.where(
-                    torch.as_tensor(sea, device=m.core.sst.device),
-                    torch.full_like(m.core.sst, 270.0), m.core.sst)
-            m.run(3)
-            if not m.check_finite():
-                raise AssertionError(f"17d {name}: non-finite ({run})")
-            d = m.decoupled()
-            qx = m.state.qx if idyn == 3 \
-                else m.state.qx_a / m.state.ps_a[None]
-            for i in range(1, qx.shape[0]):
-                d[("qc", "qr", "qi", "qs")[i - 1]] = qx[i].cpu().numpy()
-            for k in ("tg", "hfx", "qfx"):
-                d[k] = getattr(m.state, k).cpu().numpy()
-            runs[run] = d
+    to 1e-10; the surface state (tg, hfx, qfx) within the same rule.
+    ``cpu``: each case's futures of spread_runs."""
+    for i, case in enumerate(NEW_CASES):
+        name = case[0]
+        runs = dict(gpu=new_case_run(i, dev),
+                    gpu_dry=new_case_run(i, dev, 0.0))
+        runs.update(results(cpu[i]))
         worst, flips = (0.0, ""), {}
         for f in runs["cpu"]:
             want = runs["cpu"][f]
@@ -3136,7 +3378,8 @@ def sl_physics(iqmsl):
 def sl_single(dev, paths):
     """Phases 18b and 18d's one-card references: test_001 from phase 13's
     files with the semi-Lagrangian advection, the decoupled fields at
-    step 12 with iqmsl 0 and 1, and at step 24 with iqmsl 1."""
+    step SL_STEPS[0] with iqmsl 0 and 1, and at SL_STEPS[1] with iqmsl
+    1."""
     import torch
     ref = {}
     for q in (0, 1):
@@ -3153,10 +3396,10 @@ def sl_single(dev, paths):
 
 def sl_rank(rank, paths):
     """Phases 18b and 18d on one rank of a 2x2 group: test_001 with the
-    semi-Lagrangian advection, iqmsl 0 and 1, to step 12 (the whole
-    domain's decoupled fields on rank 0); with iqmsl 1 a SAV at step 12
-    (rank 0 writes it), the run on to step 24, and a fresh Model loaded
-    from the SAV run to step 24, held to it on every rank's block bit for
+    semi-Lagrangian advection, iqmsl 0 and 1, to step SL_STEPS[0] (the
+    whole domain's decoupled fields on rank 0); with iqmsl 1 a SAV at
+    that step (rank 0 writes it), the run on to step SL_STEPS[1], and a
+    fresh Model loaded from the SAV run to that step, held to it on every rank's block bit for
     bit; K5c's launches."""
     import torch
     import torch.distributed as dist
@@ -3667,19 +3910,30 @@ def run_chem_moloch(dev, smi, paths, mods):
     return dict(per_step_k1=launches["K1"] / CHEM_STEPS, nf=sorted(seen))
 
 
-def _chem_cpu_run(name, start, conf=None, seed=None):
+def _chem_cpu_run(name, conf=None, seed=None):
     """One of 19d's CPU runs (a spawned worker): the setting ``name`` at
-    CHEM_CPU_SHAPE from ``start``, perturbed with ``seed`` if given."""
-    import torch
+    CHEM_CPU_SHAPE from the port's own start, perturbed with ``seed`` if
+    given."""
     from tests import _torch_chem_settings as S
-    torch.set_num_threads(1)
     S.SHAPE = CHEM_CPU_SHAPE
+    start = S.port_start(name)
     if seed is not None:
         start = S.perturbed(name, start, seed)
     return S.port_run(name, start, conf=conf)
 
 
-def chem_card_vs_cpu(dev):
+def start_chem_cpu(submit, names):
+    """Submit 19d's CPU runs of the settings ``names`` (``submit``: a
+    pool's submit; each plain, with the saturation adjustment off, and
+    three seeds' spread runs)."""
+    return {name: dict(cpu=submit(_chem_cpu_run, name),
+                       cpu_dry=submit(_chem_cpu_run, name, 0.0),
+                       spread=[submit(_chem_cpu_run, name, seed=seed)
+                               for seed in range(3)])
+            for name in names}
+
+
+def chem_card_vs_cpu(dev, cpu=None):
     """Phase 19d: the CPU tests' chemistry settings (tests/
     _torch_chem_settings.py: the nine chemsimtypes on the hydrostatic
     core, AERO with E's physics, DUST with the direct effect and Grell's
@@ -3687,60 +3941,53 @@ def chem_card_vs_cpu(dev):
     against the CPU in f64, 3 steps, held as phase 16c holds its
     settings: the spread rule with three seeds (a hydrometeor past it at
     most at 1% of the points), the dynamical fields with the saturation
-    adjustment off to 1e-10. The CPU runs go to a pool of spawned
-    processes, one torch thread each, while the card's run here."""
-    import multiprocessing as mp
-    from concurrent.futures import ProcessPoolExecutor
+    adjustment off to 1e-10. ``cpu``: the futures of start_chem_cpu, or
+    None to run the CPU side here in a pool of its own."""
     from tests import _torch_chem_settings as S
     S.SHAPE = CHEM_CPU_SHAPE
     names = S.SIMS + ("dust_moloch",)
-    starts = {name: S.port_start(name) for name in names}
-    with ProcessPoolExecutor(min(8, os.cpu_count() or 1),
-                             mp_context=mp.get_context("spawn")) as pool:
-        cpu = {name: dict(
-            cpu=pool.submit(_chem_cpu_run, name, starts[name]),
-            cpu_dry=pool.submit(_chem_cpu_run, name, starts[name], 0.0),
-            spread=[pool.submit(_chem_cpu_run, name, starts[name],
-                                seed=seed) for seed in range(3)])
-            for name in names}
-        for name in names:
-            s0 = starts[name]
-            runs = {"gpu": S.port_run(name, s0, device=dev),
-                    "gpu_dry": S.port_run(name, s0, device=dev, conf=0.0),
-                    "cpu": cpu[name]["cpu"].result(),
-                    "cpu_dry": cpu[name]["cpu_dry"].result()}
-            spread = [f.result() for f in cpu[name]["spread"]]
-            for r in runs.values():
-                if not r["finite"]:
-                    raise AssertionError(f"19d {name}: non-finite")
-            worst, flips = (0.0, ""), {}
-            fields = runs["cpu"]["fields"]
-            for f, want in fields.items():
-                err = rel_rms(runs["gpu"]["fields"][f], want)
-                lim = max(1e-7, 4.0 * max(rel_rms(p["fields"][f], want)
-                                          for p in spread))
-                worst = max(worst, (err / lim, f))
-                if err < lim:
-                    continue
-                off = np.abs(runs["gpu"]["fields"][f] - want) \
-                    > 1e-7 * np.abs(want).max()
-                flips[f] = int(off.sum())
-                if f != "qc" or off.mean() > 0.01:
-                    raise AssertionError(f"19d {name}: card and CPU "
-                                         f"disagree on {f}: rel-RMS {err} "
-                                         f"(bound {lim})")
-            dyn = [f for f in ("ps", "t", "qv", "u", "v", "w") if f in fields]
-            dry = max((rel_rms(runs["gpu_dry"]["fields"][f],
-                               runs["cpu_dry"]["fields"][f]), f) for f in dyn)
-            print(f"19d {name}, 3 steps f64 16x20x14, card vs CPU: worst "
-                  f"field {worst[1]} at {worst[0]:.3f} of its bound"
-                  + (f"; points past 1e-7 by a branch flip {flips}" if flips
-                     else "") + f"; saturation adjustment off: worst "
-                  f"{dry[1]} rel-RMS {dry[0]:.3e} (bound 1e-10)")
-            if not dry[0] <= 1e-10:
-                raise AssertionError(f"19d {name}: card and CPU disagree "
-                                     f"with the adjustment off on {dry[1]}: "
-                                     f"{dry[0]}")
+    if cpu is None:
+        with cpu_pool() as pool:
+            return chem_card_vs_cpu(dev, start_chem_cpu(pool.submit,
+                                                        names))
+    for name in names:
+        s0 = S.port_start(name)
+        runs = {"gpu": S.port_run(name, s0, device=dev),
+                "gpu_dry": S.port_run(name, s0, device=dev, conf=0.0),
+                "cpu": cpu[name]["cpu"].result(),
+                "cpu_dry": cpu[name]["cpu_dry"].result()}
+        spread = [f.result() for f in cpu[name]["spread"]]
+        for r in runs.values():
+            if not r["finite"]:
+                raise AssertionError(f"19d {name}: non-finite")
+        worst, flips = (0.0, ""), {}
+        fields = runs["cpu"]["fields"]
+        for f, want in fields.items():
+            err = rel_rms(runs["gpu"]["fields"][f], want)
+            lim = max(1e-7, 4.0 * max(rel_rms(p["fields"][f], want)
+                                      for p in spread))
+            worst = max(worst, (err / lim, f))
+            if err < lim:
+                continue
+            off = np.abs(runs["gpu"]["fields"][f] - want) \
+                > 1e-7 * np.abs(want).max()
+            flips[f] = int(off.sum())
+            if f != "qc" or off.mean() > 0.01:
+                raise AssertionError(f"19d {name}: card and CPU "
+                                     f"disagree on {f}: rel-RMS {err} "
+                                     f"(bound {lim})")
+        dyn = [f for f in ("ps", "t", "qv", "u", "v", "w") if f in fields]
+        dry = max((rel_rms(runs["gpu_dry"]["fields"][f],
+                           runs["cpu_dry"]["fields"][f]), f) for f in dyn)
+        print(f"19d {name}, 3 steps f64 16x20x14, card vs CPU: worst "
+              f"field {worst[1]} at {worst[0]:.3f} of its bound"
+              + (f"; points past 1e-7 by a branch flip {flips}" if flips
+                 else "") + f"; saturation adjustment off: worst "
+              f"{dry[1]} rel-RMS {dry[0]:.3e} (bound 1e-10)")
+        if not dry[0] <= 1e-10:
+            raise AssertionError(f"19d {name}: card and CPU disagree "
+                                 f"with the adjustment off on {dry[1]}: "
+                                 f"{dry[0]}")
 
 
 def chem_single(dev, paths):
@@ -3811,7 +4058,618 @@ def check_chem_decomposed(res, backend, e19):
 
 
 
-def main():
+
+# -- phase 20: the gas-phase chemistry ---------------------------------------
+def write_chbc(cfg, grid, path, sim):
+    """A CHBC file (the port's chem_icbc climatology) of chemsimtype
+    ``sim`` on ``grid``, over the first F_CHBC_HOURS of ``cfg``'s ICBC
+    window (two records a run of a few steps reads)."""
+    import copy
+    from regcm_tpu_torch.preproc.chem_icbc import generate_chem_icbc
+    c = copy.deepcopy(cfg)
+    c.chem.chemsimtype = sim
+    c.globdat.gdate2 = c.globdat.gdate1 + F_CHBC_HOURS
+    return generate_chem_icbc(c, path, xlat=np.asarray(grid.xlat))
+
+
+def write_gas_files(directory):
+    """Phase 20's CHBC files: DCCB on D's band grid (F), CBMZ and CB6 on
+    test_001's grid (20b, 20d), beside the DOMAIN and ICBC files of
+    phases 13 and 17."""
+    from regcm_tpu_torch.core.grid import build_grid
+    paths = {}
+    band = build_grid(band_cfg())
+    paths["chbc_F"] = write_chbc(band_cfg(), band,
+                                 os.path.join(directory, "F_CHBC.nc"), F_SIM)
+    hgrid = build_grid(hydro_icbc_cfg())
+    for sim in ("CBMZ", "CB6"):
+        paths[f"chbc_{sim}"] = write_chbc(
+            hydro_icbc_cfg(), hgrid,
+            os.path.join(directory, f"test_001_{sim}_CHBC.nc"), sim)
+    return paths
+
+
+def chbc_start(model, reader):
+    """The tracers of ``model`` (both time levels) set to the CHBC record
+    at its date (the rank's block under a mesh), coupled to p*."""
+    rec, _ = reader.record_at(model.date)
+    chi = model._block(model._host(rec)) * model.state.ps_a[None, None]
+    model.state = model.state._replace(chi_a=chi, chi_b=chi.clone())
+    return model
+
+
+def gas_model(paths, device, sim, mesh=None, dtype=None, files="test_001",
+              physics=None):
+    """A chemistry model from the DOMAIN and ICBC files of phase 17
+    (``files="band"``: configuration F, D's physics with ``sim``, started
+    moistened as E) or of phase 13 (test_001's widths, with ``physics``),
+    the land desert, a westerly added; with a CHBC file for ``sim`` where
+    phase 20 wrote one (``set_chem_bc``; the tracers start from its
+    record, NH3 seeded for the SNA aerosol), else AERO's carbon and
+    sulfur seeded."""
+    import torch
+    from regcm_tpu_torch.driver import Model
+    from regcm_tpu_torch.preproc.chem_icbc import CHBCReader
+    from regcm_tpu_torch.preproc.icbc import ICBCReader
+    from regcm_tpu_torch.preproc.terrain import build_grid_from_domain
+    if files == "band":
+        cfg, dom, icbc = band_cfg(), paths["band_domain"], paths["band"]
+    else:
+        cfg = with_physics(hydro_icbc_cfg(), physics or {})
+        dom, icbc = paths["domain"], paths["hydro"]
+    cfg = chem_setup(cfg, sim)
+    cfg.tiedtke.lmfsmooth = True
+    grid = desert(build_grid_from_domain(cfg, dom))
+    m = Model(cfg, grid=grid, device=device, dtype=dtype or torch.float32,
+              mesh=mesh)
+    m.init_from_icbc(ICBCReader(icbc, cfg.globdat.calendar))
+    if files == "band":
+        # D's state after F_SPINUP steps of E's start, the tracers F's own
+        spun = f_spinup(paths, device, mesh)
+        chem = ("chi_a", "chi_b", "chemdiag")
+        m.state = m.state._replace(**{
+            k: getattr(spun, k).to(getattr(m.state, k).dtype)
+            for k in m.state._fields
+            if k not in chem and getattr(m.state, k) is not None})
+    else:
+        m = westerly(m)
+        if 5 in (cfg.physics.icup_lnd, cfg.physics.icup_ocn):
+            m.state = moisten(m.state, m.idynamic, E_QVFAC)
+    key = f"chbc_{'F' if files == 'band' else sim}"
+    if key in paths:
+        reader = CHBCReader(paths[key], cfg.globdat.calendar)
+        m.set_chem_bc(reader)
+        m = chbc_start(m, reader)
+        names = m.core.physics.chem.spec.names
+        for name, peak in F_SEEDED.items():
+            if name in names:
+                m = seed_tracers(m, [names.index(name)], peak)
+    else:
+        m = seed_tracers(m, E_SEEDED)
+    return m
+
+
+def f_spinup(paths, device, mesh=None):
+    """F's warm start: the state of D's physics after F_SPINUP steps from
+    E's start (phase 17's files, the westerly, qv E_QVFAC times the
+    files'), without the chemistry; from the cold start Emanuel's columns
+    convect first at its third call, step 4."""
+    m = band_model(paths, device, mesh)
+    m = westerly(m)
+    m.state = moisten(m.state, m.idynamic, E_QVFAC)
+    m.run_icbc(F_SPINUP)
+    state = m.state
+    del m
+    return state
+
+
+class TimedGas:
+    """A gas-phase driver (``ChemTend.cbmz``) whose calls are timed,
+    synchronised around each."""
+
+    def __init__(self, drv):
+        self.drv, self.ms = drv, []
+
+    def __call__(self, *args):
+        import torch
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = self.drv(*args)
+        torch.cuda.synchronize()
+        self.ms.append(1e3 * (time.time() - t0))
+        return out
+
+
+def tracer_of(model, name):
+    """Tracer ``name``'s mixing ratio (kg/kg) of the whole domain."""
+    s = model.state
+    n = model.core.physics.chem.spec.names.index(name)
+    chi = s.chi_b[n] if model.idynamic == 3 else s.chi_a[n] / s.ps_a[None]
+    if model.mesh is not None:
+        chi = model.mesh.gather(chi)
+    return chi.double().cpu().numpy()
+
+
+def gas_stats(drv, timed, what, smi):
+    """Print and return the gas solver's ms, Ros2 iterations and host syncs
+    a call."""
+    from regcm_tpu_torch.chem import kinetics
+    st, n = drv.stats, max(len(timed.ms), 1)
+    out = dict(calls=len(timed.ms), ms=sum(timed.ms) / n,
+               iterations=st.get("iterations", 0) / n,
+               syncs=st.get("syncs", 0) / n,
+               solves=st.get("solves", 0) / n)
+    print(f"{what} gas solver: {out['calls']} calls, {out['ms']:.1f} ms a "
+          f"call, {out['iterations']:.1f} Ros2 iterations, "
+          f"{out['syncs']:.1f} host syncs and {out['solves']:.1f} solves "
+          f"of {kinetics.CUDA_CHUNK}-cell chunks a call (synchronised, on "
+          f"{smi})")
+    return out
+
+
+def run_chem_f(dev, smi, paths, mods):
+    """Phase 20a: configuration F (E plus the gas phase: DCCB) at full
+    width from phase 17's files and its CHBC file for F_STEPS steps: the
+    launches (K1 twice a step, K2's tracer form on the cumulus steps, K6 a
+    factorisation and a solve each Ros2 iteration), the ms of each step
+    class and of the gas solver a call, its iterations and host syncs, the
+    peak memory; ozone moves, the SNA aerosol forms, the boundary holds
+    the CHBC records; then K1 (ns = ntr), K2's tracer form (ntr = 50) and
+    K6 against their plain versions on F's own operands, recorded in the
+    main path's run, and timed."""
+    import torch
+    from regcm_tpu_torch.chem import kinetics
+    from regcm_tpu_torch.kernels import emanuel_mixing as k2
+    from regcm_tpu_torch.kernels import gas_lu as k6
+    from regcm_tpu_torch.physics.cumulus import emanuel
+    from regcm_tpu_torch.physics.pbl import holtslag
+    t0 = time.time()
+    model = gas_model(paths, dev, F_SIM, files="band")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    g = model.grid
+    shape = f"{g.jx}x{g.iy}x{g.kz}"
+    ntr = model.core.ntr
+    chem = model.core.physics.chem
+    timed = TimedGas(chem.cbmz)
+    chem.cbmz = timed
+    print(f"20a. configuration F = E plus the gas phase ({F_SIM}: {ntr} "
+          f"tracers), the tropical band at {shape} (ds {model.cfg.geo.ds} "
+          f"km, dt {model.cfg.dtsec} s, f32, from ICBC moistened, the "
+          f"tracers from the CHBC record, NH3 seeded; set-up "
+          f"{time.time() - t0:.1f} s)")
+    o3_0, anh4_0, ano3_0 = (tracer_of(model, n)
+                            for n in ("O3", "ANH4", "ANO3"))
+    chb0 = model.bdy.chi0
+    seen = {}
+    k1f, k2f, k6f = holtslag.pbl_tridiag, emanuel.emanuel_mixing, \
+        kinetics.lu_factor_solve
+
+    def k1_rec(*args):
+        if args[3].shape[0] == ntr:
+            seen.setdefault("K1", [a.clone() for a in args])
+        return k1f(*args)
+
+    def k2_rec(*args, **kw):
+        if kw.get("tra") is not None:       # the last cumulus step's
+            seen["K2"] = ([a.clone() for a in args],
+                          {k: v.clone() for k, v in kw.items()})
+        return k2f(*args, **kw)
+
+    def k6_rec(p, b):
+        seen["K6_calls"] = seen.get("K6_calls", 0) + 1
+        if seen["K6_calls"] == F_K6_CALL:
+            seen["K6"] = (p.clone(), b.clone())
+        return k6f(p, b)
+
+    holtslag.pbl_tridiag, emanuel.emanuel_mixing = k1_rec, k2_rec
+    kinetics.lu_factor_solve = k6_rec
+    try:
+        reset(mods)
+        k2.launches_tracers = k6.launches = k6.launches_solve = 0
+        rows, _ = timed_steps(model, F_STEPS)
+        launches = read(mods)
+        launches.update(K2_tracers=k2.launches_tracers, K6a=k6.launches,
+                        K6b=k6.launches_solve)
+    finally:
+        holtslag.pbl_tridiag, emanuel.emanuel_mixing = k1f, k2f
+        kinetics.lu_factor_solve = k6f
+    ncum = sum(1 for row in rows if row[3])
+    print(f"20a path: {F_STEPS} steps, launches {launches} ({ncum} cumulus "
+          f"steps)")
+    if not model.check_finite():
+        raise AssertionError("20a: non-finite state")
+    if launches["K1"] != 2 * F_STEPS or launches["K2_tracers"] != ncum \
+            or ncum == 0 or launches["K6a"] <= 0 \
+            or launches["K6b"] != launches["K6a"]:
+        raise AssertionError(f"20a bypassed K1's tracer solve, K2's tracer "
+                             f"form or K6: {launches}")
+    ms = class_ms(rows, "20a", smi, shape, first=0)
+    gas = gas_stats(timed.drv, timed, "20a", smi)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    print(f"20a peak device memory {peak:.2f} GiB on {smi}")
+    o3, anh4, ano3 = (tracer_of(model, n) for n in ("O3", "ANH4", "ANO3"))
+    do3 = float(np.max(np.abs(o3 / np.maximum(o3_0, 1e-30) - 1.0)))
+    form = {"ANH4": float((anh4 - anh4_0).max()),
+            "ANO3": float((ano3 - ano3_0).max())}
+    print(f"20a step {F_STEPS}: O3 moved by up to {100 * do3:.2f}% of "
+          f"itself; the SNA aerosol formed by up to {form} kg/kg (ANH4 "
+          f"{anh4_0.sum():.4e} -> {anh4.sum():.4e}, ANO3 {ano3_0.sum():.4e} "
+          f"-> {ano3.sum():.4e} kg/kg summed over the grid)")
+    if not (do3 > 0.01 and min(form.values()) > 0.0):
+        raise AssertionError("20a: ozone did not move or the SNA aerosol "
+                             "did not form")
+    # the lateral boundary: the band's northern ring row holds the CHBC
+    # records, not clean air (zero); row 0, the southern ring and flow
+    # edge, takes 0 where air flows in and the interior's where it flows
+    # out (chibdyflow, as the JAX package's)
+    io3 = chem.spec.names.index("O3")
+    want = (chb0[io3] / model.bdy.ps0[None]).double().cpu().numpy()[:, -1]
+    held = np.abs(o3[:, -1] - want) <= 1e-3 * np.abs(want)
+    print(f"20a the northern ring's O3: {100 * held.mean():.1f}% of its "
+          f"points hold the CHBC records (mean {want.mean():.4e} kg/kg; "
+          f"clean air would be 0); the southern flow edge's mean "
+          f"{o3[:, 0].mean():.4e} kg/kg")
+    if not (want.mean() > 0.0 and held.mean() > 0.99):
+        raise AssertionError("20a: the boundary does not hold the CHBC "
+                             "records")
+    nconv = int((seen["K2"][0][9] > 0.0).any(dim=1).sum())
+    print(f"20a K2: {nconv} of {seen['K2'][0][0].shape[0]} columns of F's "
+          f"last cumulus step with a mass flux")
+    if nconv == 0:
+        raise AssertionError("20a: F's last cumulus step has no convecting "
+                             "column, so K2's tracer form would be held on "
+                             "zeros")
+    operands = check_f_operands(seen, mods)
+    del model, seen
+    torch.cuda.empty_cache()
+    return dict(ms=ms, gas=gas, peak_gib=peak, launches=launches,
+                per_step=dict(K1=launches["K1"] / F_STEPS,
+                              K2=launches["K2_tracers"] / ncum),
+                operands=operands)
+
+
+def k6_bound(shape, b):
+    """K6's bound: the factorisation and its first solve read P and b and
+    write the LU, the pivots and x (2 N² + 3 N values a cell); about
+    2/3 N³ operations for the elimination (N(N−1)/2 quotients and
+    N(N−1)(2N−1)/3 products and differences) and 2 N² for the two
+    triangular sweeps. The second solve reads the LU, the pivots and b and
+    writes x (N² + 3 N values, 2 N² operations)."""
+    ncell, n = shape
+    lu_ops = n * (n - 1) / 2 + n * (n - 1) * (2 * n - 1) / 3
+    out = {}
+    for k, byt, ops in (("K6a", (2 * n * n + 3 * n) * b, lu_ops + 2 * n * n),
+                        ("K6b", (n * n + 3 * n) * b, 2 * n * n)):
+        t_b, t_o = ncell * byt / HBM_BYTES_PER_S, ncell * ops / F32_FLOPS
+        out[k] = (1e3 * max(t_b, t_o), "bytes" if t_b >= t_o
+                  else "operations", ncell * byt, ncell * ops)
+    return out
+
+
+def check_f_operands(seen, mods):
+    """20a's kernels on F's own operands, recorded in its run: K1's tracer
+    call (ns = ntr) and K2's tracer form against their plain versions in
+    f32 (1e-5) and f64 (1e-12; K2's eight terms at their 1e-10), and K6
+    (the F_K6_CALL-th factorisation, one chunk's stage matrices) and its
+    second solve against the plain torch.linalg.lu_factor/lu_solve, f32
+    at 1e-5 and f64 at 1e-12 of the solution's scale; each timed in f32
+    with its device time beside its bound."""
+    import torch
+    from regcm_tpu_torch.kernels import gas_lu as k6
+    out = {}
+    for k in ("K1", "K2"):
+        mod = mods[k]
+        args, kw = (seen[k], {}) if k == "K1" else seen[k]
+        kern, plain = getattr(mod, NAMES[k]), getattr(mod, NAMES[k] + "_plain")
+        for dtype in (torch.float32, torch.float64):
+            cast = lambda a: a.to(dtype) if a.is_floating_point() else a
+            a_ = [cast(a) for a in args]
+            kw_ = {n: cast(v) for n, v in kw.items()}
+            got = kern(*a_, **kw_)
+            counts = {}
+            want = plain(*a_, counts=counts, **kw_) if k == "K2" \
+                else plain(*a_)
+            torch.cuda.synchronize()
+            tol = 1e-5 if dtype == torch.float32 else 1e-12
+            if k == "K2":
+                rel, ab = rel_err(got["sum_tra"], want["sum_tra"])
+                rel8 = max(rel_err(got[key], want[key])[0]
+                           for key in mod.KEYS)
+                if not rel8 <= max(tol, TOL[str(dtype).split(".")[-1]]["K2"]):
+                    raise AssertionError(f"20a: K2's eight terms disagree "
+                                         f"in the tracer form: {rel8}")
+                shape = tuple(kw["tra"].shape)
+            else:
+                rel, ab = rel_err(got, want)
+                shape = tuple(args[3].shape)
+            big = float((want["sum_tra"] if k == "K2" else want).abs().max())
+            print(f"20a {k} tracer call on F's operands {shape} ({dtype}): "
+                  f"max rel err {rel:.3e} (max abs {ab:.3e}, largest "
+                  f"output {big:.3e}, tol {tol:g})")
+            if not big > 0.0:
+                raise AssertionError(f"20a: {k} held on zeros")
+            if not rel <= tol:
+                raise AssertionError(f"20a: {k}'s tracer call disagrees with "
+                                     f"its plain version: {rel}")
+            if dtype == torch.float32:
+                b_ms, b_by, byt, ops = tracer_bound(k, shape, 4, counts)
+                out[k] = dict(
+                    shape=list(shape), max_abs_err=ab, max_rel_err=rel,
+                    ms=time_ms(lambda: kern(*a_, **kw_), D_REPS),
+                    device_ms=device_ms(lambda: kern(*a_, **kw_), KERNELS[k],
+                                        reps=D_REPS),
+                    plain_ms=time_ms(lambda: plain(*a_, **kw_), D_REPS),
+                    bound_ms=b_ms, bound_by=b_by, bytes=byt, ops=ops)
+                print(f"20a {k} tracer call on F's operands f32: kernel "
+                      f"{out[k]['ms']:.4f} ms (device "
+                      f"{out[k]['device_ms']:.4f} ms), plain "
+                      f"{out[k]['plain_ms']:.4f} ms, bound {b_ms:.4f} ms "
+                      f"({b_by}: {byt / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP)")
+    p32, b32 = seen["K6"]
+    rng = np.random.default_rng(20)
+    for dtype in (torch.float32, torch.float64):
+        p, b = p32.to(dtype), b32.to(dtype)
+        b2 = b * torch.as_tensor(rng.uniform(0.5, 1.5, tuple(b.shape)),
+                                 dtype=dtype, device=b.device)
+        lu_w, piv_w, x_w = k6.lu_factor_solve_plain(p, b)
+        y_w = k6.lu_solve_plain(lu_w, piv_w, b2)
+        lu, piv, x = k6.lu_factor_solve(p.clone(), b)
+        y = k6.lu_solve(lu, piv, b2)
+        torch.cuda.synchronize()
+        tol = 1e-5 if dtype == torch.float32 else 1e-12
+        rel = max(rel_err(x, x_w)[0], rel_err(y, y_w)[0])
+        same = bool(torch.equal(piv.long() + 1, piv_w.long()))
+        print(f"20a K6 on F's stage matrices {tuple(p.shape)} ({dtype}): "
+              f"max rel err of the solves {rel:.3e} (tol {tol:g}), the "
+              f"plain version's pivots {'kept' if same else 'NOT kept'}")
+        if not rel <= tol:
+            raise AssertionError(f"20a: K6 disagrees with its plain version: "
+                                 f"{rel}")
+        if dtype == torch.float32:
+            bnd = k6_bound(tuple(b.shape), 4)
+            pc = p.clone()
+            for k, fn, kern_names, pl in (
+                    ("K6a", lambda: k6.lu_factor_solve(pc, b),
+                     ("lu_factor_solve_kernel",),
+                     lambda: k6.lu_factor_solve_plain(p, b)),
+                    ("K6b", lambda: k6.lu_solve(lu, piv, b2),
+                     ("lu_solve_kernel",),
+                     lambda: k6.lu_solve_plain(lu_w, piv_w, b2))):
+                b_ms, b_by, byt, ops = bnd[k]
+                st = dict(shape=list(p.shape), max_abs_err=max(
+                    rel_err(x, x_w)[1], rel_err(y, y_w)[1]),
+                    max_rel_err=rel, ms=time_ms(fn, D_REPS),
+                    device_ms=device_ms(fn, kern_names, reps=D_REPS),
+                    plain_ms=time_ms(pl, D_REPS), bound_ms=b_ms,
+                    bound_by=b_by, bytes=byt, ops=ops)
+                st["library_ms"] = st["plain_ms"]
+                out[k] = st
+                print(f"20a {k} on F's stage matrices f32: kernel "
+                      f"{st['ms']:.4f} ms (device {st['device_ms']:.4f} ms), "
+                      f"plain (torch.linalg) {st['plain_ms']:.4f} ms, bound "
+                      f"{b_ms:.4f} ms ({b_by}: {byt / 1e6:.1f} MB, "
+                      f"{ops / 1e9:.3f} GFLOP)")
+    return out
+
+
+def run_gas_settings(dev, smi, paths, mods):
+    """Phase 20b: at test_001's widths from phase 13's files, GAS_STEPS
+    steps each: AERO under Tiedtke over both surfaces with lmfsmooth and
+    ichcumtra=1 (ctracer on the cumulus steps; K1 twice a step), CBMZ and
+    CB6 with their CHBC files (K6 every step)."""
+    import torch
+    from regcm_tpu_torch.kernels import gas_lu as k6
+    from regcm_tpu_torch.physics import suite
+    for label, sim, physics in (("Tiedtke + AERO", "AERO", GAS_TIEDTKE),
+                                ("CBMZ", "CBMZ", {}), ("CB6", "CB6", {})):
+        model = gas_model(paths, dev, sim, physics=physics)
+        chem = model.core.physics.chem
+        timed = None
+        if chem.cbmz is not None:
+            timed = TimedGas(chem.cbmz)
+            chem.cbmz = timed
+        ct = []
+        ctf = suite.ctracer
+
+        def ct_rec(*args):
+            ct.append(int(args[1].ct_ldcum.sum()))
+            return ctf(*args)
+        suite.ctracer = ct_rec
+        try:
+            reset(mods)
+            k6.launches = 0
+            t0 = time.time()
+            model.run_icbc(GAS_STEPS)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            launches = read(mods)
+        finally:
+            suite.ctracer = ctf
+        launches["K6a"] = k6.launches
+        print(f"20b. {label} on test_001 ({model.grid.jx}x{model.grid.iy}x"
+              f"{model.grid.kz}, f32, from ICBC): {GAS_STEPS} steps in "
+              f"{wall:.2f} s, launches {launches}"
+              + (f"; ctracer on {len(ct)} cumulus steps, {ct} columns "
+                 f"transporting" if ct else ""))
+        if not model.check_finite():
+            raise AssertionError(f"20b {label}: non-finite state")
+        if launches["K1"] != 2 * GAS_STEPS:
+            raise AssertionError(f"20b {label}: the tracers' K1 solve was "
+                                 f"bypassed: {launches}")
+        if sim == "AERO" and not (ct and max(ct) > 0):
+            raise AssertionError("20b: Tiedtke's ctracer moved no column")
+        if timed is not None:
+            gas_stats(timed.drv, timed, f"20b {label}", smi)
+            o3 = "OZN" if sim == "CB6" else "O3"
+            if launches["K6a"] <= 0 or model.bdy.chi0 is None:
+                raise AssertionError(f"20b {label}: K6 or the CHBC pair "
+                                     f"missing: {launches}")
+            print(f"20b {label}: {o3} max {tracer_of(model, o3).max():.4e} "
+                  f"kg/kg")
+        del model
+        torch.cuda.empty_cache()
+
+
+def _gas_cpu_run(name, conf=None, seed=None):
+    """One of 20c's CPU runs (a spawned worker): the setting ``name`` of
+    the CPU tests from the port's own start, perturbed with ``seed`` if
+    given."""
+    S = gas_settings()
+    start = S.port_start(name)
+    if seed is not None:
+        start = S.perturbed(name, start, seed)
+    return S.port_run(name, start, conf=conf)
+
+
+def start_gas_cpu(submit):
+    """Submit 20c's CPU runs (``submit``: a pool's submit; each setting
+    plain, with the saturation adjustment off, and three seeds' spread
+    runs)."""
+    from tests import _torch_chem_settings as S
+    return {name: dict(cpu=submit(_gas_cpu_run, name),
+                       cpu_dry=submit(_gas_cpu_run, name, 0.0),
+                       spread=[submit(_gas_cpu_run, name, seed=seed)
+                               for seed in range(3)])
+            for name in S.GAS}
+
+
+def gas_card_vs_cpu(dev, cpu):
+    """Phase 20c: the CPU tests' gas-phase settings (tests/
+    _torch_chem_settings.py: CBMZ and CB6, DCCB with F's physics, AERO
+    under Tiedtke with lmfsmooth, CBMZ on MOLOCH) at GAS_CPU_SHAPE on the card
+    against the CPU in f64, 3 steps: the spread rule with three seeds,
+    the dynamical fields with the saturation adjustment off to
+    1e-10. The CPU runs (``cpu``, from start_gas_cpu) ran in a pool of
+    spawned processes while the card ran the phases before."""
+    S = gas_settings()
+    for name in S.GAS:
+        s0 = S.port_start(name)
+        runs = {"gpu": S.port_run(name, s0, device=dev),
+                "gpu_dry": S.port_run(name, s0, device=dev, conf=0.0),
+                "cpu": cpu[name]["cpu"].result(),
+                "cpu_dry": cpu[name]["cpu_dry"].result()}
+        spread = [f.result() for f in cpu[name]["spread"]]
+        for r in runs.values():
+            if not r["finite"]:
+                raise AssertionError(f"20c {name}: non-finite")
+        worst = (0.0, "")
+        fields = runs["cpu"]["fields"]
+        for f, want in fields.items():
+            got = runs["gpu"]["fields"][f]
+            if not want.any():
+                # zero on the CPU (the MOLOCH setting's large-scale rain):
+                # the card's roundoff-sized values (2e-22 mm) pass
+                if np.abs(got).max() > S.ZERO_FLOOR:
+                    raise AssertionError(f"20c {name}: {f} is zero on the "
+                                         f"CPU, up to {np.abs(got).max()} "
+                                         f"on the card")
+                continue
+            err = rel_rms(got, want)
+            lim = max(1e-7, 4.0 * max(rel_rms(p["fields"][f], want)
+                                      for p in spread))
+            worst = max(worst, (err / lim, f))
+            if not err < lim:
+                raise AssertionError(f"20c {name}: card and CPU disagree on "
+                                     f"{f}: rel-RMS {err} (bound {lim})")
+        dyn = [f for f in ("ps", "t", "qv", "u", "v", "w") if f in fields]
+        dry = max((rel_rms(runs["gpu_dry"]["fields"][f],
+                           runs["cpu_dry"]["fields"][f]), f) for f in dyn)
+        print(f"20c {name}, 3 steps f64 "
+              f"{S.SETTINGS[name].get('shape', S.SHAPE)}, card vs "
+              f"CPU: worst field {worst[1]} at {worst[0]:.3f} of its bound"
+              f"; saturation adjustment off: worst {dry[1]} "
+              f"rel-RMS {dry[0]:.3e} (bound 1e-10)")
+        if not dry[0] <= 1e-10:
+            raise AssertionError(f"20c {name}: card and CPU disagree with "
+                                 f"the adjustment off on {dry[1]}: {dry[0]}")
+
+
+def gas_single(dev, paths):
+    """20d's single-card reference: CBMZ on test_001's widths from phase
+    13's files with its CHBC file, GAS_CHECK steps, the whole domain's
+    fields."""
+    import torch
+    model = gas_model(paths, dev, "CBMZ")
+    model.run_icbc(GAS_CHECK)
+    out = chem_fields(model)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def gas_rank(rank, paths):
+    """Phase 20d on one rank of the 2x2 group: CBMZ on test_001's widths
+    for GAS_CHECK steps (counters and halo tallies reset just before, read
+    just after); the whole domain's fields (on rank 0)."""
+    import torch
+    from regcm_tpu_torch.kernels import gas_lu as k6
+    from regcm_tpu_torch.kernels import pbl_tridiag as k1
+    from regcm_tpu_torch.parallel import halo
+    model = gas_model(paths, rank.device, "CBMZ", mesh=rank.mesh(34, 48))
+    k1.launches = k1.launches_sharded = k6.launches = 0
+    halo.exchanges = halo.bytes_sent = 0
+    model.run_icbc(GAS_CHECK)
+    out = dict(launches=dict(K1=k1.launches, K5c=k1.launches_sharded,
+                             K6a=k6.launches),
+               finite=model.check_finite(),
+               exchanges_per_step=halo.exchanges / GAS_CHECK,
+               bytes_per_step=halo.bytes_sent / GAS_CHECK)
+    dec = chem_fields(model)
+    out["dec"] = dec if rank.rank == 0 else None
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_gas_decomposed(res, backend, g20):
+    """20d's checks of the 2x2 group's CBMZ run against one card: every
+    field bit for bit at GAS_CHECK, K5c twice a step, K6 on every rank."""
+    for r, out in enumerate(res):
+        h = out["gas"]
+        print(f"  rank {r} CBMZ on test_001's widths: launches "
+              f"{h['launches']}, {h['exchanges_per_step']:.1f} halo "
+              f"exchanges and {h['bytes_per_step'] / 1e6:.3f} MB sent a step")
+        if not h["finite"]:
+            raise AssertionError(f"rank {r}: non-finite decomposed CBMZ")
+        lau = h["launches"]
+        if lau["K5c"] != 2 * GAS_CHECK or lau["K1"] != 0 or lau["K6a"] <= 0:
+            raise AssertionError(f"rank {r} ({backend}): the decomposed gas "
+                                 f"phase bypassed K5c or K6: {lau}")
+    dec = res[0]["gas"]["dec"]
+    for f, want in g20.items():
+        same = np.array_equal(dec[f], want)
+        print(f"  CBMZ f32 34x48x18 step {GAS_CHECK}, {backend} 2x2 vs one "
+              f"card (20d), {f}: {'bit-identical' if same else 'DIFFERENT'}"
+              f", rel-RMS {rel_rms(dec[f], want):.3e}")
+        if not same:
+            raise AssertionError(f"decomposed CBMZ ({backend}) differs from "
+                                 f"one card in {f}")
+
+
+def run_gas_phase(dev, smi, paths, mods, directory, cpu=None):
+    """Phases 20a-c and 20d's single-card reference; ``cpu``: the futures
+    of start_gas_cpu, or None to run 20c's CPU side in a pool of its own
+    from the phase's start."""
+    if cpu is None:
+        with cpu_pool() as pool:
+            return run_gas_phase(dev, smi, paths, mods, directory,
+                                 start_gas_cpu(pool.submit))
+    t20 = time.time()
+    paths.update(write_gas_files(directory))
+    print(f"20: CHBC files written in {time.time() - t20:.1f} s")
+    f20 = run_chem_f(dev, smi, paths, mods)
+    stamp("20b")
+    run_gas_settings(dev, smi, paths, mods)
+    stamp("20c")
+    gas_card_vs_cpu(dev, cpu)
+    g20 = gas_single(dev, paths)
+    print(f"phase 20a-c took {time.time() - t20:.1f} s")
+    return f20, g20
+
+
+def run(pools):
+    """The phases; the CPU pool it starts goes into ``pools``."""
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -3832,7 +4690,9 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     mods = {"K1": k1, "K2": k2, "K3": k3, "K4": k4}
-    t_all = time.time()
+    t_all = _T0[0] = time.time()
+    pools.append(cpu_pool())
+    cpu = start_cpu_refs(pools[0])
 
     # -- 1. card and versions
     smi = nvidia_smi_line()
@@ -3844,9 +4704,11 @@ def main():
     # -- 2. build: one nvcc per source, all at once (nvcc runs in a
     # subprocess, so the threads overlap)
     from concurrent.futures import ThreadPoolExecutor
+    from regcm_tpu_torch.kernels import gas_lu as k6
     t0 = time.time()
-    with ThreadPoolExecutor(len(mods)) as ex:
-        for fut in [ex.submit(m.build) for m in mods.values()]:
+    builds = list(mods.values()) + [k6]
+    with ThreadPoolExecutor(len(builds)) as ex:
+        for fut in [ex.submit(m.build) for m in builds]:
             fut.result()
     print(f"kernels built in {time.time() - t0:.1f} s")
 
@@ -3855,6 +4717,7 @@ def main():
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
 
+    stamp('4. hydrostatic path')
     # -- 4. hydrostatic path: test_001 full physics, f32, 24 steps
     cfg = RegCMConfig()
     grid = build_grid(cfg)
@@ -3882,29 +4745,16 @@ def main():
           f"synchronised): {1000.0 * wall / STEPS:.3f} on {smi}")
     del model, s0
 
+    stamp('5. hydrostatic card against CPU')
     # -- 5. hydrostatic card against CPU, f64, 10 steps. From the rest
     # state the saturation adjustment amplifies roundoff (a 1e-15 change
     # of T moves u, v by ~5e-7), so the default run is held to four times
     # that measured spread; with the adjustment off (subexparam conf=0)
     # the trajectory is well conditioned and held to 1e-7.
-    s0 = standard_atmosphere_state(grid, cfg, device="cpu",
-                                   dtype=torch.float64, perturb=0.3, seed=1)
-    rng = np.random.default_rng(0)
-    s1 = s0._replace(t_a=s0.t_a * (1.0 + 1e-15 * torch.as_tensor(
-        rng.standard_normal(tuple(s0.t_a.shape)))))
-    dry = RegCMConfig()
-    dry.subex.conf = 0.0
-    runs = {}
-    for name, conf, device, init in (
-            ("gpu", cfg, dev, s0), ("cpu", cfg, "cpu", s0),
-            ("cpu_perturbed", cfg, "cpu", s1),
-            ("gpu_dry", dry, dev, s0), ("cpu_dry", dry, "cpu", s0)):
-        m = Model(conf, grid=grid, device=device, dtype=torch.float64,
-                  initial_state=init)
-        m.run(CHECK_STEPS)
-        runs[name] = m.decoupled()
-    card_vs_cpu(runs, ("ps", "t", "qv", "u", "v"), "hydrostatic")
+    check_run_vs_cpu(dev, hydro_check_run, cpu["5"],
+                     ("ps", "t", "qv", "u", "v"), "hydrostatic")
 
+    stamp('6. MOLOCH path')
     # -- 6. MOLOCH path: the flagship 3 km domain, f32, 24 steps
     mcfg = RegCMConfig()
     mcfg.core.idynamic = 3
@@ -3974,17 +4824,10 @@ def main():
     print(f"MOLOCH step {model.nstep}: ps {d['ps'].min():.3f}.."
           f"{d['ps'].max():.3f} hPa, wmax {np.abs(d['w']).max():.4f} m/s, "
           f"T {d['t'].min():.3f}..{d['t'].max():.3f} K")
-    # report only: where this state goes non-finite, as the reference's
-    # does (tests/test_torch_moloch_3km_long.py), within two cycles
-    while model.nstep < 2 * RAD_STEP and model.check_finite():
-        model.run(1)
-    print(f"MOLOCH 192x192x41 f32 from this state: "
-          + (f"non-finite after step {model.nstep}"
-             if not model.check_finite()
-             else f"finite through step {model.nstep}"))
     del model, d
     torch.cuda.empty_cache()
 
+    stamp('6b. the same settings')
     # -- 6b. the same settings on a 48x48 cut, held to the JAX package's
     # numbers in this regime (tests/test_torch_moloch_3km.py)
     rcfg = RegCMConfig()
@@ -4015,39 +4858,19 @@ def main():
                                      f"the reference: {got}")
     del model
 
+    stamp('7. MOLOCH card against CPU')
     # -- 7. MOLOCH card against CPU, f64, 16x20x14 over an ~800 m hill,
     # 10 steps, held as the hydrostatic path is
-    scfg, sdry = RegCMConfig(), RegCMConfig()
-    for c_ in (scfg, sdry):
-        c_.core.idynamic = 3
-        c_.dim.iy, c_.dim.jx, c_.dim.kz = 16, 20, 14
-        c_.geo.ds = 10.0
-        c_.time.dt = 60.0
-    sdry.subex.conf = 0.0
-    sgrid = build_grid(scfg, ht=hill(16, 20))
-    ss0 = MolochCore(sgrid, scfg, device="cpu",
-                     dtype=torch.float64).initial_state(perturb=0.3, seed=1)
-    rng = np.random.default_rng(0)
-    ss1 = ss0._replace(t=ss0.t * (1.0 + 1e-15 * torch.as_tensor(
-        rng.standard_normal(tuple(ss0.t.shape)))))
-    runs = {}
-    for name, conf, device, init in (
-            ("gpu", scfg, dev, ss0), ("cpu", scfg, "cpu", ss0),
-            ("cpu_perturbed", scfg, "cpu", ss1),
-            ("gpu_dry", sdry, dev, ss0), ("cpu_dry", sdry, "cpu", ss0)):
-        m = Model(conf, grid=sgrid, device=device, dtype=torch.float64,
-                  initial_state=init)
-        m.run(CHECK_STEPS)
-        if not m.check_finite():
-            raise AssertionError(f"non-finite MOLOCH state ({name})")
-        runs[name] = m.decoupled()
-    card_vs_cpu(runs, ("ps", "t", "qv", "u", "v", "w"), "MOLOCH")
+    check_run_vs_cpu(dev, moloch_check_run, cpu["7"],
+                     ("ps", "t", "qv", "u", "v", "w"), "MOLOCH")
 
+    stamp('9. the decomposed kernels')
     # -- 9. the decomposed kernels on 2x2 blocks, one process
     k5_stats = compare_decomposed(dev, mods)
     stats.update(k5_stats)
     compare_uneven(dev, k4)
 
+    stamp('13. the ICBC-driven runs')
     # -- 13. the ICBC-driven runs on one card (phase 12 is held to 13a);
     # phase 18's SAV files and output streams (~2.5 GB) go to the
     # git-ignored _phase18 beside this script and are deleted at the end
@@ -4064,53 +4887,81 @@ def main():
         chains = {name: Chain(name, p18) for name in CHAIN_STEPS}
         icbc13 = run_icbc_single(dev, smi, paths, mods, chains)
 
+        stamp('14a, 14b, 14d')
         # -- 14a, 14b, 14d. the NH core on one card
         nh14 = run_nh_single(dev, smi, mods, chains["NH"])
-        nh_card_vs_cpu(dev)
-        options_card_vs_cpu(dev)
+        stamp("14b, 14d")
+        nh_card_vs_cpu(dev, cpu["14b"])
+        options_card_vs_cpu(dev, cpu["14d"])
 
+        stamp('15a-d')
         # -- 15a-d. the second physics set on one card
         a15 = run_schemes_a(dev, smi, paths, mods)
+        stamp("15b")
         b15 = run_schemes_b(dev, smi, mods)
-        schemes_card_vs_cpu(dev)
+        stamp("15c")
+        schemes_card_vs_cpu(dev, cpu["15c"])
+        stamp("15d")
         nf10 = compare_nf10(dev, k4)
 
+        stamp('16a-c')
         # -- 16a-c. the remaining cumulus schemes on one card
         t16 = time.time()
         c16 = run_config_c(dev, smi, write_eur44_files(tmp), mods)
+        stamp("16b")
         cu16 = run_cumulus_schemes(dev, smi, paths, mods)
-        cumulus_card_vs_cpu(dev)
+        stamp("16c")
+        cumulus_card_vs_cpu(dev, cpu["16c"])
         print(f"phase 16a-c took {time.time() - t16:.1f} s")
 
+        stamp('17a, 17c, 17d')
         # -- 17a, 17c, 17d. configuration D and the other new settings
         t17 = time.time()
         paths.update(write_band_files(tmp))
         d17 = run_band(dev, smi, paths, mods)
+        stamp("17c")
         run_new_settings(dev, smi, paths, mods)
-        new_card_vs_cpu(dev)
+        stamp("17d")
+        new_card_vs_cpu(dev, cpu["17d"])
         print(f"phase 17a, 17c, 17d took {time.time() - t17:.1f} s")
 
+        stamp('18a, 18c')
         # -- 18a, 18c. restart chains and output streams on one card
         t18 = time.time()
         run_restart_chains(dev, smi, paths, chains)
         run_output(dev, smi, paths, chains["MOLOCH"].path, p18)
         print(f"phase 18a, 18c took {time.time() - t18:.1f} s")
 
+        stamp('19a-d, 19f')
         # -- 19a-d, 19f. the aerosol chemistry on one card, and 19e's
         # single-card reference
         t19 = time.time()
         e19a = run_chem_e(dev, smi, paths, mods)
+        stamp("19b, 19f")
         run_chem_b_f(dev, smi, paths, p18)
+        stamp("19c")
         c19 = run_chem_moloch(dev, smi, paths, mods)
-        chem_card_vs_cpu(dev)
+        stamp("19d")
+        chem_card_vs_cpu(dev, cpu["19d"])
         e19 = chem_single(dev, paths)
         print(f"phase 19a-d, 19f took {time.time() - t19:.1f} s")
 
-        # -- 10, 11, 12, 14c, 15e, 16d, 17b, 18b, 18d, 19e. the
+        stamp('20a-c')
+        # -- 20a-c. the gas-phase chemistry on one card, and 20d's
+        # single-card reference
+        f20, g20 = run_gas_phase(dev, smi, paths, mods, tmp, cpu["20c"])
+        # every CPU run has been read: the pool's processes end here,
+        # before the decomposed group's ranks start
+        pools[0].shutdown()
+        print(f"CPU pool: {len(CPU_DONE)} runs on {CPU_WORKERS} "
+              f"processes, the last done at {max(CPU_DONE):.1f} s")
+
+        stamp('10, 11, 12, 14c, 15e, 16d, 17b, 18b, 18d, 19e, 20d')
+        # -- 10, 11, 12, 14c, 15e, 16d, 17b, 18b, 18d, 19e, 20d. the
         # decomposed runs
         decomp = run_decomposed(dev, smi, single12, paths, icbc13,
                                 nh14["single12"], a15["rec"],
-                                cu16["c_single12"], d17["rec"], e19)
+                                cu16["c_single12"], d17["rec"], e19, g20)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         shutil.rmtree(p18, ignore_errors=True)
@@ -4169,7 +5020,7 @@ def main():
         if k == "K5c":
             row["launches_per_step_C_2x2"] = ranks[0]["cumulus"][
                 "launches"]["K5c"] / HYDRO_CHECK[0]
-        # phase 17: configuration D (one card at full width, 48 steps;
+        # phase 17: configuration D (one card at full width, 24 steps;
         # K5c on 2x2 ranks, 17b, rank 0)
         if k in ("K1", "K2"):
             row["launches_per_step_D"] = d17["per_step"][k]
@@ -4181,6 +5032,8 @@ def main():
         # E's operands; K5c on 2x2 ranks, 19e, rank 0), K1 on the MOLOCH
         # flagship with DUST (19c)
         if k == "K1":
+            row.update(launches_per_step_F=f20["per_step"]["K1"],
+                       F_tracer_operands=f20["operands"]["K1"])
             row.update(launches_per_step_E=e19a["per_step"]["K1"],
                        E_tracer_operands=e19a["operands"]["K1"][
                            "E's operands"],
@@ -4197,19 +5050,37 @@ def main():
             row.update(launches_hydrostatic=hydro_launches[k],
                        small_shape=stats[k]["small"])
         kernels.append(row)
-    # K2's tracer form: launches from 19a's main path, its error,
-    # times and bound on E's operands (f32)
-    st = e19a["operands"]["K2"]["clouds at E's shape"]
+    # K2's tracer form: launches from 20a's main path (configuration F,
+    # ntr = 50), its error, times and bound on F's operands (f32); E's
+    # (phase 19a, ntr = 12) beside
+    st = f20["operands"]["K2"]
     kernels.append(dict(
         name="emanuel_mixing_tracers", route="cuda",
         source=f"regcm_tpu_torch/csrc/{SOURCE['K2']}.cu",
         replaces=REPLACES["K2"],
         contraction_of="regcm_tpu/physics/cumulus/emanuel.py:352",
-        launches=e19a["tracer_launches"], max_abs_err=st["max_abs_err"],
+        launches=f20["launches"]["K2_tracers"], max_abs_err=st["max_abs_err"],
         ms=st["ms"], device_ms=st["device_ms"], plain_ms=st["plain_ms"],
         bound_ms=st["bound_ms"], bound_by=st["bound_by"], library_ms=None,
-        shape=st["shape"], launches_per_cumulus_step_E=e19a["per_step"]["K2"],
-        E_operands=e19a["operands"]["K2"]["E's operands"]))
+        shape=st["shape"], launches_per_cumulus_step_F=f20["per_step"]["K2"],
+        launches_per_cumulus_step_E=e19a["per_step"]["K2"],
+        E_operands=e19a["operands"]["K2"]["E's operands"],
+        E_synthetic_clouds=e19a["operands"]["K2"]["clouds at E's shape"]))
+    # K6: the gas-phase Ros2's batched LU (no TPU kernel: the JAX package
+    # computes jax.scipy.linalg.lu_factor/lu_solve in XLA), launches from
+    # 20a's main path, on F's stage matrices; library_ms is the plain
+    # version, torch.linalg.lu_factor/lu_solve
+    for k, name, line in (("K6a", "gas_lu_factor_solve", 122),
+                          ("K6b", "gas_lu_solve", 127)):
+        st = f20["operands"][k]
+        kernels.append(dict(
+            name=name, route="cuda", source="regcm_tpu_torch/csrc/gas_lu.cu",
+            replaces=f"regcm_tpu/chem/kinetics.py:{line}",
+            launches=f20["launches"][k], max_abs_err=st["max_abs_err"],
+            ms=st["ms"], device_ms=st["device_ms"], plain_ms=st["plain_ms"],
+            bound_ms=st["bound_ms"], bound_by=st["bound_by"],
+            library_ms=st["library_ms"], shape=st["shape"],
+            gas_solver_F=f20["gas"]))
     for ev in EVENT_TIMED:
         print(f"device_ms of {ev['kernels']} is CUDA-event time "
               f"({ev['ms']:.4f} ms): no profiler trace showed the kernel")
@@ -4218,6 +5089,15 @@ def main():
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
+
+
+def main():
+    pools = []
+    try:
+        run(pools)
+    finally:
+        for pool in pools:
+            pool.shutdown(wait=False, cancel_futures=True)
 
 
 if __name__ == "__main__":

@@ -1,16 +1,17 @@
 """Chemistry tendency orchestration — the ``tractend2`` equivalent
 (``Main/chemlib/mod_che_tend.F90:63-583``), torch twin of
-``regcm_tpu/chem/tend.py`` for the aerosol simulations.
+``regcm_tpu/chem/tend.py``.
 
 Called from inside ``PhysicsSuite`` at the reference's call site (tend →
 physical_parametrizations → tractend2): the surface-layer met fields (10
 m wind, aerodynamic resistance), the natural emission fluxes (dust, sea
 salt, pollen), settling and dry deposition of the aerosol tracers, SO2's
 gas dry deposition (Zhang 2003 resistances), wet scavenging, the aqueous
-and gas-phase sulfur chemistry and the carbonaceous aging. Returns the
-coupled tracer tendency ``chiten`` and the emission and deposition
-fluxes. The gas-phase mechanisms (CBMZ, DCCB, CB6) and the SNA
-equilibrium are ROADMAP item 13b: ``build_chem`` refuses them.
+and gas-phase sulfur chemistry and the carbonaceous aging. For the
+``igaschem`` sets the CBMZ or CB6r2 gas-phase solver runs on every
+chemistry call, and for DCCB the SNA equilibrium repartition after it.
+Returns the coupled tracer tendency ``chiten`` and the emission and
+deposition fluxes.
 
 Surface-layer simplifications follow the reference's own CLM45 branch
 (mod_che_tend.F90:253-291): temp10 from the lapse rate, rh10 from the
@@ -30,8 +31,9 @@ import torch
 
 from ..physics.surface.bats import _depth, fseas_fn
 from ..utils import constants as c
-from . import refuse_gas_phase, require_species
+from . import require_species
 from .carbon import aging_tend
+from .cbmz_driver import Cb6Driver, CbmzDriver
 from .deposition import (CDEPUV, CIEXSOL, CROUGH, CXMOPOR, aerodyresis,
                          drydep_aero, settling_tend, wetdep_tend)
 from .drydep_gas import GAS_ROW, gas_drydep_velocity
@@ -39,6 +41,7 @@ from .dust import DustEmission
 from .oxclim import IOX_H2O2, IOX_OH, load_oxidants
 from .pollen import pollen_emission
 from .seasalt import SeasaltEmission
+from .sna import SnaDriver
 from .sox import chemsox
 from .species import ChemSpec
 
@@ -50,8 +53,6 @@ class ChemTend:
 
     def __init__(self, cfg, grid, spec: ChemSpec, device="cpu",
                  dtype=torch.float64, mesh=None):
-        if spec.igaschem or spec.isna:
-            refuse_gas_phase(spec.simtype)
         self.cfg = cfg
         self.spec = spec
         self.ntr = spec.ntr
@@ -133,6 +134,13 @@ class ChemTend:
         self.rhop = f(np.where(amask, spec.rhop, 1000.0))
         self.sol = f(np.where(amask, spec.sol, 0.0))
         self.aging_pairs = list(spec.aging_pairs)
+        # -- gas phase (CBMZ or CB6r2)
+        self.cbmz = None
+        if spec.igaschem:
+            mk = Cb6Driver if spec.simtype == "CB6" else CbmzDriver
+            self.cbmz = mk(cfg, spec)
+        # -- SNA thermodynamic equilibrium (DCCB iisoropia)
+        self.sna = SnaDriver(spec) if getattr(spec, "isna", 0) else None
 
     def __call__(self, core, atms, s, cldfra_ls, cum_cldfra, remrat, rembc,
                  conv_prate, dt, ls_prate=None
@@ -280,14 +288,22 @@ class ChemTend:
             uc = chib * rpsb[None] if rpsb is not None else chib
             chiten = chiten + aging_tend(uc, self.aging_pairs, dt) * cpl[None]
 
+        # -- CBMZ gas-phase solver (chemistry, on dtchsolv)
+        if self.cbmz is not None:
+            chiten = chiten + self.cbmz(atms, s, chib, cpl, dt)
+
+        # -- SNA equilibrium repartition (aerodriver,
+        #    mod_che_isorropia.F90:64-161, iisoropia==1)
+        if self.sna is not None:
+            chiten = chiten + self.sna(atms, s, chib, cpl, dt)
+
         return chiten * core.m_ci[None, None], diag
 
 
 def build_chem(cfg, grid, device="cpu", dtype=torch.float64, mesh=None):
     """Set-up-time chemistry factory (mod_che_start start_chem): None when
-    ichem=0, a ChemTend for the aerosol chemsimtypes; raises otherwise."""
+    ichem=0, a ChemTend for a supported chemsimtype; raises otherwise."""
     if cfg.physics.ichem == 0:
         return None
-    refuse_gas_phase(cfg.chem.chemsimtype)
     return ChemTend(cfg, grid, require_species(cfg.chem.chemsimtype),
                     device=device, dtype=dtype, mesh=mesh)

@@ -68,9 +68,13 @@ namespace {
 
 constexpr int WPB = 2;                 // warps (columns) a block
 constexpr int MIN_BLOCKS = 16;         // 64 registers: 32 warps an SM
-// the tracer form's limit: its sums take WPB * MAX_TRA * 64 values of
-// dynamic shared memory (32 KB in f64), beside the 14 KB of static
-constexpr int MAX_TRA = 32;
+// the tracer form's limit: its sums take WPB * ntr * 32 NS values of
+// dynamic shared memory (up to 64 KB in f64 at 64 levels), beside the
+// 14 KB of static; past the default 48 KB the launch opts in to more
+// (cudaFuncAttributeMaxDynamicSharedMemorySize; 227 KB a block on sm_90).
+// Each tracer's sums are its own, so the limit changes no number.
+constexpr int MAX_TRA = 64;
+constexpr size_t DEFAULT_SMEM = 48 * 1024;
 constexpr unsigned FULL = 0xffffffffu;
 
 struct Consts {
@@ -460,6 +464,15 @@ int launch_ns(const void* const* lev, const void* unk, const void* vnk,
               const void* trank, void* sum_tra, int ntr, void* stream) {
     const int blocks = (ncol + WPB - 1) / WPB;
     const size_t smem = TRA ? (size_t)WPB * ntr * 32 * NS * sizeof(T) : 0;
+    // the opt-in past 48 KB, once per instantiation and largest size
+    static size_t opted = DEFAULT_SMEM;
+    if (smem > opted) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            emanuel_mixing_kernel<T, NS, TRA>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (e != cudaSuccess) return (int)e;
+        opted = smem;
+    }
     emanuel_mixing_kernel<T, NS, TRA><<<blocks, WPB * 32, smem,
                                         (cudaStream_t)stream>>>(
         (const T*)lev[0], (const T*)lev[1], (const T*)lev[2],

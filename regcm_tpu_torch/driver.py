@@ -22,12 +22,13 @@ ATM, SRF, RAD, STS, LAK, SUB, SLABOC, CHE and OPT streams
 (``io.output``) to NetCDF or to a Zarr store. ``globdatparam ensemble_run`` perturbs the
 topography and the ICBC records (``utils.ensemble``), and ``attach_som``
 feeds a SOM q-flux file to the slab ocean. With chemistry (ichem=1,
-the aerosol chemsimtypes) the state carries the tracers; on every
-cumulus alarm the columns whose scheme does not move tracers itself get
-the well-mixed convective transport (``chem.cumtran``). The chemical
-boundary input (``set_chem_bc``, the CHBC reader) is not ported
-(ROADMAP item 13a-2): the lateral boundary relaxes the tracers toward
-clean air, as the JAX package does without one.
+the aerosol and the gas-phase chemsimtypes) the state carries the
+tracers; on every cumulus alarm the columns whose scheme does not move
+tracers itself get the well-mixed convective transport
+(``chem.cumtran``). ``set_chem_bc(reader)`` attaches the chemical
+boundary input (a CHBC file of ``preproc.chem_icbc``): on the sigma-p
+cores the lateral boundary then relaxes the tracers toward its records,
+without one toward clean air, as in the JAX package.
 
 ``Model(cfg, mesh=DomainMesh(...))`` runs any of the cores decomposed over a
 (y, x) grid of ranks, one ``Model`` in each rank's process
@@ -353,6 +354,27 @@ class Model:
         self._icbc = reader
         self.update_boundary()
 
+    def set_chem_bc(self, reader):
+        """Attach a CHBC reader (chem_icbc output): the lateral chemical
+        boundaries relax toward its records instead of clean air
+        (mod_che_bdyco.F90 chebdy/nudge_chi)."""
+        self._chbc = reader
+        if getattr(self, "bdy", None) is not None \
+                and getattr(self, "_icbc", None) is not None:
+            self.update_boundary()
+
+    def _chbc_pair(self, d0, d1, ps0, ps1, dtbdy):
+        """The coupled (chi0, chit) boundary pair from the CHBC reader (the
+        rank's block of each record); (None, None) without one."""
+        reader = getattr(self, "_chbc", None)
+        if reader is None or self.core.ntr == 0:
+            return None, None
+        c0, _ = reader.record_at(d0)
+        c1, _ = reader.record_at(d1)
+        chi0 = self._block(self._host(c0)) * ps0[None, None]
+        chi1 = self._block(self._host(c1)) * ps1[None, None]
+        return chi0, (chi1 - chi0) / dtbdy
+
     def update_boundary(self):
         """bdyin: the records at the current date and ibdyfrq hours on
         form the boundary values b0 and their tendency bt (held constant
@@ -360,7 +382,8 @@ class Model:
         reader = self._icbc
         rec0, i0 = reader.record_at(self.date)
         dtbdy = self.cfg.globdat.ibdyfrq * 3600.0
-        rec1, i1 = reader.record_at(self.date.add_seconds(dtbdy))
+        d1 = self.date.add_seconds(dtbdy)
+        rec1, i1 = reader.record_at(d1)
         if i1 == i0:
             dtbdy = 1.0
         if self.idynamic == 3:
@@ -381,6 +404,9 @@ class Model:
         for b0, k in pairs.items():
             kw[b0] = f0[k]
             kw[b0[:-1] + "t"] = tend(f1[k] - f0[k])
+        if cls is BdyState:
+            kw["chi0"], kw["chit"] = self._chbc_pair(
+                self.date, d1, f0["ps"], f1["ps"], dtbdy)
         if cls is BdyState and self._som_qflx is not None:
             kw["qflb0"] = self._som_value()
         self.bdy = cls(**kw)

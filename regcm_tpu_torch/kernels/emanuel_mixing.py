@@ -41,9 +41,9 @@ launches_tracers = 0
 KEYS = ("wdtrain_mix", "amp1_e", "ad", "mentii", "qentii",
         "sum_q", "sum_u", "sum_v")
 MAX_LEVELS = 64          # one 64-bit validity mask per row in the kernel
-# the tracer form's sums sit in shared memory (csrc MAX_TRA); every
-# aerosol chemsimtype has at most 12 tracers
-MAX_TRACERS = 32
+# the tracer form's sums sit in shared memory (csrc MAX_TRA, past 48 KB
+# by the launch's opt-in); the largest chemsimtype, CB6, has 51 tracers
+MAX_TRACERS = 64
 
 _P = ctypes.c_void_p
 _D = ctypes.c_double

@@ -9,10 +9,11 @@ Columns are (np, nk) tensors, top-down; each level recursion is a
 Python loop over the levels whose every iteration updates whole (np,)
 planes, with every conditional a ``torch.where``. Feature flags
 (&tiedtkeparam): ``lmfmid`` (midlevel convection, ktype=3; needs
-``omega``). The convective tracer transport (``ctracer``) and the
-``lmfsmooth`` smoothing of its mass fluxes are not ported: they act on
-chemistry tracers only, which the port refuses, so ``lmfsmooth`` changes
-nothing here. As in the JAX package, the 350/60/950 hPa marker levels
+``omega``) and ``lmfsmooth`` (the smoothing of the tracer-transport mass
+fluxes at the draughts' edges). ``ntiedtke`` returns the CFL-rescaled
+draught fluxes that the convective tracer transport (``ctracer``, run by
+the suite's chemistry hook) reads. As in the JAX package, the 350/60/950
+hPa marker levels
 (and the cmcptop midlevel ceiling) come from the standard-atmosphere
 sigma profile, llconscheck is omitted and lmfwstar is off.
 """
@@ -147,6 +148,15 @@ class TiedtkeOut(NamedTuple):
     ktype: torch.Tensor
     kctop: torch.Tensor
     kcbot: torch.Tensor
+    # tracer-transport interface (section 11, :5344-5380): CFL-rescaled
+    # draught fluxes and detrainment rates for ctracer
+    ct_mfu: torch.Tensor
+    ct_mfd: torch.Tensor
+    ct_udrate: torch.Tensor
+    ct_ddrate: torch.Tensor
+    ct_ldcum: torch.Tensor
+    ct_lddraf: torch.Tensor
+    idtop: torch.Tensor
 
 
 def _at(a, idx):
@@ -428,9 +438,8 @@ def ntiedtke(t, q, u, v, qctot, qhfl, ahfs, ph, pf, geo, geof,
     geopotential, omega (Pa/s), qhfl/ahfs turbulent moisture/heat flux
     (surface value in slot nk), tenq_dyn/tent_dyn the dynamic
     tendencies (for moisture-convergence closures). Returns the
-    CUMULUS tendencies alone (not including the input dynamics).
-    ``lmfsmooth`` smooths the tracer-transport mass fluxes only, which
-    this port does not form: it is accepted and changes nothing."""
+    CUMULUS tendencies alone (not including the input dynamics), and the
+    tracer-transport fluxes (``lmfsmooth`` smooths them only)."""
     npx, nk = t.shape
     dev = t.device
     dt = dtcum
@@ -1236,9 +1245,153 @@ def ntiedtke(t, q, u, v, qctot, qhfl, ahfs, ph, pf, geo, geof,
                     torch.where((ktype == 2)[:, None], cf_shal, cf_mid)),
         0.0)
 
+    # section 11 (:5344-5380): CFL-rescale the fluxes for tracer
+    # transport (tighter 0.8·cons cap, rmfsolct ≤ 3)
+    ct_ldcum = ldcum & (ktype != 3) & (kcbot - kctop >= 1)
+    lim11 = ct_ldcum[:, None] & (karr1 >= kctop[:, None])
+    mfmax11 = (pf[:, 1:nk] - pf[:, :nk - 1]) * 0.8 * cons
+    mfs11 = torch.clamp(torch.where(
+        lim11 & (mfu[:, 1:] > mfmax11),
+        mfmax11 / torch.clamp(mfu[:, 1:], min=CMFCMIN),
+        torch.inf).amin(dim=1), max=1.0)
+    span11u = ct_ldcum[:, None] & (karr >= kctop[:, None] - 1)
+    ct_lddraf = lddraf & ct_ldcum
+    span11d = ct_lddraf[:, None] & (karr >= idtop[:, None] - 1)
+    ct_mfu = torch.where(span11u, mfu * mfs11[:, None], 0.0)
+    ct_udrate = torch.where(span11u, mfude_rate * mfs11[:, None], 0.0)
+    ct_mfd = torch.where(span11d, mfd * mfs11[:, None], 0.0)
+    ct_ddrate = torch.where(span11d, mfdde_rate * mfs11[:, None], 0.0)
+    if lmfsmooth:
+        ct_mfu, ct_mfd, ct_udrate, ct_ddrate = _smooth_fluxes(
+            ct_mfu, ct_mfd, ct_udrate, ct_ddrate, ct_ldcum, ct_lddraf,
+            kctop, karr)
+
     z = torch.where(ldcum[:, None], t.new_tensor(1.0), 0.0)
     return TiedtkeOut(tten=tten * z, qten=qten * z, lten=tenl * z,
                       iten=teni * z, uten=uten * z, vten=vten * z,
                       prate=prate, qdetr=qdetr * z, raincc=raincc,
                       cldfra=cldfra, ktype=ktype, kctop=kctop,
-                      kcbot=kcbot)
+                      kcbot=kcbot, ct_mfu=ct_mfu, ct_mfd=ct_mfd,
+                      ct_udrate=ct_udrate, ct_ddrate=ct_ddrate,
+                      ct_ldcum=ct_ldcum, ct_lddraf=ct_lddraf, idtop=idtop)
+
+
+def _smooth_fluxes(ct_mfu, ct_mfd, ct_udrate, ct_ddrate, ct_ldcum,
+                   ct_lddraf, kctop, karr):
+    """``lmfsmooth``: the tracer-transport mass fluxes smoothed at the
+    draughts' edges (:5387-5417)."""
+    nk = ct_mfu.shape[1]
+    attop = ct_ldcum[:, None] & (karr == kctop[:, None]) \
+        & (karr >= 1) & (karr <= nk - 2)
+    mfu_p1 = torch.cat([ct_mfu[:, 1:], ct_mfu[:, -1:]], dim=1)
+    erate_u = torch.clamp(ct_mfu - 0.5 * mfu_p1, min=0.0)
+    new_mfu = torch.where(attop, ct_mfu - erate_u, ct_mfu)
+    ct_udrate = torch.where(attop, ct_udrate + erate_u, ct_udrate)
+    # mfudr(kctop-1) = smoothed mfuus(kctop)
+    wrt = torch.cat([attop[:, 1:], torch.zeros_like(attop[:, :1])], dim=1)
+    val = torch.cat([new_mfu[:, 1:], new_mfu[:, -1:]], dim=1)
+    ct_udrate = torch.where(wrt, val, ct_udrate)
+    m_p1 = torch.cat([ct_mfd[:, 1:], torch.zeros_like(ct_mfd[:, :1])], dim=1)
+    m_m1 = torch.cat([torch.zeros_like(ct_mfd[:, :1]), ct_mfd[:, :-1]], dim=1)
+    dcond = ct_lddraf[:, None] & (ct_mfd < 0.0) & (torch.abs(m_p1) < 1e-30) \
+        & (karr >= 1) & (karr <= nk - 2)
+    erate_d = torch.clamp(ct_mfd - 0.5 * m_m1, max=0.0)
+    new_mfd = torch.where(dcond, ct_mfd - erate_d, ct_mfd)
+    ct_ddrate = torch.where(dcond, ct_ddrate - erate_d, ct_ddrate)
+    # mfddr(k+1) = -smoothed mfdus(k)
+    wrtd = torch.cat([torch.zeros_like(dcond[:, :1]), dcond[:, :-1]], dim=1)
+    vald = torch.cat([torch.zeros_like(new_mfd[:, :1]), -new_mfd[:, :-1]],
+                     dim=1)
+    ct_ddrate = torch.where(wrtd, vald, ct_ddrate)
+    udr_m1 = torch.cat([torch.zeros_like(ct_udrate[:, :1]),
+                        ct_udrate[:, :-1]], dim=1)
+    fill = ct_ldcum[:, None] & (torch.abs(ct_udrate) < 1e-30) \
+        & (udr_m1 > 0.0) & (karr >= 1) & (karr <= nk - 2)
+    ct_udrate = torch.where(fill, 0.5 * udr_m1, ct_udrate)
+    return new_mfu, new_mfd, ct_udrate, ct_ddrate
+
+
+def ctracer(qtrac, out: TiedtkeOut, pf, dt):
+    """Convective tracer transport (ctracer, :7549-7707): updraft and
+    downdraft tracer profiles from the CFL-rescaled mass fluxes, then an
+    implicit bidiagonal update (rmfsolct=1).
+
+    qtrac (np, nk, ntr) uncoupled mixing ratios; returns the tracer
+    tendency (np, nk, ntr). Applied by the caller on the cumulus alarm's
+    steps only: the reference's impulse semantics (tenc is written
+    straight into the chem tendency array on alarm steps)."""
+    npx, nk, ntrc = qtrac.shape
+    mfu, mfd = out.ct_mfu, out.ct_mfd
+    udrate, ddrate = out.ct_udrate, out.ct_ddrate
+    ldcum, lddraf = out.ct_ldcum, out.ct_lddraf
+    kctop, idtop = out.kctop, out.idtop
+    karr = torch.arange(nk, device=qtrac.device)[None, :]
+    rdt = 1.0 / dt
+    dp_g = c.egrav / (pf[:, 1:] - pf[:, :-1])
+    cumask = ldcum[:, None] & (karr >= kctop[:, None] - 1) & (karr >= 1)
+
+    # 2. updraft values (:7559-7572), sequential upward
+    cu = torch.zeros_like(qtrac)
+    cu[:, nk - 1] = qtrac[:, nk - 1]
+    for k in range(nk - 2, 1, -1):
+        erate = (mfu[:, k] - mfu[:, k + 1] + udrate[:, k])[:, None]
+        mfa = (1.0 / torch.clamp(mfu[:, k], min=CMFCMIN))[:, None]
+        upd = (cumask[:, k] & (k >= kctop))[:, None]
+        val = (mfu[:, k + 1][:, None] * cu[:, k + 1] + erate * qtrac[:, k]
+               - udrate[:, k][:, None] * cu[:, k + 1]) * mfa
+        cu[:, k] = torch.where(upd, val, cu[:, k])
+
+    # 3. downdraft values (:7576-7592), sequential downward
+    cd = torch.zeros_like(qtrac)
+    for k in range(2, nk):
+        attop = (lddraf & (k == idtop))[:, None]
+        cd_top = 0.1 * cu[:, k] + 0.9 * qtrac[:, k - 1]
+        erate = (-mfd[:, k] + mfd[:, k - 1] + ddrate[:, k])[:, None]
+        mfa = (1.0 / torch.clamp(mfd[:, k], max=-CMFCMIN))[:, None]
+        indn = (lddraf & (k > idtop))[:, None]
+        val = (mfd[:, k - 1][:, None] * cd[:, k - 1]
+               - erate * qtrac[:, k - 1]
+               + ddrate[:, k][:, None] * cd[:, k - 1]) * mfa
+        cd[:, k] = torch.where(attop, cd_top,
+                               torch.where(indn, val, cd[:, k]))
+
+    # surface positivity guard (:7595-7608)
+    ks = nk - 1
+    posi = -dp_g[:, ks][:, None] * (
+        mfu[:, ks][:, None] * cu[:, ks] + mfd[:, ks][:, None] * cd[:, ks]
+        - (mfu[:, ks] + mfd[:, ks])[:, None] * qtrac[:, ks - 1])
+    neg = lddraf[:, None] & (qtrac[:, ks] + posi * dt < 0.0)
+    mfa_s = (1.0 / torch.clamp(mfd[:, ks], max=-CMFCMIN))[:, None]
+    cd_fix = ((mfu[:, ks] + mfd[:, ks])[:, None] * qtrac[:, ks - 1]
+              - mfu[:, ks][:, None] * cu[:, ks]
+              + qtrac[:, ks] / (dt * dp_g[:, ks][:, None])) * mfa_s
+    cd[:, ks] = torch.where(neg, cd_fix, cd[:, ks])
+
+    # 4-5. fluxes and explicit divergence (ximp = 0, :7612-7638)
+    mfc = torch.where(cumask[:, :, None],
+                      mfu[:, :, None] * cu + mfd[:, :, None] * cd, 0.0)
+    mfc_p = torch.cat([mfc, mfc.new_zeros((npx, 1, ntrc))], dim=1)
+    xtenc = torch.where(cumask[:, :, None],
+                        dp_g[:, :, None] * (mfc_p[:, 1:] - mfc), 0.0)
+    xtenc[:, nk - 1] = torch.where(
+        ldcum[:, None], -dp_g[:, nk - 1][:, None] * mfc[:, nk - 1], 0.0)
+
+    # 7. implicit bidiagonal solve (rmfsolct=1, :7656-7695)
+    zp = dp_g * dt
+    aa = torch.where(cumask, -zp * (mfu + mfd), 0.0)
+    mf_p = torch.cat([mfu + mfd, mfu.new_zeros((npx, 1))], dim=1)
+    bb = torch.where(cumask, 1.0 + zp * mf_p[:, 1:], 1.0)
+    bb[:, nk - 1] = torch.where(cumask[:, nk - 1], 1.0, bb[:, nk - 1])
+    rhs = torch.where(cumask[:, :, None], xtenc * dt + qtrac, qtrac)
+    rp = qtrac.new_zeros((npx, ntrc))
+    rys = []
+    for k in range(nk):
+        attop = (k == kctop - 1)[:, None]
+        solv = (cumask[:, k] & (torch.abs(bb[:, k]) > 1e-30))[:, None]
+        rk = torch.where(attop, rhs[:, k] / bb[:, k][:, None],
+                         (rhs[:, k] - aa[:, k][:, None] * rp)
+                         / bb[:, k][:, None])
+        rp = torch.where(solv, rk, 0.0)
+        rys.append(rp)
+    r1 = torch.stack(rys, dim=1)
+    return torch.where(cumask[:, :, None], (r1 - qtrac) * rdt, 0.0)

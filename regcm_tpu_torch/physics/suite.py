@@ -38,7 +38,7 @@ import torch
 
 from ..core.state import HydroState, BdyState, StepFlags
 from ..device import resolve_device
-from ..chem import refuse_gas_phase, require_species
+from ..chem import require_species
 from ..chem.optics import dust_optics_tables
 from ..chem.tend import build_chem
 from ..dynamics.hydrostatic import level_sum
@@ -51,7 +51,7 @@ from .cumulus.grell import cup
 from .cumulus.kain_fritsch import KFParams, KFTables, kfpara
 from .cumulus.kuo import build_kuo_tables, kuo
 from .cumulus.shallow import shallcu
-from .cumulus.tiedtke import ntiedtke
+from .cumulus.tiedtke import ctracer, ntiedtke
 from .micro.nogtom import nogtom
 from .micro.subex import subex, combine_clouds
 from .micro.wsm5 import wsm5
@@ -139,12 +139,10 @@ def validate_physics(cfg):
 
 
 def _validate_chemistry(cfg):
-    """The chemistry refusals: the JAX package's (an unknown chemsimtype or
+    """The chemistry refusals, the JAX package's: an unknown chemsimtype or
     none, the NH core, ichdrdepo=2, a PBL other than Holtslag, a
-    microphysics other than SUBEX) and the port's (the gas-phase
-    mechanisms, item 13b; Tiedtke's tracer transport, item 13a-2)."""
+    microphysics other than SUBEX."""
     p = cfg.physics
-    refuse_gas_phase(cfg.chem.chemsimtype)
     require_species(cfg.chem.chemsimtype)     # raises for unknown or none
     if cfg.core.idynamic == 2:
         raise ValueError(
@@ -161,15 +159,6 @@ def _validate_chemistry(cfg):
         raise ValueError(
             "ichem=1 wet scavenging needs the SUBEX removal-rate "
             "diagnostics (ipptls=1), as in the JAX package")
-    tiedtke = 5 in (abs(p.icup_lnd), abs(p.icup_ocn))
-    if tiedtke and (int(cfg.chem.ichcumtra) == 1
-                    or abs(p.icup_lnd) == abs(p.icup_ocn)):
-        # the JAX package runs ctracer whenever Tiedtke covers both
-        # surfaces, and with ichcumtra=1
-        raise NotImplementedError(
-            "regcm_tpu_torch does not port Tiedtke's tracer transport "
-            "(ctracer with lmfsmooth, ichem=1 with icup=5): ROADMAP.md "
-            "item 13a-2")
 
 
 class PhysicsSuite:
@@ -524,6 +513,12 @@ class PhysicsSuite:
             cldlwc=conv_lwc(cldfra),
             qcten=uncol(qcten), qiten=uncol(qiten),
             qdetr=uncol(out.qdetr))
+        if self.chem is not None:
+            # the tracer-transport fluxes for the chemistry hook's ctracer
+            # (on this alarm step alone, and only when Tiedtke covers both
+            # surfaces: the land/ocean blend keeps only the common keys,
+            # as in the JAX package)
+            res["_tdk"] = out
         return res
 
     def _chemistry(self, core, atms, s, cu, fcc, remrat, strappt, precip,
@@ -533,8 +528,8 @@ class PhysicsSuite:
         chemistry, the tracers' Holtslag diffusion with the scalar
         coefficients (holtbl's chi block, mod_pbl_holtbl.F90:985-1095,
         through K1 at ns = ntr; no surface flux, the dry deposition being
-        the chemistry's with ichdrdepo=1) and Emanuel's tracer transport
-        on its alarm steps."""
+        the chemistry's with ichdrdepo=1) and Emanuel's or Tiedtke's
+        tracer transport on their alarm steps."""
         kz = core.kz
         m_ci = core.m_ci
         zero_r = torch.zeros_like(atms["tb3"])
@@ -551,6 +546,17 @@ class PhysicsSuite:
             iy, jx = chib3.shape[-2:]
             ft3 = torch.flip(cu["_emftra"], [1])    # (ncol, kz, ntr) top-down
             chiten = chiten + ft3.permute(2, 1, 0).reshape(
+                self.chem.ntr, kz, iy, jx) * cpl[None] * m_ci
+        if "_tdk" in cu:
+            # Tiedtke's convective tracer transport (ctracer,
+            # mod_cu_tiedtke.F90:7549; lmftrac) on the top-down columns
+            iy, jx = chib3.shape[-2:]
+            ncol = iy * jx
+            qtrac = chib3.reshape(self.chem.ntr, kz, ncol).permute(2, 1, 0)
+            ct = ctracer(qtrac, cu["_tdk"],
+                         atms["pf3"].reshape(kz + 1, ncol).T,
+                         float(core.dtsec))
+            chiten = chiten + ct.permute(2, 1, 0).reshape(
                 self.chem.ntr, kz, iy, jx) * cpl[None] * m_ci
         sfupd["_chiten"] = chiten
         zf = torch.zeros_like(s.chemdiag[0])

@@ -1,5 +1,6 @@
-"""The Model settings of ``tests/test_torch_chem_model.py`` and the 2x2
-chemistry run of ``tests/test_torch_parallel.py``'s rank group.
+"""The Model settings of ``tests/test_torch_chem_model.py``,
+``tests/test_torch_gas_chem_model.py`` and the 2x2 chemistry runs of
+``tests/test_torch_parallel.py``'s rank group.
 
 Each setting applies to either package's ``RegCMConfig``; ``grid`` gives
 both packages' ``build_grid`` the same hill with land and water points,
@@ -50,6 +51,40 @@ SETTINGS.update(
     dust_moloch=dict(idynamic=3, ds=3.0, dt=30.0, sim="DUST",
                      physics=dict(icldfrac=0)),
 )
+# The gas phase (at noon, the sun up over the domain, so that photolysis
+# runs): CBMZ and CB6 with the cheap physics and the saturation adjustment
+# off (subexparam conf=0: the well-conditioned trajectory of the repo's
+# dry comparisons, on which the gas phase is held without the spread
+# runs that SUBEX's roundoff flips need at noon); DCCB with configuration F's
+# physics (E's, the tropical band, with the gas phase and the SNA
+# equilibrium: Emanuel's tracer transport through K2's tracer form at ntr
+# = 50); AERO under Tiedtke over both surfaces with lmfsmooth (ctracer);
+# CBMZ on MOLOCH (K4's stack at nf = 5 + nqx + 37).
+# The gas-phase settings run at GAS_SHAPE: the Ros2 solver takes ~45
+# iterations a step from its zeroed radicals, and at 14x16x14 three steps
+# of one setting took 52 s of the port and ~180 s of the JAX package on
+# one CPU thread each. At GAS_SHAPE a JAX step of a gas setting still
+# costs ~40 CPU-s (the dense Jacobian of every cell each iteration): CB6
+# and CBMZ on MOLOCH run two steps in the tests (``steps``), every alarm
+# on each.
+GAS = ("CBMZ", "CB6", "DCCB", "tiedtke_aero", "cbmz_moloch")
+GAS_SHAPE = (8, 10, 14)
+NOON = 1990060112
+SETTINGS.update(
+    CBMZ=dict(SETTINGS["SULF"], sim="CBMZ", mdate1=NOON, shape=GAS_SHAPE,
+              conf=0.0),
+    CB6=dict(SETTINGS["SULF"], sim="CB6", mdate1=NOON, shape=GAS_SHAPE,
+             conf=0.0, steps=2),
+    DCCB=dict(SETTINGS["AERO"], sim="DCCB", mdate1=NOON, shape=GAS_SHAPE),
+    tiedtke_aero=dict(idynamic=1, ds=50.0, dt=150.0, sim="AERO",
+                      shape=SHAPE,
+                      physics=dict(icup_lnd=5, icup_ocn=5, ibltyp=1,
+                                   ipptls=1, icldfrac=0),
+                      extras=dict(rad_scheme="broadband"),
+                      tiedtke=dict(lmfsmooth=True)),
+    cbmz_moloch=dict(SETTINGS["dust_moloch"], sim="CBMZ", mdate1=NOON,
+                     shape=GAS_SHAPE, steps=2),
+)
 # the state fields compared beside the decoupled ones
 STATE = {1: ("chi_a", "chi_b", "chemdiag", "tg", "rainc", "rainnc"),
          3: ("chi_b", "chemdiag", "tg", "rainc", "rainnc")}
@@ -60,7 +95,7 @@ def setup(cfg, name):
     and return it."""
     st = SETTINGS[name]
     cfg.core.idynamic = st["idynamic"]
-    cfg.dim.iy, cfg.dim.jx, cfg.dim.kz = SHAPE
+    cfg.dim.iy, cfg.dim.jx, cfg.dim.kz = st.get("shape", SHAPE)
     cfg.geo.ds = st["ds"]
     cfg.time.dt = st["dt"]
     cfg.time.dtcum = st["dt"]
@@ -69,6 +104,12 @@ def setup(cfg, name):
     for k, v in st["physics"].items():
         setattr(cfg.physics, k, v)
     cfg.physics.extras.update(st.get("extras", {}))
+    for k, v in st.get("tiedtke", {}).items():
+        setattr(cfg.tiedtke, k, v)
+    if "mdate1" in st:
+        cfg.restart.mdate1 = st["mdate1"]
+    if "conf" in st:
+        cfg.subex.conf = st["conf"]
     cfg.physics.ichem = 1
     cfg.chem.chemsimtype = st["sim"]
     cfg.chem.idirect = st.get("idirect", 0)
@@ -128,8 +169,8 @@ def fields(state, dec, idynamic):
 
 
 def jax_run(names):
-    """The JAX package's Model of each setting of ``names`` for STEPS
-    steps from its own start: that start (numpy), the alarms, the
+    """The JAX package's Model of each setting of ``names`` for its
+    steps (``steps``, STEPS by default) from its own start: that start (numpy), the alarms, the
     compared fields and finiteness, by name. Runs in a spawned process,
     which has not read the conftest's settings. XLA compiles with most
     of its optimisations off: half the compile time, which is most of a
@@ -149,17 +190,12 @@ def jax_run(names):
         cfg = setup(RegCMConfig(), name)
         g = grid(build_grid, cfg)
         idyn = cfg.core.idynamic
-        kw = dict(perturb=R.PERTURB, seed=R.SEED)
-        if idyn == 3:
-            s0 = MolochCore(g, cfg, dtype=jnp.float64).initial_state(**kw)
-        else:
-            s0 = standard_atmosphere_state(g, cfg, jnp.float64, **kw)
-        s0 = start(jax.device_get(s0), idyn)
+        s0 = jax_start(name)
         m = Model(cfg, grid=g, dtype=jnp.float64,
                   initial_state=jax.tree_util.tree_map(jnp.asarray, s0))
         m._flags = lambda: StepFlags(**ALARMS)
         flags = []
-        for _ in range(STEPS):
+        for _ in range(SETTINGS[name].get("steps", STEPS)):
             flags.append(tuple(m._flags()))
             m.step()
         state = {k: np.asarray(getattr(m.state, k)) for k in STATE[idyn]}
@@ -167,6 +203,27 @@ def jax_run(names):
         out[name] = dict(start=s0, flags=flags, finite=bool(m.check_finite()),
                          fields=fields(state, dec, idyn))
     return out
+
+
+def jax_start(name):
+    """The JAX package's start of setting ``name`` (numpy): its rest
+    state (f64) with ``start`` applied."""
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_enable_x64", True)
+    import jax.numpy as jnp
+    from regcm_tpu.config.params import RegCMConfig
+    from regcm_tpu.core.grid import build_grid
+    from regcm_tpu.driver import standard_atmosphere_state
+    from regcm_tpu.dynamics.moloch import MolochCore
+    cfg = setup(RegCMConfig(), name)
+    g = grid(build_grid, cfg)
+    kw = dict(perturb=R.PERTURB, seed=R.SEED)
+    if cfg.core.idynamic == 3:
+        s0 = MolochCore(g, cfg, dtype=jnp.float64).initial_state(**kw)
+    else:
+        s0 = standard_atmosphere_state(g, cfg, jnp.float64, **kw)
+    return start(jax.device_get(s0), cfg.core.idynamic)
 
 
 def port_model(name, initial_state, mesh=None, device="cpu", conf=None):
@@ -247,3 +304,54 @@ def rel_rms(got, want):
     got, want = np.asarray(got, float), np.asarray(want, float)
     return float(np.sqrt(np.mean((got - want) ** 2))
                  / (np.sqrt(np.mean(want ** 2)) + 1e-30))
+
+
+def port_job(name, seed=None):
+    """The port's run of setting ``name`` from its own start (``port_start``,
+    the JAX package's ``jax_start`` bit for bit, which the tests check;
+    perturbed with ``seed`` if given), on one torch thread, with that
+    start: a spawned worker's job."""
+    import torch
+    torch.set_num_threads(1)
+    s0 = port_start(name)
+    if seed is not None:
+        s0 = perturbed(name, s0, seed)
+    out = port_run(name, s0, steps=SETTINGS[name].get("steps", STEPS))
+    out["start"] = s0
+    return out
+
+
+def gas_group(name):
+    """``gas_ranks`` on a 2x2 gloo group (the ranks on PyTorch's generic
+    CPU kernels, so that a column computes alike wherever it falls in a
+    block): a spawned worker's job."""
+    import os
+    from regcm_tpu_torch.parallel import launch
+    os.environ["ATEN_CPU_CAPABILITY"] = "default"
+    return launch.spawn(gas_ranks, 2, 2, "gloo", "cpu", args=(name,),
+                        timeout=900)
+
+
+def gas_ranks(rank, name="CBMZ"):
+    """Setting ``name`` on one rank of a 2x2 group from the port's own
+    start, with the rank's halo exchanges; rank 0 then runs the whole
+    domain on one rank, the reference the group is held to."""
+    import torch
+    from regcm_tpu_torch.parallel import halo
+    torch.set_num_threads(1)
+    s0 = port_start(name)
+    halo.exchanges = 0
+    iy, jx, _ = SETTINGS[name].get("shape", SHAPE)
+    out = dict(mesh=port_run(name, s0, mesh=rank.mesh(iy, jx)),
+               exchanges=halo.exchanges)
+    if rank.rank == 0:
+        out["single"] = port_run(name, s0)
+    return out
+
+
+# a compared field that is zero everywhere in the reference, or within
+# this bound of zero (MOLOCH's large-scale rain over three steps), is held
+# to it: the saturation adjustment can leave roundoff-sized rain (2e-22
+# mm) in one column on other CPU kernels or on the card
+ZERO_FLOOR = 1e-15
+

@@ -352,8 +352,8 @@ def test_emanuel_mixing_tracer_form_matches_jax():
     assert _rel(got["sum_tra"], want["sum_tra"]) < TOL
     with pytest.raises(ValueError, match="ntr"):
         k2.emanuel_mixing(*map(T, levels), T(unk), T(vnk), T(icb), T(ict),
-                          T(cloud), tra=T(np.zeros((ncol, L, 33))),
-                          trank=T(np.zeros((ncol, 33))))
+                          T(cloud), tra=T(np.zeros((ncol, L, 65))),
+                          trank=T(np.zeros((ncol, 65))))
 
 
 def test_tracer_diffusion_matches_jax():

@@ -36,6 +36,7 @@ from regcm_tpu_torch.io.ncio import read_nc  # noqa: E402
 from regcm_tpu_torch.io.zarrio import read_zarr  # noqa: E402
 
 from . import _torch_chem_settings as S  # noqa: E402
+from ._torch_jax_child import use_suite_cache  # noqa: E402
 
 # the JAX runs, a spawned process each group (one to two minutes each)
 GROUPS = (("AERO", "DU12"), ("dust_moloch", "DUSS"),
@@ -46,8 +47,8 @@ GROUPS = (("AERO", "DU12"), ("dust_moloch", "DUSS"),
 def jax_jobs():
     """The JAX package's Model runs, started with the module; torch on one
     thread meanwhile."""
-    with ProcessPoolExecutor(len(GROUPS),
-                             mp_context=mp.get_context("spawn")) as pool:
+    with ProcessPoolExecutor(len(GROUPS), mp_context=mp.get_context("spawn"),
+                             initializer=use_suite_cache) as pool:
         jobs = [pool.submit(S.jax_run, g) for g in GROUPS]
         threads = torch.get_num_threads()
         torch.set_num_threads(1)
@@ -67,11 +68,16 @@ def _check_model(name, want):
     got = S.port_run(name, want["start"])
     assert got["finite"] and want["finite"]
     assert got["flags"] == want["flags"]
-    spreads = [S.port_run(name, S.perturbed(name, want["start"], seed))
-               for seed in range(3)]
+    spreads = None
     for k in want["fields"]:
-        s = max(S.rel_rms(p["fields"][k], got["fields"][k]) for p in spreads)
         err = S.rel_rms(got["fields"][k], want["fields"][k])
+        if err < 1e-7:
+            continue
+        if spreads is None:     # run only where the golden gate is not met
+            spreads = [S.port_run(name, S.perturbed(name, want["start"],
+                                                    seed))
+                       for seed in range(3)]
+        s = max(S.rel_rms(p["fields"][k], got["fields"][k]) for p in spreads)
         assert err < max(1e-7, 4.0 * s), (name, k, err, s)
     return got
 

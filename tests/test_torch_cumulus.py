@@ -29,6 +29,7 @@ import jax.numpy as jnp  # noqa: E402
 from regcm_tpu.utils import constants as c  # noqa: E402
 
 from . import _torch_schemes_ranks as R  # noqa: E402
+from ._torch_jax_child import use_suite_cache  # noqa: E402
 
 TOL = 1e-12
 # the JAX Model runs, grouped by process (about 80 s of compilation
@@ -67,6 +68,7 @@ def _jax_runs(names):
     its own moistened initial state: that state, the final state fields,
     the decoupled fields and the alarms. Runs in a spawned process, which
     has not read the conftest's settings."""
+    use_suite_cache()
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
     from regcm_tpu.config.params import RegCMConfig

@@ -23,6 +23,7 @@ from regcm_tpu.dynamics import stencil as jst  # noqa: E402
 from regcm_tpu_torch.core.state import state_from_numpy  # noqa: E402
 from regcm_tpu_torch.dynamics import hydrostatic as th  # noqa: E402
 from regcm_tpu_torch.dynamics import stencil as tst  # noqa: E402
+from ._torch_jax_child import use_suite_cache  # noqa: E402
 
 FIELDS = ("ps", "t", "qv", "u", "v")
 
@@ -324,6 +325,7 @@ def _periodic_jax(probe, physics):
     for 4 steps (its alarms), or dynamics for 10 steps through its core
     with constant flags (one compile); the decoupled fields. Runs in a
     spawned process, which has not read the conftest's settings."""
+    use_suite_cache()
     jax.config.update("jax_enable_x64", True)
     from regcm_tpu.core.state import StepFlags
     from regcm_tpu.driver import Model as JModel

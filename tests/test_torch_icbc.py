@@ -26,6 +26,7 @@ from regcm_tpu_torch.config.params import RegCMConfig  # noqa: E402
 
 from . import _torch_parallel_ranks as R  # noqa: E402
 from ._torch_icbc_files import write_files  # noqa: E402
+from ._torch_jax_child import use_suite_cache  # noqa: E402
 
 FIELDS = ("ps", "t", "qv", "u", "v")
 
@@ -51,6 +52,7 @@ def _icbc_jax(kind, paths):
     the port's, through JAX_STEPS; then the boundary pair that the
     hourly update forms, by ``update_boundary`` at its date. Runs in a
     spawned process, which has not read the conftest's settings."""
+    use_suite_cache()
     jax.config.update("jax_enable_x64", True)
     from regcm_tpu.config.params import RegCMConfig as JConfig
     from regcm_tpu.driver import Model

@@ -405,11 +405,15 @@ def test_emanuel_mixing_tracer_form_on_card():
     dtypes, with one level a lane (L = 18, configuration E's) and two (L
     = 41), at 12 and 32 tracers (the limit); the eight terms at the
     eight-term bound, sum_tra at 1e-12 (f64) and 1e-5 (f32)."""
+    _tracer_form_on_card(((18, 12), (41, 32)))
+
+
+def _tracer_form_on_card(cases):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     dev = torch.device("cuda")
     rng = np.random.default_rng(5)
-    for L, ntr in ((18, 12), (41, 32)):
+    for L, ntr in cases:
         levels, unk, vnk, icb, ict, cloud = _mixing_inputs(ncol=700, L=L)
         tra = rng.uniform(0.0, 1e-6, (700, L, ntr))
         trank = rng.uniform(0.0, 1e-6, (700, ntr))
@@ -426,3 +430,77 @@ def test_emanuel_mixing_tracer_form_on_card():
                             .cpu().numpy()) < max(1e-10, tol), (L, k)
             assert _rel(got["sum_tra"].double().cpu().numpy(),
                         want["sum_tra"].double().cpu().numpy()) < tol
+
+
+@pytest.mark.cuda
+def test_emanuel_mixing_tracer_form_past_32_on_card(tmp_path):
+    """On a CUDA card: K2's tracer form at the gas-phase tracer counts
+    (CBMZ 37, DCCB 50, CB6 51) and its limit (64), f64 past 48 KB of shared
+    memory, against its plain version; and at 32 tracers and fewer bit for
+    bit the previous source's (the one that stopped at 32), which
+    ``tools/chip_chem.py`` rebuilds by taking the change back."""
+    _tracer_form_on_card(((18, 37), (18, 50), (41, 51), (41, 64)))
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parent.parent / "tools" / "chip_chem.py"
+    spec = importlib.util.spec_from_file_location("chip_chem", path)
+    chip_chem = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_chem)
+    chip_chem.previous_k2_check(torch.device("cuda"), tmp_path)
+
+
+def _stage_matrices(ncell, n, seed=6):
+    """Stage matrices I·2 − J of the gas solver's form and right-hand
+    sides, numpy."""
+    rng = np.random.default_rng(seed)
+    p = 2.0 * np.eye(n) - rng.normal(size=(ncell, n, n)) / np.sqrt(n)
+    return p, rng.normal(size=(ncell, n))
+
+
+def test_gas_lu_plain_solves_on_cpu():
+    """K6's wrapper on CPU tensors: the plain version (LAPACK), no launch;
+    the factorisation solves P x = b and serves a second right-hand side;
+    mismatched shapes and dtypes are refused."""
+    from regcm_tpu_torch.kernels import gas_lu as k6
+    p, b = _stage_matrices(50, 58)
+    k6.launches = k6.launches_solve = 0
+    lu, piv, x = k6.lu_factor_solve(T(p), T(b))
+    np.testing.assert_allclose(np.einsum("cij,cj->ci", p, x.numpy()), b,
+                               rtol=0, atol=1e-12)
+    y = k6.lu_solve(lu, piv, T(2.0 * b))
+    np.testing.assert_allclose(y.numpy(), 2.0 * x.numpy(), rtol=1e-13,
+                               atol=1e-13)
+    assert k6.launches == k6.launches_solve == 0
+    with pytest.raises(ValueError):
+        k6.lu_factor_solve(T(p), T(b[:, :57]))
+    with pytest.raises(TypeError):
+        k6.lu_factor_solve(T(p).to(torch.int64), T(b))
+    with pytest.raises(ValueError):
+        k6.lu_factor_solve(T(p), T(b).float())
+
+
+@pytest.mark.cuda
+def test_gas_lu_on_card():
+    """On a CUDA card: K6's factorisation and both solves against the plain
+    version (torch.linalg.lu_factor and lu_solve), CBMZ's and CB6's sizes
+    and the kernel's limit, f64 at 1e-12 and f32 at 1e-5 of the solution's
+    scale, the plain version's pivots kept; a launch each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from regcm_tpu_torch.kernels import gas_lu as k6
+    dev = torch.device("cuda")
+    for ncell, n in ((1000, 58), (333, 76), (100, 96), (65, 5)):
+        p, b = _stage_matrices(ncell, n)
+        for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+            f = lambda a: T(a).to(dev, dtype)
+            k6.launches = k6.launches_solve = 0
+            lu, piv, x = k6.lu_factor_solve(f(p), f(b))
+            y = k6.lu_solve(lu, piv, f(2.0 * b))
+            assert k6.launches == k6.launches_solve == 1
+            lu_w, piv_w, x_w = k6.lu_factor_solve_plain(f(p), f(b))
+            y_w = k6.lu_solve_plain(lu_w, piv_w, f(2.0 * b))
+            torch.cuda.synchronize()
+            assert torch.equal(piv.long().cpu() + 1, piv_w.long().cpu())
+            for g, w in ((x, x_w), (y, y_w), (lu, lu_w)):
+                assert _rel(g.double().cpu().numpy(),
+                            w.double().cpu().numpy()) < tol, (n, dtype)

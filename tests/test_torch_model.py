@@ -18,6 +18,7 @@ from regcm_tpu.config.params import RegCMConfig  # noqa: E402
 from regcm_tpu.core.grid import build_grid  # noqa: E402
 from regcm_tpu_torch.config.params import RegCMConfig as TConfig  # noqa
 from regcm_tpu_torch.core.grid import build_grid as tbuild_grid  # noqa
+from ._torch_jax_child import use_suite_cache  # noqa: E402
 
 NSTEPS = 10
 FIELDS = ("ps", "t", "qv", "u", "v")
@@ -56,6 +57,7 @@ def _jax_trajectory(conf, s0):
     each alarm pattern): the decoupled fields after the first and the
     last step. Runs in a spawned process, which has not read the
     conftest's settings."""
+    use_suite_cache()
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
     from regcm_tpu.driver import Model as JModel
@@ -193,13 +195,13 @@ def test_standard_atmosphere_state_matches_jax():
 def test_model_refuses_unported_options():
     """Every option the port leaves out, or the JAX package refuses,
     raises at model build: Kuo over land beside Emanuel over water (Kuo
-    is never mixed), RRTMG (irrtm=1, item 15), the gas-phase chemistry
-    (CBMZ, item 13b), Tiedtke's tracer transport (item 13a-2), chemistry
-    on the NH core and without a chemsimtype (the JAX package's
-    refusals), the UW TCM, a periodic domain and the subgrid surface on
-    MOLOCH; the decomposed runs (mesh=) also refuse the gas phase (item
-    13b), and build the semi-Lagrangian advection's core (ROADMAP item
-    10e, ported)."""
+    is never mixed), RRTMG (irrtm=1, item 15), chemistry on the NH core
+    and without a chemsimtype (the JAX package's refusals), the UW TCM, a
+    periodic domain and the subgrid surface on MOLOCH. The gas-phase
+    chemistry (CBMZ) and Tiedtke's tracer transport (DUST with Tiedtke
+    over land), refused until they were ported, build and step; a rank's
+    core of a decomposed run takes the gas phase's 37 tracers and the
+    semi-Lagrangian advection (ROADMAP item 10e)."""
     from regcm_tpu_torch.driver import Model
     from regcm_tpu_torch.parallel.mesh import DomainMesh
 
@@ -211,11 +213,6 @@ def test_model_refuses_unported_options():
                       (("geo", "i_crm", 1), ("core", "idynamic", 3)),
                       (("physics", "ichem", 1),),
                       (("physics", "ichem", 1), ("chem", "chemsimtype",
-                                                 "CBMZ")),
-                      (("physics", "ichem", 1), ("chem", "chemsimtype",
-                                                 "DUST"),
-                       ("physics", "icup_lnd", 5)),
-                      (("physics", "ichem", 1), ("chem", "chemsimtype",
                                                  "DUST"),
                        ("core", "idynamic", 2)),
                       (("physics", "idiffu", 4),),
@@ -226,13 +223,25 @@ def test_model_refuses_unported_options():
             setattr(getattr(cfg, section), name, val)
         with pytest.raises((ValueError, NotImplementedError)):
             Model(cfg, device="cpu")
+    for overrides in ((("chem", "chemsimtype", "CBMZ"),),
+                      (("chem", "chemsimtype", "DUST"),
+                       ("physics", "icup_lnd", 5))):
+        _, cfg = golden_cfgs()
+        cfg.dim.iy, cfg.dim.jx = 8, 10      # a step of the gas solver
+        cfg.physics.ichem = 1
+        for section, name, val in overrides:
+            setattr(getattr(cfg, section), name, val)
+        m = Model(cfg, device="cpu")
+        m.step()
+        assert m.check_finite()
+    from regcm_tpu_torch.dynamics.hydrostatic import HydroCore
     _, cfg = golden_cfgs()
+    mesh = DomainMesh(2, 2, cfg.dim.iy, cfg.dim.jx, rank=0)
     cfg.physics.ichem = 1
     cfg.chem.chemsimtype = "CBMZ"
-    mesh = DomainMesh(2, 2, cfg.dim.iy, cfg.dim.jx, rank=0)
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        Model(cfg, device="cpu", mesh=mesh, physics=False)
-    from regcm_tpu_torch.dynamics.hydrostatic import HydroCore
+    core = HydroCore(tbuild_grid(cfg), cfg, device="cpu", mesh=mesh,
+                     physics=None)
+    assert core.ntr == 37 and core.mesh is mesh
     _, cfg = golden_cfgs()
     cfg.physics.isladvec = 1
     core = HydroCore(tbuild_grid(cfg), cfg, device="cpu", mesh=mesh,

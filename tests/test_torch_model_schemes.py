@@ -26,6 +26,7 @@ import jax  # noqa: E402
 from regcm_tpu_torch.parallel import launch  # noqa: E402
 
 from . import _torch_schemes_ranks as R  # noqa: E402
+from ._torch_jax_child import use_suite_cache  # noqa: E402
 
 NAMES = tuple(R.SETTINGS)
 
@@ -40,6 +41,7 @@ def _jax_run(name):
     its own initial state: that state, the final state fields, the
     decoupled fields and the alarms. Runs in a spawned process, which
     has not read the conftest's settings."""
+    use_suite_cache()
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp

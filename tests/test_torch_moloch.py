@@ -23,6 +23,7 @@ from regcm_tpu.utils import constants as c  # noqa: E402
 from regcm_tpu_torch.config.params import RegCMConfig as TConfig  # noqa
 from regcm_tpu_torch.core.grid import build_grid as tbuild_grid  # noqa
 from regcm_tpu_torch.dynamics import moloch as tmo  # noqa: E402
+from ._torch_jax_child import use_suite_cache  # noqa: E402
 
 IY, JX, KZ = 16, 20, 14
 TRAJ_FIELDS = ("ps", "t", "qv", "u", "v", "w")
@@ -255,6 +256,7 @@ def _jax_slice(conf, s0):
     """The JAX package's Model(idynamic=3) for 12 steps from ``s0``: the
     decoupled fields. Runs in a spawned process, which has not read the
     conftest's settings."""
+    use_suite_cache()
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
     from regcm_tpu.driver import Model as JModel
@@ -348,18 +350,14 @@ def test_slice_without_condensation_matches_jax(field, slice_runs):
 
 
 def test_moloch_refusals():
-    """Kuo, the UW TCM and the periodic domains on MOLOCH; the gas-phase
-    chemistry (CBMZ, item 13b) and Tiedtke's tracer transport (item
-    13a-2)."""
+    """Kuo, the UW TCM and the periodic domains on MOLOCH are refused; the
+    gas-phase chemistry (CBMZ, its 37 tracers in K4's stack) and
+    Tiedtke's tracer transport (DUST with Tiedtke over water), refused
+    until they were ported, build and step."""
     from regcm_tpu_torch.driver import Model
 
     for overrides in ((("physics", "icup_lnd", 1),),
                       (("physics", "ibltyp", 2),),
-                      (("physics", "ichem", 1), ("chem", "chemsimtype",
-                                                 "CBMZ")),
-                      (("physics", "ichem", 1), ("chem", "chemsimtype",
-                                                 "DUST"),
-                       ("physics", "icup_ocn", 5)),
                       (("geo", "i_band", 1),),
                       (("geo", "i_crm", 1),)):
         _, cfg = moloch_cfgs()
@@ -367,6 +365,17 @@ def test_moloch_refusals():
             setattr(getattr(cfg, section), name, val)
         with pytest.raises((ValueError, NotImplementedError)):
             Model(cfg, device="cpu")
+    for overrides in ((("chem", "chemsimtype", "CBMZ"),),
+                      (("chem", "chemsimtype", "DUST"),
+                       ("physics", "icup_ocn", 5))):
+        _, cfg = moloch_cfgs()
+        cfg.dim.iy, cfg.dim.jx = 8, 10      # a step of the gas solver
+        cfg.physics.ichem = 1
+        for section, name, val in overrides:
+            setattr(getattr(cfg, section), name, val)
+        m = Model(cfg, device="cpu")
+        m.step()
+        assert m.check_finite()
 
 
 def test_float32_step_stays_float32():

@@ -27,6 +27,7 @@ from regcm_tpu.config.params import RegCMConfig  # noqa: E402
 from regcm_tpu.core.grid import build_grid  # noqa: E402
 from regcm_tpu_torch.config.params import RegCMConfig as TConfig  # noqa
 from regcm_tpu_torch.core.grid import build_grid as tbuild_grid  # noqa
+from ._torch_jax_child import use_suite_cache  # noqa: E402
 
 N, KZ, STEPS = 48, 41, 24
 # JAX package, float32, CPU: step -> (ps min hPa, ps max hPa, max |w| m/s)
@@ -69,6 +70,7 @@ def _jax_side(s0):
     """The JAX package's run (float32, x64 off) in a spawned process,
     which has not read the conftest's settings: the summaries at each
     step of REFERENCE and the decoupled fields at the last step."""
+    use_suite_cache()
     jax.config.update("jax_platforms", "cpu")
     from regcm_tpu.driver import Model as JModel
     jcfg, _ = cfgs()

@@ -26,6 +26,7 @@ from regcm_tpu.config.params import RegCMConfig  # noqa: E402
 from regcm_tpu.core.grid import build_grid  # noqa: E402
 from regcm_tpu_torch.config.params import RegCMConfig as TConfig  # noqa
 from regcm_tpu_torch.core.grid import build_grid as tbuild_grid  # noqa
+from ._torch_jax_child import use_suite_cache  # noqa: E402
 
 N, KZ, MAX_STEPS = 96, 41, 110
 CHECKS = (30, 60, 90)
@@ -78,6 +79,7 @@ def _step_until_blowup(m, to_numpy):
 def _jax_side(s0):
     """The JAX package's run (float32, x64 off) in a spawned process,
     which has not read the conftest's settings."""
+    use_suite_cache()
     jax.config.update("jax_platforms", "cpu")
     from regcm_tpu.driver import Model as JModel
     jcfg, _ = cfgs()

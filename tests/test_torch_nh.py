@@ -30,6 +30,7 @@ from regcm_tpu_torch.parallel import launch  # noqa: E402
 
 from . import _torch_nh_ranks as R  # noqa: E402
 from ._torch_icbc_files import write_files  # noqa: E402
+from ._torch_jax_child import use_suite_cache  # noqa: E402
 
 max_rel = R.max_rel
 # the decoupled fields each comparison reads: state field, divided by p*
@@ -53,6 +54,7 @@ def _jax_dyn(steps=R.NH["dyn_steps"], **physics):
     """The JAX package's step_nh on the dynamics setting (R.dyn_run's
     twin); the state fields after the last step. Also runs in spawned
     processes, which have not read the conftest's settings."""
+    use_suite_cache()
     jax.config.update("jax_enable_x64", True)
     from regcm_tpu.core.state import StepFlags, bdy_from_state
     from regcm_tpu.driver import nh_initial_state
@@ -73,6 +75,7 @@ def _jax_phys():
     setting, three steps from its nh_initial_state; the state fields and
     the alarms of each step. Runs in a spawned process, which has not
     read the conftest's settings."""
+    use_suite_cache()
     jax.config.update("jax_enable_x64", True)
     from regcm_tpu.driver import Model, nh_initial_state
     core = _jax_core()

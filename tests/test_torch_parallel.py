@@ -44,6 +44,7 @@ from regcm_tpu_torch.parallel.mesh import DomainMesh, factor2d  # noqa: E402
 from . import _torch_parallel_ranks as R  # noqa: E402
 from . import _torch_surface_settings as S  # noqa: E402
 from ._torch_icbc_files import write_files  # noqa: E402
+from ._torch_jax_child import use_suite_cache  # noqa: E402
 
 IY, JX = 16, 16                   # the 2x2 checks: 8x8 blocks
 K5_SHAPE = (7, 14, 16, 24)        # K5a's stack: nf, kz, iy, jx (f64)
@@ -143,6 +144,7 @@ def _dryrun_jax():
     """The JAX package's MOLOCH on dryrun_multichip's settings, one
     device (the JAX sharded gate is 1e-6). Runs in a spawned process,
     which has not read the conftest's settings."""
+    use_suite_cache()
     jax.config.update("jax_enable_x64", True)
     from regcm_tpu.config.params import RegCMConfig
     from regcm_tpu.core.state import StepFlags
@@ -173,6 +175,7 @@ def _hydro_jax(names):
     the state after each recorded step, as ``R.hydro_run`` builds it
     (dryrun_multichip drives the jitted ``HydroCore.step`` the same way).
     Runs in a spawned process."""
+    use_suite_cache()
     jax.config.update("jax_enable_x64", True)
     from regcm_tpu.config.params import RegCMConfig
     from regcm_tpu.core.state import StepFlags, bdy_from_state

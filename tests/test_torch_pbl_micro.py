@@ -22,6 +22,7 @@ import jax.numpy as jnp  # noqa: E402
 from regcm_tpu.utils import constants as c  # noqa: E402
 
 from . import _torch_surface_settings as S  # noqa: E402
+from ._torch_jax_child import use_suite_cache  # noqa: E402
 
 TOL = 1e-12
 MODEL_SETTING = "nh_myj"
@@ -59,7 +60,8 @@ def _check(got, want, tol=TOL, tols=None):
 def jax_model():
     """The JAX package's Model of setting (iii), in a spawned process
     started with the module."""
-    with ProcessPoolExecutor(1, mp_context=mp.get_context("spawn")) as pool:
+    with ProcessPoolExecutor(1, mp_context=mp.get_context("spawn"),
+                             initializer=use_suite_cache) as pool:
         job = pool.submit(S.jax_run, MODEL_SETTING)
         threads = torch.get_num_threads()
         torch.set_num_threads(1)

@@ -322,11 +322,13 @@ def test_zarr_store_matches_jax(tmp_path):
 
 
 @pytest.mark.parametrize("sim", ["DUST", "DU12", "SSLT", "DUSS", "CARB",
-                                 "SULF", "SUCA", "AERO", "POLLEN"])
+                                 "SULF", "SUCA", "AERO", "POLLEN", "CBMZ",
+                                 "DCCB", "CB6"])
 def test_chem_species_match_jax(sim):
-    """The port's copy of the tracer registry gives each aerosol
-    chemsimtype's tracer set, kinds, sizes, densities, solubilities,
-    aging pairs and oxidant switch as the JAX package's."""
+    """The port's copy of the tracer registry gives each chemsimtype's
+    tracer set, kinds, sizes, densities, solubilities, aging pairs and
+    oxidant and gas-phase switches as the JAX package's (the gas-phase
+    sets from each package's own mechanism tables)."""
     from regcm_tpu.chem import species as js
     from regcm_tpu_torch.chem import species as ts
     want = dataclasses.asdict(js.build_species(sim))
@@ -337,10 +339,13 @@ def test_chem_species_match_jax(sim):
         ts.build_species("MINE")
 
 
-@pytest.mark.parametrize("table", ["dust_optics", "drydep_gas", "oxclim"])
+@pytest.mark.parametrize("table", ["dust_optics", "drydep_gas", "oxclim",
+                                   "cbmz_mech", "cb6_mech"])
 def test_chem_tables_match_jax(table, tmp_path):
     """The port's copies of the dust optics and Zhang gas-deposition
-    tables equal the JAX package's arrays; its oxidant climatology gives
+    tables, and the tables of its twins of the CBMZ and CB6r2 mechanism
+    modules (species, weights, stoichiometry, reactant indices, the
+    tracer lists), equal the JAX package's; its oxidant climatology gives
     the JAX package's analytic fields on a grid, and reads an OXBC file
     in the run directory as the JAX package does."""
     if table == "oxclim":
@@ -365,7 +370,8 @@ def test_chem_tables_match_jax(table, tmp_path):
                jo.load_oxidants(jcfg, jg, sig), "OXBC")
         return
     mods = {"dust_optics": "_dust_optics_data",
-            "drydep_gas": "_drydep_gas_data"}[table]
+            "drydep_gas": "_drydep_gas_data", "cbmz_mech": "_cbmz_mech_data",
+            "cb6_mech": "_cb6_mech_data"}[table]
     import importlib
     jm = importlib.import_module(f"regcm_tpu.chem.{mods}")
     tm = importlib.import_module(f"regcm_tpu_torch.chem.{mods}")
@@ -375,3 +381,38 @@ def test_chem_tables_match_jax(table, tmp_path):
         n for n in dir(tm) if isinstance(getattr(tm, n), np.ndarray))
     for n in names:
         _equal(getattr(tm, n), getattr(jm, n), n)
+    lists = [n for n in dir(jm) if n.isupper()
+             and isinstance(getattr(jm, n), (int, list))]
+    for n in lists:
+        _equal(getattr(tm, n), getattr(jm, n), n)
+
+
+@pytest.mark.parametrize("sim", ["DCCB", "CB6"])
+def test_chem_icbc_matches_jax(sim, tmp_path):
+    """The port's copy of the chemical ICBC preprocessor writes the JAX
+    package's CHBC records (the month-interpolated climatology of each
+    tracer), over a month boundary, and each package's CHBCReader reads
+    either file alike."""
+    from regcm_tpu.preproc import chem_icbc as jch
+    from regcm_tpu_torch.preproc import chem_icbc as tch
+    jcfg, tcfg = configs(dict(OVERRIDES["golden"], **{
+        "chem.chemsimtype": sim, "globdat.gdate1": 1990061418,
+        "globdat.gdate2": 1990061512}))
+    pj, pt = str(tmp_path / "j_CHBC.nc"), str(tmp_path / "t_CHBC.nc")
+    jch.generate_chem_icbc(jcfg, pj)
+    tch.generate_chem_icbc(tcfg, pt)
+    date = tcal.Date.from_int(1990061500, tcfg.globdat.calendar)
+    jdate = jcal.Date.from_int(1990061500, jcfg.globdat.calendar)
+    for path in (pj, pt):
+        jr, tr = jch.CHBCReader(path), tch.CHBCReader(path)
+        assert tr.nrec() == jr.nrec() == 4 and tr.names == jr.names
+        _equal(tr.record_at(date), jr.record_at(jdate), path)
+    got, want = tch.CHBCReader(pt), jch.CHBCReader(pj)
+    for n in range(want.nrec()):
+        _equal(got.data["chi"][n], want.data["chi"][n], f"record {n}")
+    assert float(np.max(want.data["chi"])) > 0.0
+    xlat = np.asarray(tgrid.build_grid(tcfg).xlat)
+    spec = tch.build_species(sim)
+    _equal(tch.climatic_chi(spec, np.linspace(0.05, 0.995, 14), xlat, 12),
+           jch.climatic_chi(spec, np.linspace(0.05, 0.995, 14), xlat, 12),
+           "climatic_chi")

@@ -24,6 +24,7 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from . import _torch_surface_settings as S  # noqa: E402
+from ._torch_jax_child import use_suite_cache  # noqa: E402
 
 TOL = 1e-12
 MODEL_SETTINGS = ("band_slab", "moloch_sfc")
@@ -63,7 +64,8 @@ def _check(got, want, tol=TOL):
 def jax_jobs():
     """The JAX package's Model runs, started with the module."""
     with ProcessPoolExecutor(len(MODEL_SETTINGS),
-                             mp_context=mp.get_context("spawn")) as pool:
+                             mp_context=mp.get_context("spawn"),
+                             initializer=use_suite_cache) as pool:
         jobs = {n: pool.submit(S.jax_run, n) for n in MODEL_SETTINGS}
         threads = torch.get_num_threads()
         torch.set_num_threads(1)

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """The decomposed phases of ``chip_smoke.py`` (10-12, 14c, 15e, 16d, 17b,
-18b, 18d, 19e) alone, with only what they are held to: the single card's
+18b, 18d, 19e, 20d) alone, with only what they are held to: the single card's
 first 12 MOLOCH flagship steps (phase 6), the ICBC-driven runs (phase
 13, with test_001's SAV after step 132 for 12b's run past the boundary
 update), the NH flagship on one card (phase 14a), configurations A's,
 C's and D's first 12 steps on one card (phases 15a, 16b, 17a), the
-semi-Lagrangian test_001 on one card (18b, 18d) and configuration E's
-settings on test_001's widths on one card (19e).
+semi-Lagrangian test_001 on one card (18b, 18d), configuration E's
+settings on test_001's widths on one card (19e) and CBMZ there with its
+CHBC file (20d).
 
 For a host with four or more cards, where phases 10-12 run under gloo and
 under nccl (a card a rank): it spares the four-card call the phases that
@@ -67,7 +68,8 @@ def main():
     mods = {"K1": k1, "K2": k2, "K3": k3, "K4": k4}
     smi = cs.nvidia_smi_line()
     print(f"{smi}; {torch.cuda.device_count()} card(s)")
-    for m in mods.values():
+    from regcm_tpu_torch.kernels import gas_lu as k6
+    for m in [*mods.values(), k6]:
         m.build()
     if "--phase18" in sys.argv[1:]:
         tmp = tempfile.mkdtemp(prefix="chip_decomposed_")
@@ -116,9 +118,11 @@ def main():
         del d
         torch.cuda.empty_cache()
         e19 = cs.chem_single(dev, paths)                     # phase 19e
+        paths.update(cs.write_gas_files(tmp))
+        g20 = cs.gas_single(dev, paths)                      # phase 20d
         cs.run_decomposed(dev, smi, single12, paths, icbc13,
-                          nh14["single12"], a15, c16, d17,
-                          e19)      # 10-12, 14c, 15e, 16d, 17b, 18, 19e
+                          nh14["single12"], a15, c16, d17, e19,
+                          g20)  # 10-12, 14c, 15e, 16d, 17b, 18, 19e, 20d
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
